@@ -1,0 +1,29 @@
+"""pyamg_tpu_torch — algebraic multigrid on PyTorch and CUDA.
+
+The setup phase builds the hierarchy on the host with numpy and scipy;
+the solve phase runs on tensors on a CUDA device (the default) or on the
+CPU when the caller asks for it.  The banded SpMV and the multicolor
+Gauss-Seidel sweep are hand-written CUDA kernels (``csrc/``), built with
+``nvcc`` at first use.
+
+Main path::
+
+    import numpy as np
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    A64 = poisson((500, 500))
+    ml = smoothed_aggregation_solver(A64.astype(np.float32),
+                                     aggregate=("grid", {}), max_coarse=10)
+    ml.compress_stencils().collapse_coarse(max_n=4096)
+    ml.enable_ds_refinement(A64).to_device()
+    x = ml.solve_refined_device(b, tol=1e-10)
+"""
+
+__version__ = "0.1.0"
+
+from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+from pyamg_tpu_torch.multilevel import MultilevelSolver
+from pyamg_tpu_torch.convert import hierarchy_from_arrays
+
+__all__ = ["MultilevelSolver", "hierarchy_from_arrays",
+           "smoothed_aggregation_solver"]

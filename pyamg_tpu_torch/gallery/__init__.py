@@ -1,0 +1,6 @@
+"""Model problems of the port."""
+
+from pyamg_tpu_torch.gallery.laplacian import poisson
+from pyamg_tpu_torch.gallery.stencil import stencil_grid
+
+__all__ = ["poisson", "stencil_grid"]
