@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Drive pyamg_tpu_torch's main path on one CUDA card and check it.
+"""Drive pyamg_tpu_torch's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions, and the build of the CUDA kernels from ``pyamg_tpu_torch/csrc``;
+   versions, and the build of the CUDA kernels from ``pyamg_tpu_torch/csrc``
+   (one ``nvcc`` per source, started together);
 2. kernels: K1 (banded SpMV) and K2 (multicolor Gauss-Seidel sweep) against
-   their plain PyTorch versions at the main path's shapes, and the
-   double-single ``two_prod`` against float64;
+   their plain PyTorch versions at the 500^2 path's shapes, and the
+   double-single ``two_prod`` against float64; K3 (SELL SpMV) on every
+   SELL operator of the 3-D Poisson 64^3 hierarchy and, in the K4 regime,
+   on the SELL plan of 2-D Poisson 1800^2; K5 (hybrid Gauss-Seidel)
+   forward, backward and symmetric on the 64^3 path's square SELL levels;
 3. main path: 2-D Poisson 500^2, grid smoothed aggregation, stencil
    compression, dense coarse tail, double-single refinement, solved to
    1e-10 on the card with the kernels' launch counts read around it; then a
    96^2 solve on the card against the same solve on the CPU;
-4. times after a warm-up: the warm solve (host clock); one warm solve
-   under torch.profiler, broken down into device busy time, idle share,
-   device operations, host syncs and kernels by device time; one V-cycle;
-   and K1/K2 beside their byte bound, plain versions and library call
-   (device time per call from torch.profiler, and CUDA events around
-   back-to-back calls).
+4. sa3d: 3-D Poisson 64^3, standard smoothed aggregation, DIA and SELL
+   layouts, ``solve_refined(tol=1e-10, accel="cg")`` as
+   ``bench_suite.bench_sa_poisson_3d_64`` runs it, with the launch counts
+   read around the solve; then a 24^3 solve on the card against the same
+   solve on the CPU;
+5. times after a warm-up: for each path the warm solve (host clock) and
+   one warm solve under torch.profiler, broken down into device busy
+   time, idle share, device operations, host syncs and kernels by device
+   time; one 500^2 V-cycle; and K1-K5 beside their byte bound, plain
+   versions and library call (device time per call from torch.profiler,
+   and CUDA events around back-to-back calls).
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
@@ -36,6 +45,17 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 SEED = 2022
+# the JAX package's inner CG iterations per outer step on the 64^3 path
+# (tests/jax_sell_reference.py 64, Pallas kernels in interpret mode on a
+# CPU): the port's counts must equal them within 1
+JAX_INNER_64 = (6, 7)
+# (kind, t, passes, Sy) of the SELL operators at 64^3 and the layout of
+# each level's (A, P, R)
+SELL_64 = {"P0": ("tall", 8, 13, 2048), "R0": ("fat", 8, 152, 256),
+           "A1": ("tall", 1, 66, 256), "P1": ("tall", 41, 11, 328),
+           "R1": ("fat", 41, 839, 8), "A2": ("tall", 1, 89, 8)}
+LAYOUT_64 = [("DIA", "SELL", "SELL"), ("SELL", "SELL", "SELL"),
+             ("SELL", "ELL", "ELL"), ("DIA", "NoneType", "NoneType")]
 
 
 def check(cond, msg):
@@ -113,15 +133,102 @@ def build_hierarchy(N, max_n, device, ds=True):
     return A64, ml, full
 
 
+def build_kernels():
+    """Build every CUDA source of the port at once (one nvcc each)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
+    with ThreadPoolExecutor(2) as pool:
+        futures = [(m.__name__.rsplit(".", 1)[-1], pool.submit(m.build))
+                   for m in (dia_kernels, sell_kernels)]
+        return {name: f.result() for name, f in futures}
+
+
+def build_sa3d(N):
+    """The 3-D Poisson N^3 path's setup (``bench_suite.py:65-80``): (A64,
+    ml) with standard smoothed aggregation, ``max_coarse=50``, stencils
+    compressed (DIA and SELL)."""
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    A64 = poisson((N, N, N))
+    ml = smoothed_aggregation_solver(A64.astype(np.float32), max_coarse=50)
+    return A64, ml.compress_stencils()
+
+
+def sell_operators(ml):
+    """{name: (placed SELL, host ELL original)} of a compressed hierarchy."""
+    from pyamg_tpu_torch.sparse.sell import SELL
+    out = {}
+    for i, lvl in enumerate(ml.levels):
+        for attr in "APR":
+            op = getattr(lvl, attr)
+            if isinstance(op, SELL):
+                out[f"{attr}{i}"] = (op, getattr(lvl, attr + "_ell"))
+    return out
+
+
+def layout(ml):
+    return [tuple(type(getattr(l, a)).__name__ for a in "APR")
+            for l in ml.levels]
+
+
+def csr_on(S, device):
+    """A scipy matrix as a float32 torch CSR tensor (the library yardstick)."""
+    import torch
+    S = S.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(S.indptr, dtype=torch.int64),
+        torch.as_tensor(S.indices, dtype=torch.int64),
+        torch.as_tensor(S.data, dtype=torch.float32), size=S.shape,
+        device=device)
+
+
+def profiled(fn):
+    """Run ``fn`` once under torch.profiler: (wall us, device busy us,
+    device ops [(name, start, end)], host syncs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops, syncs = [], 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ops.append((e.name, e.time_range.start, e.time_range.end))
+        elif e.name == "aten::_local_scalar_dense":
+            syncs += 1
+    busy = busy_us([(s, t) for _, s, t in ops])
+    check(busy > 0, "the profiled solve ran nothing on the device")
+    return wall_us, busy, ops, syncs
+
+
+def print_profile(tag, wall_us, busy, ops, syncs, top=12):
+    print(f"times: {tag} profiled warm solve wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall_us:.4f}, device ops {len(ops)}, host syncs "
+          f"{syncs}")
+    by_name = {}
+    for name, s, t in ops:
+        c, d = by_name.get(name, (0, 0.0))
+        by_name[name] = (c + 1, d + (t - s))
+    for name, (c, d) in sorted(by_name.items(),
+                               key=lambda kv: -kv[1][1])[:top]:
+        print(f"times: {tag} device {d:9.1f} us = {c:5d} x {d / c:7.2f} us  "
+              f"{name[:90]}")
+
+
 def main():
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import ds as dsm
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    from pyamg_tpu_torch.sparse import sell as sellm
     from pyamg_tpu_torch.relaxation.relaxation import gs_order
     from pyamg_tpu_torch.sparse.matrix import dia_from_ell, to_scipy
     from pyamg_tpu_torch.gallery import poisson
-    from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -135,11 +242,14 @@ def main():
     print(smi.splitlines()[0])
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    built = dk.build()
-    print(f"device: kernel build {built['seconds']:.1f} s -> {built['path']}")
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"device: ptxas {line.strip()}")
+    t0 = time.perf_counter()
+    for name, built in build_kernels().items():
+        print(f"device: {name} build {built['seconds']:.1f} s -> "
+              f"{built['path']}")
+        for line in built["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"device: ptxas {line.strip()}")
+    print(f"device: kernels built in {time.perf_counter() - t0:.1f} s")
 
     # -- 2. kernels against their plain versions ---------------------------
     _, ml_k, _ = build_hierarchy(500, 0, dev, ds=False)
@@ -208,8 +318,77 @@ def main():
     check(bool(exact.all()), "double-single two_prod is not exact on the "
                              "card (a fused multiply-add crept in)")
 
+    # K3 on every SELL operator of the 64^3 path, K5 on its square levels
+    t0 = time.perf_counter()
+    _, ml_s = build_sa3d(64)
+    ml_s.to_device(dev)
+    print(f"kernels: 64^3 setup+compress+place {time.perf_counter() - t0:.2f}"
+          f" s")
+    sell_ops = sell_operators(ml_s)
+    check(sorted(sell_ops) == sorted(SELL_64),
+          f"SELL operators {sorted(sell_ops)} at 64^3")
+    for name, (S, _) in sell_ops.items():
+        x = torch.as_tensor(rng.standard_normal(S.shape[1]),
+                            device=dev).float()
+        y = sk.sell_spmv(S, x)
+        want = sk.sell_spmv_plain(S, x)
+        torch.cuda.synchronize()
+        err, scale = rel_err(y, want)
+        tol = 1e-6 * scale
+        print(f"kernels: K3 {name} {S.kind}/{S.t} {S.shape} passes "
+              f"{S.n_passes} K={S.K} Sy={S.Sy} max_abs_err={err:.3e} "
+              f"tol={tol:.3e}")
+        check(err <= tol, f"K3 {name} disagrees with its plain version")
+        kernel_inputs[f"K3 {name}"] = (S, x, err)
+
+    t0 = time.perf_counter()
+    big_s = sellm.sell_from_ell(poisson((1800, 1800)).astype(np.float32))
+    t_plan = time.perf_counter() - t0
+    check(big_s is not None and big_s.square and
+          big_s.x_rows * sellm.LANE * 4 > sellm._VMEM_X_BUDGET,
+          "the 1800^2 plan is not a square SELL in the K4 regime")
+    big_sd = big_s.to(dev)
+    x = torch.as_tensor(rng.standard_normal(big_s.shape[1]),
+                        device=dev).float()
+    y = sk.sell_spmv(big_sd, x)
+    want = sk.sell_spmv_plain(big_sd, x)
+    torch.cuda.synchronize()
+    err, scale = rel_err(y, want)
+    print(f"kernels: K4 regime 1800^2 plan {t_plan:.2f} s, passes "
+          f"{big_s.n_passes} K={big_s.K} Sy={big_s.Sy}, x "
+          f"{big_s.x_rows * sellm.LANE * 4 / 2**20:.1f} MiB in the "
+          f"reference's layout (VMEM budget "
+          f"{sellm._VMEM_X_BUDGET / 2**20:.0f} MiB) max_abs_err={err:.3e} "
+          f"tol={1e-6 * scale:.3e}")
+    check(err <= 1e-6 * scale, "K3 in the K4 regime disagrees with its "
+                               "plain version")
+    kernel_inputs["K4"] = (big_sd, big_s, x, err)
+
+    for name in ("A1", "A2"):
+        S, _ = sell_ops[name]
+        lvl = ml_s.levels[int(name[1])]
+        n = S.shape[0]
+        Dinv = lvl.pre[2]["Dinv"]
+        x = torch.as_tensor(rng.standard_normal(n), device=dev).float()
+        b = torch.as_tensor(rng.standard_normal(n), device=dev).float()
+        for sweep in ("forward", "backward", "symmetric"):
+            for omega in (1.0, 0.8):
+                got = sk.sell_gs_sweep(S, x, b, Dinv, omega, sweep)
+                want = sk.sell_gs_sweep_plain(S, x, b, Dinv, omega, sweep)
+                torch.cuda.synchronize()
+                err, scale = rel_err(got, want)
+                tol = 1e-5 * scale
+                print(f"kernels: K5 {name} n={n} tiles "
+                      f"{-(-n // sk.GS_TILE)} {sweep} omega={omega} "
+                      f"max_abs_err={err:.3e} tol={tol:.3e}")
+                check(err <= tol, f"K5 {name} {sweep} disagrees with its "
+                                  f"plain version")
+                if (name, sweep, omega) == ("A1", "forward", 1.0):
+                    kernel_inputs["K5"] = (S, x, b, Dinv, err)
+
     # -- 3. main path --------------------------------------------------------
     dk.reset_launch_counts()
+    sk.reset_launch_counts()
     t0 = time.perf_counter()
     A64, ml, (nlev_setup, oc) = build_hierarchy(500, 4096, dev)
     ml.to_device(dev)
@@ -254,36 +433,67 @@ def main():
           f"(tol 1e-7)")
     check(diff < 1e-7, "the card's solve disagrees with the CPU's")
 
-    # -- 4. times --------------------------------------------------------------
+    # -- 4. sa3d: 3-D Poisson 64^3, standard SA, SELL ----------------------
+    t0 = time.perf_counter()
+    A3, ml3 = build_sa3d(64)
+    nlev3, oc3 = len(ml3.levels), ml3.operator_complexity()
+    ml3.to_device(dev)
+    torch.cuda.synchronize()
+    t_setup3 = time.perf_counter() - t0
+    lay = layout(ml3)
+    plans = {k: (S.kind, S.t, S.n_passes, S.Sy)
+             for k, (S, _) in sell_operators(ml3).items()}
+    print(f"sa3d: setup+compress+place {t_setup3:.2f} s, levels {nlev3} "
+          f"operator_complexity {oc3:.7f} layout {lay} plans {plans}")
+    check(nlev3 == 4, "expected 4 levels at 64^3")
+    check(abs(oc3 - 1.5504) <= 1e-3, "operator complexity off 1.5504")
+    check(lay == LAYOUT_64 and plans == SELL_64,
+          "the 64^3 layouts differ from the reference's")
+    S3 = to_scipy(A3)
+    b3 = np.random.default_rng(0).standard_normal(A3.shape[0])
+    dk.reset_launch_counts()
+    sk.reset_launch_counts()
+    it3, res3 = {}, []
+    t0 = time.perf_counter()
+    x3 = ml3.solve_refined(b3, A_fine=S3, tol=1e-10, accel="cg",
+                           residuals=res3, iterations_out=it3)
+    t_cold3 = time.perf_counter() - t0
+    launches3 = {k.__name__: k.launches for k in dk.KERNELS + sk.KERNELS}
+    relres3 = float(np.linalg.norm(b3 - S3 @ x3) / np.linalg.norm(b3))
+    print(f"sa3d: cold solve_refined {t_cold3:.3f} s, outer {it3['outer']} "
+          f"inner {it3['inner']} (JAX package {list(JAX_INNER_64)}) "
+          f"true_relres {relres3:.3e} residuals {res3} launches "
+          f"{launches3}")
+    check(x3.shape == (A3.shape[0],) and np.isfinite(x3).all(),
+          "x is not a finite vector of the right shape")
+    check(it3["outer"] == 2, "expected 2 outer iterations")
+    check(len(it3["inner"]) == len(JAX_INNER_64) and
+          all(abs(a - b) <= 1 for a, b in zip(it3["inner"], JAX_INNER_64)),
+          "inner CG iterations differ from the JAX package's by more than 1")
+    check(relres3 < 1e-10, "true relative residual not below 1e-10")
+    check(all(v > 0 for v in launches3.values()),
+          "a kernel of the 64^3 path was never launched")
+
+    # the same small solve on the card and on the CPU (plain versions)
+    xs = {}
+    for d in ("cuda", "cpu"):
+        A24, ml24 = build_sa3d(24)
+        ml24.to_device(d)
+        b24 = np.random.default_rng(0).standard_normal(A24.shape[0])
+        xs[d] = ml24.solve_refined(b24, A_fine=to_scipy(A24), tol=1e-10)
+    diff = float(np.linalg.norm(xs["cuda"] - xs["cpu"]) /
+                 np.linalg.norm(xs["cpu"]))
+    print(f"sa3d: 24^3 solve, card vs CPU relative difference {diff:.3e} "
+          f"(tol 1e-9)")
+    check(diff < 1e-9, "the card's 24^3 solve disagrees with the CPU's")
+
+    # -- 5. times -------------------------------------------------------------
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
         ml.solve_refined_device(b)
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ml.solve_refined_device(b)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    ops, syncs = [], 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ops.append((e.name, e.time_range.start, e.time_range.end))
-        elif e.name == "aten::_local_scalar_dense":
-            syncs += 1
-    busy = busy_us([(s, t) for _, s, t in ops])
-    check(busy > 0, "the profiled solve ran nothing on the device")
-    print(f"times: profiled warm solve wall {wall_us / 1e3:.3f} ms, device "
-          f"busy {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.4f}, "
-          f"device ops {len(ops)}, host syncs {syncs}")
-    by_name = {}
-    for name, s, t in ops:
-        c, d = by_name.get(name, (0, 0.0))
-        by_name[name] = (c + 1, d + (t - s))
-    for name, (c, d) in sorted(by_name.items(),
-                               key=lambda kv: -kv[1][1])[:12]:
-        print(f"times: device {d:9.1f} us = {c:5d} x {d / c:7.2f} us  "
-              f"{name[:90]}")
+    print_profile("500^2", *profiled(lambda: ml.solve_refined_device(b)))
 
     cyc = ml._make_cycle("V")
     rv = torch.as_tensor(rng.standard_normal(A64.shape[0]),
@@ -298,24 +508,25 @@ def main():
           f"{cuda_ms(vcycle, reps=50):.4f} ms per call, "
           f"{device_ms(vcycle, reps=10):.4f} ms of device time")
 
-    def row(name, replaces, launches, err, fn, plain, library, nbytes, ops):
+    def row(name, replaces, launches, err, fn, plain, library, nbytes, ops,
+            source="pyamg_tpu_torch/csrc/dia_kernels.cu", plain_reps=50,
+            tag=None):
         """A kernel's line: device times per call (profiler), and its
         bound, the larger of bytes over the memory rate and float32
         operations over the float32 rate."""
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-        r = {"name": name, "route": "cuda",
-             "source": "pyamg_tpu_torch/csrc/dia_kernels.cu",
+        r = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, "max_abs_err": err,
-             "ms": device_ms(fn), "plain_ms": device_ms(plain),
+             "ms": device_ms(fn), "plain_ms": device_ms(plain, plain_reps),
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None if library is None else device_ms(library)}
         lib = "-" if library is None else f"{r['library_ms'] * 1e3:.2f} us"
-        print(f"times: {name} device {r['ms'] * 1e3:.2f} us per call "
+        print(f"times: {tag or name} device {r['ms'] * 1e3:.2f} us per call "
               f"({cuda_ms(fn) * 1e3:.2f} us per call with the host), bound "
-              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), plain "
-              f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, launches on "
-              f"the main path {launches}")
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB), plain {r['plain_ms'] * 1e3:.2f} us, "
+              f"library {lib}, launches on the main path {launches}")
         return r
 
     D, data, xk, err1 = kernel_inputs["K1"]
@@ -329,7 +540,7 @@ def main():
     e_lib, scale = rel_err(Acsr @ xk,
                            dk.dia_spmv_plain(data, D.offsets, n, xk))
     check(e_lib <= 1e-5 * scale, "library CSR product disagrees")
-    rows = [row("dia_spmv", "pyamg_tpu/ops/pallas_kernels.py:51",
+    rows = [row("dia_spmv", "pyamg_tpu/ops/pallas_kernels.py:52",
                 launches["dia_spmv"], err1,
                 lambda: dk.dia_spmv(data, D.offsets, n, xk),
                 lambda: dk.dia_spmv_plain(data, D.offsets, n, xk),
@@ -342,7 +553,7 @@ def main():
     # diagonal and 3 for the update
     per_color = torch.bincount(colors.long()).tolist()
     rows.append(row(
-        "dia_gs_sweep", "pyamg_tpu/ops/pallas_kernels.py:125",
+        "dia_gs_sweep", "pyamg_tpu/ops/pallas_kernels.py:126",
         launches["dia_gs_sweep"], err2,
         lambda: dk.dia_gs_sweep(data, D.offsets, n, xg, bg, Dinv, colors,
                                 order),
@@ -367,6 +578,58 @@ def main():
     print(f"times: dia_spmv 2048^2 f32 device {ms_big * 1e3:.2f} us, bound "
           f"{bytes_big / HBM_BYTES_PER_S * 1e6:.2f} us, "
           f"{bytes_big / (ms_big * 1e-3) / 1e9:.1f} GB/s")
+
+    # the 64^3 path: warm solves, one profiled, then K3-K5 at its shapes
+    walls3 = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ml3.solve_refined(b3, A_fine=S3, tol=1e-10, accel="cg")
+        walls3.append(time.perf_counter() - t0)
+    print(f"times: 64^3 warm solve_refined median of 5 "
+          f"{statistics.median(walls3) * 1e3:.3f} ms (all "
+          f"{[round(w * 1e3, 3) for w in walls3]})")
+    print_profile("64^3", *profiled(lambda: ml3.solve_refined(
+        b3, A_fine=S3, tol=1e-10, accel="cg")), top=16)
+
+    sell_src = "pyamg_tpu_torch/csrc/sell_kernels.cu"
+
+    def sell_row(name, replaces, S, S_scipy, x, err, tag):
+        """K3/K4 at one operator: bound from its plan (values and deltas),
+        x read and y written; 2 flops per stored entry."""
+        T, Sy, _ = S.vals.shape
+        lib = csr_on(S_scipy, dev)
+        e_lib, scale = rel_err(lib @ x, sk.sell_spmv_plain(S, x))
+        check(e_lib <= 1e-5 * scale, f"library CSR product disagrees ({tag})")
+        return row(name, replaces, launches3["sell_spmv"], err,
+                   lambda: sk.sell_spmv(S, x),
+                   lambda: sk.sell_spmv_plain(S, x), lambda: lib @ x,
+                   T * Sy * sellm.LANE * 8 + (S.shape[0] + S.shape[1]) * 4,
+                   2 * S.nnz, source=sell_src, plain_reps=5, tag=tag)
+
+    k3 = {}
+    for name, (S, S_host) in sell_operators(ml_s).items():
+        _, x, err = kernel_inputs[f"K3 {name}"]
+        k3[name] = sell_row("sell_spmv", "pyamg_tpu/ops/sell_kernels.py:29",
+                            S, to_scipy(S_host), x, err, f"sell_spmv {name}")
+    rows.append(k3["R0"])
+    big_sd, big_s, xk4, err4 = kernel_inputs["K4"]
+    rows.append(sell_row(
+        "sell_spmv (K4 regime, 2-D Poisson 1800^2)",
+        "pyamg_tpu/ops/sell_kernels.py:108", big_sd,
+        sellm.sell_to_scipy(big_s), xk4, err4, "sell_spmv K4 regime 1800^2"))
+
+    S, xg, bg, Dinv, err5 = kernel_inputs["K5"]
+    T, Sy, _ = S.vals.shape
+    n = S.shape[0]
+    # one directional sweep reads the plan, b, Dinv and x once and writes
+    # x; 2 flops per stored entry and 3 per row for the update
+    rows.append(row(
+        "sell_gs_sweep", "pyamg_tpu/ops/sell_kernels.py:241",
+        launches3["sell_gs_sweep"], err5,
+        lambda: sk.sell_gs_sweep(S, xg, bg, Dinv, 1.0, "forward"),
+        lambda: sk.sell_gs_sweep_plain(S, xg, bg, Dinv, 1.0, "forward"),
+        None, T * Sy * sellm.LANE * 8 + 4 * n * 4, 2 * S.nnz + 3 * n,
+        source=sell_src, plain_reps=2, tag="sell_gs_sweep A1 forward"))
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

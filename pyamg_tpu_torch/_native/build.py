@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 import time
 
@@ -39,3 +40,19 @@ def shared_library(source: str, cmd: list, name: str) -> dict:
     os.replace(tmp, path)
     return {"path": path, "seconds": time.perf_counter() - t0,
             "log": proc.stdout + proc.stderr}
+
+
+# nvcc for Hopper: sm_90a, a plain C ABI in a shared library; -Xptxas -v
+# puts each kernel's registers and spills into the build log
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def cuda_library(source: str, name: str) -> dict:
+    """``shared_library`` of a CUDA source, compiled with ``nvcc`` for
+    ``sm_90a`` (the CUDA toolkit is needed at first use)."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                           "the CUDA toolkit at first use")
+    return shared_library(source, [nvcc, *NVCC_FLAGS], name)

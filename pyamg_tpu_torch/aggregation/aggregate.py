@@ -1,6 +1,6 @@
-"""Grid aggregation (counterpart of ``grid_aggregation`` and
-``aggregate_dispatch`` in ``pyamg_tpu/aggregation/aggregate.py``; setup
-phase, numpy)."""
+"""Grid and standard aggregation (counterpart of ``grid_aggregation``,
+``standard_aggregation`` and ``aggregate_dispatch`` in
+``pyamg_tpu/aggregation/aggregate.py``; setup phase, numpy)."""
 
 from __future__ import annotations
 
@@ -52,12 +52,43 @@ def grid_aggregation(C: ELL, ratio=3, grid=None):
     return AggOp, Cpts
 
 
+def _csr_arrays(C: ELL):
+    """Host CSR (indptr, indices) of the stored pattern of ``C``."""
+    rn = np.asarray(C.row_nnz)
+    indices = np.asarray(C.cols)[C.valid_mask()].astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(rn)]).astype(np.int32)
+    return indptr, indices
+
+
+def standard_aggregation(C: ELL, seed=0, method="greedy"):
+    """Standard aggregation of the strength graph ``C``: the sequential
+    3-pass greedy of the port's native helper.  Returns ``(AggOp, Cpts)``.
+    ``method='parallel'`` (MIS-2 seeds and label propagation) is not
+    ported."""
+    from pyamg_tpu_torch import _native
+    if method != "greedy":
+        raise NotImplementedError(
+            f"standard aggregation method {method!r} is not ported yet "
+            "(only 'greedy')")
+    indptr, indices = _csr_arrays(C)
+    labels, cpts = _native.standard_aggregation(C.shape[0], indptr, indices)
+    nagg = int(labels.max()) + 1 if len(labels) else 0
+    if nagg == 0:
+        raise NotImplementedError(
+            "a graph without aggregates takes the parallel aggregation, "
+            "which is not ported yet")
+    return _aggop_from_labels(labels, nagg, C.vals.dtype), cpts
+
+
 def aggregate_dispatch(C, spec, seed=0):
-    """Dispatch PyAMG's ``(name, opts)`` aggregation convention; only
-    ``'grid'`` is ported."""
+    """Dispatch PyAMG's ``(name, opts)`` aggregation convention; ``'grid'``
+    and ``'standard'`` are ported."""
     from pyamg_tpu_torch.relaxation.smoothing import unpack_arg
     name, opts = unpack_arg(spec)
     if name == "grid":
         return grid_aggregation(C, **opts)
+    if name == "standard":
+        return standard_aggregation(C, seed=seed, **opts)
     raise NotImplementedError(
-        f"aggregation {name!r} is not ported yet (only 'grid')")
+        f"aggregation {name!r} is not ported yet (only 'grid' and "
+        "'standard')")

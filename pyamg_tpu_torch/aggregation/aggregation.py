@@ -51,8 +51,8 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
                                 coarse_solver="pinv", seed=0):
     """Smoothed-aggregation AMG hierarchy of a symmetric or Hermitian
     scalar operator (host ELL or scipy sparse).  Of the aggregation
-    methods only ``'grid'`` is ported, so callers pass
-    ``aggregate=("grid", {})``.
+    methods ``'standard'`` (the default, greedy) and ``'grid'`` are
+    ported.
 
     Examples
     --------
@@ -61,6 +61,8 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
     >>> ml = smoothed_aggregation_solver(poisson((30, 30)),
     ...                                  aggregate=("grid", {}))
     >>> len(ml.levels)
+    4
+    >>> len(smoothed_aggregation_solver(poisson((30, 30))).levels)
     4
     """
     A = asarray_or_ell(A)

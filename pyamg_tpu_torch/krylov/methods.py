@@ -30,7 +30,7 @@ def _rtol(criteria, tol, normb, normMb, fro, x0norm):
 
 
 def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
-            stall_window=8):
+            stall_window=8, callback=None):
     """Preconditioned CG from ``x``: ``(x_best, info, resbuf, nres)``.
 
     ``info`` is 0 on convergence, -1 on a curvature breakdown, and the
@@ -41,7 +41,8 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
     first fell below 10% of the start): f32 CG reaches its rounding floor
     before tight tolerances.  The best iterate seen is returned, because
     the 2-norm residual of CG is not monotone.  0 disables the stall
-    test.
+    test.  ``callback(x)`` is called with the iterate after every
+    iteration.
     """
     rdt = real_dtype(b.dtype)
     normb = norm(b)
@@ -91,6 +92,8 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
         stop = conv | bad_A | bad_M | stalled
         info = torch.where(bad_A | bad_M, -1, torch.where(conv, 0, info))
         x = torch.where(bad_A, x, xn)
+        if callback is not None:
+            callback(x)
         r, z, rz = rn, zn, rzn
         done = bool(stop)          # the one host read of the iteration
     if not done and it >= maxiter and int(info) == 0:

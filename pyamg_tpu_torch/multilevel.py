@@ -2,26 +2,61 @@
 ``pyamg_tpu/multilevel.py``).
 
 The setup phase builds every level with numpy arrays on the host.
-``compress_stencils`` turns them into the banded / grid-phase layouts,
-``collapse_coarse`` replaces the coarse tail with a dense inverse, and
-``to_device`` moves the operators and smoother arrays onto the card, where
-``solve_refined_device`` runs: a double-single outer defect correction
-around float32 CG, preconditioned by a V-cycle.  The cycle and the loops
-are Python over tensor ops; the host reads one convergence flag per
-iteration.
+``compress_stencils`` turns them into the banded / grid-phase / SELL
+layouts, ``collapse_coarse`` replaces the coarse tail with a dense
+inverse, and ``to_device`` moves the operators and smoother arrays onto
+the card.  Two solves run there:
+
+* ``solve_refined``: float64 outer residuals on the host (scipy) around
+  ``solve(accel="cg")``, escalating to a float64 twin of the hierarchy
+  (``as_dtype``) when refinement stalls;
+* ``solve_refined_device``: a double-single outer defect correction on the
+  device around float32 CG.
+
+``solve`` itself cycles standalone or as the preconditioner of CG.  The
+cycle and the loops are Python over tensor ops; the host reads one
+convergence flag per iteration.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from pyamg_tpu_torch._device import as_tensor, resolve
+from pyamg_tpu_torch.krylov.common import norm
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil, to_scipy
+from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec
 from pyamg_tpu_torch.relaxation.smoothing import apply_smoother
+
+_NUMPY_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _cast(v, dtype):
+    """``v`` (an operator, an array, a tensor or a dict of them) with its
+    floating-point data in ``dtype``; integer data stay as they are."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype) if v.is_floating_point() else v
+    if isinstance(v, np.ndarray):
+        return v.astype(_NUMPY_FLOAT[dtype]) \
+            if np.issubdtype(v.dtype, np.floating) else v
+    if isinstance(v, DIA):
+        return DIA(_cast(v.data, dtype), v.offsets, v.shape)
+    if isinstance(v, ELL):
+        return dataclasses.replace(v, vals=_cast(v.vals, dtype))
+    if isinstance(v, PhaseStencil):
+        return dataclasses.replace(
+            v, arrays=tuple(_cast(a, dtype) for a in v.arrays))
+    if isinstance(v, SELL):
+        raise ValueError("SELL is float32 only; a cast needs the level's "
+                         "ELL original")
+    if isinstance(v, dict):
+        return {k: _cast(a, dtype) for k, a in v.items()}
+    return v
 
 
 class Level:
@@ -97,17 +132,23 @@ class MultilevelSolver:
         return cyc
 
     # -- setup-phase layouts -------------------------------------------------
-    def compress_stencils(self, max_diags=64):
-        """Square ELL levels with few distinct offsets become ``DIA``, and
+    def compress_stencils(self, max_diags=64, sell=True):
+        """Square ELL levels with few distinct offsets become ``DIA``;
         grid-tagged P/R become ``PhaseStencil`` (R as the adjoint of the
-        stencil of R's transpose).  The originals stay as ``A_ell``,
-        ``P_ell`` and ``R_ell``.  Host arrays only: nothing is placed."""
+        stencil of R's transpose); with ``sell``, every other ELL A, P or R
+        whose structure allows it becomes ``SELL``.  The originals stay as
+        ``A_ell``, ``P_ell`` and ``R_ell``.  Host arrays only: nothing is
+        placed.  SELL is built with or without a card: on CPU tensors its
+        products and sweeps run their plain versions."""
         from pyamg_tpu_torch.sparse.matrix import (dia_from_ell,
                                                    phase_stencil_from_ell)
+        from pyamg_tpu_torch.sparse.sell import sell_from_ell
         from pyamg_tpu_torch.ops.transpose import transpose
         for lvl in self.levels:
             if isinstance(lvl.A, ELL):
                 D = dia_from_ell(lvl.A, max_diags=max_diags)
+                if D is None and sell:
+                    D = sell_from_ell(lvl.A)
                 if D is not None:
                     lvl.A_ell, lvl.A = lvl.A, D
             P = lvl.P
@@ -122,6 +163,14 @@ class MultilevelSolver:
                         if rps is not None:
                             lvl.R_ell = lvl.R
                             lvl.R = dataclasses.replace(rps, trans=True)
+            if sell:
+                for attr in ("P", "R"):
+                    op = getattr(lvl, attr)
+                    if isinstance(op, ELL):
+                        S = sell_from_ell(op)
+                        if S is not None:
+                            setattr(lvl, attr + "_ell", op)
+                            setattr(lvl, attr, S)
         return self
 
     def collapse_coarse(self, max_n=4096, device="cuda"):
@@ -163,7 +212,7 @@ class MultilevelSolver:
         device = resolve(device)
 
         def put(v):
-            if isinstance(v, (DIA, ELL, PhaseStencil)):
+            if isinstance(v, (DIA, ELL, PhaseStencil, SELL)):
                 return v.to(device)
             if isinstance(v, (np.ndarray, torch.Tensor)):
                 return as_tensor(v, device)
@@ -244,3 +293,161 @@ class MultilevelSolver:
             iterations_out["outer"] = k
             iterations_out["inner"] = itot
         return dsm.ds_to_f64(xhi, xlo)
+
+    def aspreconditioner(self, cycle="V"):
+        """One ``cycle`` from a zero guess, as a linear operator with
+        ``shape``, ``dtype``, ``matvec`` and ``@``."""
+        cyc = self._make_cycle(cycle)
+        A0 = self.levels[0].A
+
+        class _Preconditioner:
+            shape = A0.shape
+            dtype = A0.dtype
+
+            @staticmethod
+            def matvec(r):
+                return cyc(torch.zeros_like(r), r)
+
+            def __matmul__(self, r):
+                return self.matvec(r)
+
+        return _Preconditioner()
+
+    def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
+              accel=None, callback=None, residuals=None, return_info=False):
+        """Solve A x = b in the hierarchy's dtype on its device, by
+        standalone cycling or, with ``accel="cg"``, by CG preconditioned by
+        one cycle.  Stops once ``||b - A x|| < tol * ||b||`` or after
+        ``maxiter`` cycles / iterations.  A hierarchy not yet placed moves
+        to the card first.  Returns x as a tensor (and ``info``, 0 on
+        convergence, else the iteration count, with ``return_info``).
+
+        ``callback(x)`` is called after every cycle or CG iteration;
+        ``residuals`` is filled with the residual norms, the initial one
+        first."""
+        from pyamg_tpu_torch.krylov.methods import cg_loop
+        if self.device is None:
+            self.to_device()
+        A0 = self.levels[0].A
+        dtype = A0.dtype
+        b = as_tensor(b, self.device, dtype).reshape(-1)
+        x = torch.zeros_like(b) if x0 is None else \
+            as_tensor(x0, self.device, dtype).reshape(-1)
+        cyc = self._make_cycle(cycle)
+
+        def mv(v):
+            return matvec(A0, v)
+
+        if accel is not None:
+            if accel != "cg":
+                raise NotImplementedError(
+                    f"accel={accel!r} is not ported yet (only 'cg')")
+            x, info, resbuf, nres = cg_loop(
+                mv, lambda r: cyc(torch.zeros_like(r), r), x, b, tol, "rr",
+                maxiter, callback=callback)
+            if residuals is not None:
+                residuals[:] = resbuf[:nres].tolist()
+            return (x, int(info)) if return_info else x
+
+        normb = norm(b)
+        rtol = tol * torch.where(normb == 0, 1.0, normb)
+        nr = norm(b - mv(x))
+        hist = [nr]
+        it = 0
+        done = bool(nr < rtol)
+        while not done and it < maxiter:
+            x = cyc(x, b)
+            it += 1
+            nr = norm(b - mv(x))
+            hist.append(nr)
+            if callback is not None:
+                callback(x)
+            done = bool(nr < rtol)
+        if residuals is not None:
+            residuals[:] = torch.stack(hist).tolist()
+        return (x, 0 if done else it) if return_info else x
+
+    def solve_refined(self, b, A_fine=None, tol=1e-10, inner_tol=1e-5,
+                      inner_maxiter=30, max_outer=10, cycle="V", accel="cg",
+                      residuals=None, iterations_out=None):
+        """Solve A x = b to float64 accuracy: float64 defect correction on
+        the host around ``solve`` on the device.
+
+        Each outer step takes ``r = b - A x`` in float64 (scipy), solves
+        ``A e = r / ||r||`` in the hierarchy's dtype to ``inner_tol`` and
+        adds ``||r|| e`` to x.  Stops once ``||r|| <= tol * ||b||``.  When
+        an outer step reduces ``||r||`` by less than 0.7x, the inner solves
+        move to a float64 twin of the hierarchy (``as_dtype``, built once);
+        a second stall stops with a warning.
+
+        ``A_fine``: the fine operator in float64 (scipy sparse or a host
+        ELL/DIA; defaults to the stored fine ELL).  ``residuals``: filled
+        with the outer residual norms.  ``iterations_out``: filled with
+        ``{'outer': k, 'inner': [iterations of each inner solve]}``.
+        Returns x as float64 numpy."""
+        import scipy.sparse as sp
+        if A_fine is None:
+            A_fine = getattr(self.levels[0], "A_ell", self.levels[0].A)
+        if not sp.issparse(A_fine):
+            A_fine = to_scipy(A_fine)
+        As = A_fine.astype(np.float64)
+        if self.device is None:
+            self.to_device()
+        b64 = np.asarray(b, np.float64).reshape(-1)
+        n = b64.shape[0]
+        x = np.zeros(n, np.float64)
+        normb = np.linalg.norm(b64) or 1.0
+        hist, inner_its = [], []
+        inner = self
+        dtype_in = self.levels[0].A.dtype
+        for _ in range(max_outer):
+            r = b64 - As @ x
+            nr = np.linalg.norm(r)
+            hist.append(float(nr))
+            if nr <= tol * normb:
+                break
+            if len(hist) > 1 and nr > 0.7 * hist[-2]:
+                if inner is self and dtype_in != torch.float64:
+                    if getattr(self, "_f64_twin", None) is None:
+                        self._f64_twin = self.as_dtype(torch.float64)
+                    inner, dtype_in = self._f64_twin, torch.float64
+                else:
+                    warnings.warn("solve_refined: outer refinement stalled "
+                                  f"at relative residual {nr / normb:.2e}")
+                    break
+            res = []
+            e = inner.solve(torch.as_tensor(r / nr, dtype=dtype_in),
+                            tol=inner_tol, maxiter=inner_maxiter,
+                            cycle=cycle, accel=accel, residuals=res)
+            inner_its.append(len(res) - 1)
+            x = x + nr * e.cpu().numpy().astype(np.float64)[:n]
+        else:
+            hist.append(float(np.linalg.norm(b64 - As @ x)))
+        if residuals is not None:
+            residuals[:] = hist
+        if iterations_out is not None:
+            iterations_out["outer"] = len(inner_its)
+            iterations_out["inner"] = inner_its
+        return x
+
+    def as_dtype(self, dtype):
+        """A twin of this hierarchy with its floating-point data in
+        ``dtype``, placed where this one is.  SELL is float32 only, so the
+        twin takes each SELL operator's ELL original (``A_ell``, ``P_ell``,
+        ``R_ell``); DIA levels keep K1/K2, which take float64."""
+        def src(lvl, attr):
+            v = getattr(lvl, attr)
+            if isinstance(v, SELL):
+                v = getattr(lvl, attr + "_ell", v)
+            return _cast(v, dtype)
+
+        levels = []
+        for lvl in self.levels:
+            twin = Level(src(lvl, "A"), src(lvl, "P"), src(lvl, "R"))
+            twin.pre = lvl.pre[:2] + (_cast(lvl.pre[2], dtype),)
+            twin.post = lvl.post[:2] + (_cast(lvl.post[2], dtype),)
+            levels.append(twin)
+        cs = CoarseSolver("pinv")
+        cs.params = _cast(self.coarse_solver.params, dtype)
+        new = MultilevelSolver(levels, coarse_solver=cs)
+        return new if self.device is None else new.to_device(self.device)

@@ -13,6 +13,7 @@ import torch
 
 from pyamg_tpu_torch._device import as_tensor, resolve
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL
+from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
 
 
 def check_matmul_precision():
@@ -28,7 +29,8 @@ def check_matmul_precision():
 
 
 def to_dense(A, device="cuda") -> torch.Tensor:
-    """Dense (n, m) tensor of a host DIA or ELL container on ``device``."""
+    """Dense (n, m) tensor of a host DIA, ELL or SELL container on
+    ``device``."""
     device = resolve(device)
     n, m = A.shape
     if isinstance(A, DIA):
@@ -50,6 +52,8 @@ def to_dense(A, device="cuda") -> torch.Tensor:
                                 torch.long)),
                      vals, accumulate=True)
         return M
+    if isinstance(A, SELL):
+        return as_tensor(sell_to_scipy(A).toarray(), device)
     raise TypeError(f"cannot densify {type(A).__name__}")
 
 

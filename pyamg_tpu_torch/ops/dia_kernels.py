@@ -29,34 +29,23 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
 
 import torch
 
-from .._native.build import shared_library
+from .._native.build import cuda_library
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "dia_kernels.cu")
 MAX_DIAGS = 64             # kMaxDiags in the CUDA source
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _FLOATS = (torch.float32, torch.float64)
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels are built with "
-                           "the CUDA toolkit at first use")
-    return path
 
 
 def build() -> dict:
     """Compile ``csrc/dia_kernels.cu`` (unless this source was built with
     these flags already) and return ``{"path", "seconds", "log"}``;
     ``log`` holds the compiler's register/spill report when a build ran."""
-    return shared_library(SOURCE, [_nvcc(), *NVCC_FLAGS], "dia_kernels")
+    return cuda_library(SOURCE, "dia_kernels")
 
 
 @functools.cache

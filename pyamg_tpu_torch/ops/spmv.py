@@ -2,7 +2,8 @@
 
 Host (numpy) operands take scipy's CSR product: that is the setup phase.
 Tensor operands are the solve phase: a DIA product is kernel K1 on CUDA
-(``ops/dia_kernels.py``), an ELL product a gather-multiply-reduce.
+(``ops/dia_kernels.py``), a SELL product kernel K3/K4
+(``ops/sell_kernels.py``), an ELL product a gather-multiply-reduce.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ import numpy as np
 import torch
 
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil, to_scipy
-from pyamg_tpu_torch.ops import dia_kernels
+from pyamg_tpu_torch.sparse.sell import SELL
+from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
 
 
 def _scipy_memo(A):
@@ -45,14 +47,16 @@ def matvec(A, x):
         return dia_spmv(A, x)
     if isinstance(A, PhaseStencil):
         return A.mv(x)
+    if isinstance(A, SELL):
+        return sell_kernels.sell_spmv(A, x)
     if isinstance(A, ELL):
         return spmv(A, x)
     raise TypeError(f"no matvec for {type(A).__name__}")
 
 
 def extract_diagonal(A):
-    """diag(A) as a dense vector of a DIA or a host ELL."""
-    if isinstance(A, DIA):
+    """diag(A) as a dense vector of a DIA, a square SELL or a host ELL."""
+    if isinstance(A, (DIA, SELL)):
         return A.diagonal()
     hit = (A.cols == np.arange(A.shape[0], dtype=np.int32)[:, None]) & \
         A.valid_mask()

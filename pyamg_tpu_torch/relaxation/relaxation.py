@@ -5,7 +5,10 @@ Nodes are grouped into independent sets by a graph coloring at setup,
 and each color is updated at once: exact Gauss-Seidel with respect to
 the colored ordering.  Host (numpy) operands are the setup phase
 (candidate improvement); tensor operands are the solve phase, where a
-DIA operator takes kernel K2 (``ops/dia_kernels.dia_gs_sweep``).
+DIA operator takes kernel K2 (``ops/dia_kernels.dia_gs_sweep``).  A SELL
+operator takes the hybrid sweep K5 (``ops/sell_kernels.sell_gs_sweep``)
+instead: 1024-row tiles in order, Gauss-Seidel across tiles and Jacobi
+within one; it ignores the colors.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ import numpy as np
 import torch
 
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL
+from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import extract_diagonal, matvec
-from pyamg_tpu_torch.ops import dia_kernels
+from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
 
 
 def dinv_vec(A):
@@ -67,7 +71,12 @@ def gauss_seidel(A, x, b, iterations=1, sweep="forward", colors=None,
     """Multicolor Gauss-Seidel/SOR: per color c of the pass order, every
     row i of color c gets x_i += omega * (b_i - (A x)_i) / a_ii.
     ``sweep``: 'forward', 'backward' (reverse color order) or
-    'symmetric'."""
+    'symmetric'.  On a SELL operator: ``iterations`` hybrid sweeps."""
+    if isinstance(A, SELL):
+        Dinv = dinv_vec(A) if Dinv is None else Dinv
+        for _ in range(iterations):
+            x = sell_kernels.sell_gs_sweep(A, x, b, Dinv, omega, sweep)
+        return x
     if colors is None:
         colors, ncolors = make_coloring(A)
     order = gs_order(ncolors, sweep, iterations, omega)

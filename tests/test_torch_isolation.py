@@ -88,9 +88,37 @@ def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-def test_no_silent_cpu_fallback():
+SOLVES = ["solve_refined_device", "solve_refined", "solve"]
+
+
+@pytest.mark.parametrize("method", SOLVES)
+def test_unplaced_solves_go_to_the_card(method, monkeypatch):
+    """A solve entry point called on a hierarchy not yet placed places it
+    with ``to_device``'s default, the card."""
+    from pyamg_tpu_torch.gallery import poisson
+    A = poisson((6, 6, 6))
+    ml = pyamg_tpu_torch.smoothed_aggregation_solver(A.astype(np.float32),
+                                                     max_coarse=10)
+    placed = []
+    sig = inspect.signature(multilevel.MultilevelSolver.to_device)
+
+    def to_device(self, *args, **kwargs):
+        placed.append(sig.bind(self, *args, **kwargs))
+        raise RuntimeError("stop after placement")
+
+    monkeypatch.setattr(multilevel.MultilevelSolver, "to_device", to_device)
+    with pytest.raises(RuntimeError, match="stop after placement"):
+        getattr(ml.compress_stencils(), method)(np.ones(A.shape[0]))
+    bound = placed[0]
+    bound.apply_defaults()
+    assert bound.arguments["device"] == "cuda"
+
+
+@pytest.mark.parametrize("method", SOLVES)
+def test_no_silent_cpu_fallback(method):
     """Without a card, the default device raises instead of running on
-    the CPU; an unplaced hierarchy does not solve on the CPU by itself."""
+    the CPU; an unplaced hierarchy does not solve on the CPU by itself,
+    through any solve entry point."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError):
@@ -100,4 +128,14 @@ def test_no_silent_cpu_fallback():
     ml = pyamg_tpu_torch.smoothed_aggregation_solver(
         A.astype(np.float32), aggregate=("grid", {}), max_coarse=10)
     with pytest.raises(RuntimeError):
-        ml.compress_stencils().solve_refined_device(np.ones(A.shape[0]))
+        getattr(ml.compress_stencils(), method)(np.ones(A.shape[0]))
+
+
+def test_sell_kernels_raise_on_the_card_without_nvcc(monkeypatch):
+    """A CUDA tensor launches the kernel or raises: with no toolkit the
+    build raises, and nothing falls back to the plain version."""
+    from pyamg_tpu_torch._native import build
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.cuda_library("kernels.cu", "kernels")

@@ -269,9 +269,9 @@ def test_hierarchy_from_arrays_rejects_another_order(reference_solve,
 
 
 def test_uncompressed_levels_solve_alike():
-    """Levels left as ELL (no DIA) take the tensor ELL product and the
-    generic color loop, and the dense tail is built from an ELL: the same
-    solve as the DIA path, to float32 rounding."""
+    """Levels left as ELL (no DIA, no SELL) take the tensor ELL product
+    and the generic color loop, and the dense tail is built from an ELL:
+    the same solve as the DIA path, to float32 rounding."""
     A64 = poisson((48, 48))
     b = np.random.default_rng(7).standard_normal(A64.shape[0])
     out = []
@@ -279,7 +279,7 @@ def test_uncompressed_levels_solve_alike():
         ml = smoothed_aggregation_solver(A64.astype(np.float32),
                                          aggregate=("grid", {}),
                                          max_coarse=10)
-        ml.compress_stencils(max_diags=max_diags)
+        ml.compress_stencils(max_diags=max_diags, sell=False)
         ml.collapse_coarse(max_n=200, device="cpu")
         ml.enable_ds_refinement(A64, device="cpu").to_device("cpu")
         it = {}
