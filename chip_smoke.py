@@ -27,8 +27,11 @@ Phases, each printed on its own lines:
    one warm solve under torch.profiler, broken down into device busy
    time, idle share, device operations, host syncs and kernels by device
    time; one 500^2 V-cycle; and K1-K5 beside their byte bound, plain
-   versions and library call (device time per call from torch.profiler,
-   and CUDA events around back-to-back calls).
+   versions and library call (device time per call from torch.profiler:
+   the median of calls made with L2 flushed before each, and the mean
+   with L2 warm; and CUDA events around back-to-back calls).  A bound counts each input read once and
+   each output written once: for a SELL operator its stored non-zeros
+   (value and column), not the padded slots of its plan.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
@@ -79,25 +82,62 @@ def cuda_ms(fn, reps=200, warmup=10):
     return start.elapsed_time(stop) / reps
 
 
+def device_events(body, n):
+    """The device operations that torch.profiler records over ``n`` calls
+    of ``body``, in order of their start."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            body()
+        torch.cuda.synchronize()
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
 def device_ms(fn, reps=50):
     """Mean device milliseconds per call of ``fn``: the kernel intervals
     that torch.profiler records over ``reps`` calls, summed.  Unlike
     events around back-to-back calls, this leaves out the host's time
     between launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     total_us = sum(e.time_range.end - e.time_range.start
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in device_events(fn, reps))
     check(total_us > 0, "the profiler recorded no device time")
     return total_us / reps / 1e3
+
+
+def flushed_ms(fn, flush, reps=50):
+    """Device milliseconds of each of ``reps`` calls of ``fn``, each made
+    after reading through ``flush`` (a tensor larger than the card's 50 MB
+    L2), so that the call finds its inputs in device memory, not in L2.
+    The read's own kernels mark the calls apart and are not counted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    skip = {e.name for e in device_events(flush.sum, 1)}
+    check(not skip & {e.name for e in device_events(fn, 1)},
+          "the L2 flush runs a kernel that the timed call runs too")
+
+    def body():
+        flush.sum()
+        fn()
+    calls, cur = [], None
+    for e in device_events(body, reps):
+        if e.name in skip:
+            if cur is not None:
+                calls.append(cur)
+            cur = None
+        else:
+            cur = (cur or 0.0) + e.time_range.end - e.time_range.start
+    calls.append(cur)
+    check(len(calls) == reps and all(c for c in calls),
+          f"{len(calls)} flushed calls traced, {reps} made")
+    return [c / 1e3 for c in calls]
 
 
 def rel_err(got, want):
@@ -508,25 +548,36 @@ def main():
           f"{cuda_ms(vcycle, reps=50):.4f} ms per call, "
           f"{device_ms(vcycle, reps=10):.4f} ms of device time")
 
+    # read before each timed kernel call, so that the call reads its inputs
+    # from device memory as the bound assumes (5x the 50 MB L2)
+    flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
+
     def row(name, replaces, launches, err, fn, plain, library, nbytes, ops,
             source="pyamg_tpu_torch/csrc/dia_kernels.cu", plain_reps=50,
             tag=None):
-        """A kernel's line: device times per call (profiler), and its
-        bound, the larger of bytes over the memory rate and float32
-        operations over the float32 rate."""
+        """A kernel's line: device times per call (profiler; the kernel's
+        the median of calls made with L2 flushed, and also its mean
+        L2-warm), and its bound, the larger of bytes over the memory rate
+        and float32 operations over the float32 rate."""
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+        cold = flushed_ms(fn, flush)
         r = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, "max_abs_err": err,
-             "ms": device_ms(fn), "plain_ms": device_ms(plain, plain_reps),
+             "ms": statistics.median(cold),
+             "plain_ms": device_ms(plain, plain_reps),
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None if library is None else device_ms(library)}
         lib = "-" if library is None else f"{r['library_ms'] * 1e3:.2f} us"
         print(f"times: {tag or name} device {r['ms'] * 1e3:.2f} us per call "
+              f"with L2 flushed (median; {min(cold) * 1e3:.2f}-"
+              f"{max(cold) * 1e3:.2f} us over {len(cold)} calls), "
+              f"{device_ms(fn) * 1e3:.2f} us L2-warm "
               f"({cuda_ms(fn) * 1e3:.2f} us per call with the host), bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
-              f"{nbytes / 1e6:.1f} MB), plain {r['plain_ms'] * 1e3:.2f} us, "
-              f"library {lib}, launches on the main path {launches}")
+              f"{nbytes / 1e6:.2f} MB), plain {r['plain_ms'] * 1e3:.2f} us "
+              f"(L2-warm), library {lib} (L2-warm), launches on the main "
+              f"path {launches}")
         return r
 
     D, data, xk, err1 = kernel_inputs["K1"]
@@ -593,43 +644,56 @@ def main():
 
     sell_src = "pyamg_tpu_torch/csrc/sell_kernels.cu"
 
-    def sell_row(name, replaces, S, S_scipy, x, err, tag):
-        """K3/K4 at one operator: bound from its plan (values and deltas),
-        x read and y written; 2 flops per stored entry."""
+    def slot_model(S, vectors_bytes, tag):
+        """Print the bytes of the plan's padded slots beside the bound."""
         T, Sy, _ = S.vals.shape
+        nbytes = T * Sy * sellm.LANE * 8 + vectors_bytes
+        print(f"times: {tag} plan-slot byte model ({T * Sy * sellm.LANE} "
+              f"slots for {S.nnz} stored entries): "
+              f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us ({nbytes / 1e6:.2f} "
+              f"MB)")
+
+    def sell_row(name, replaces, S, S_scipy, x, err, tag, launches):
+        """K3/K4 at one operator: bound from its stored entries (value and
+        column each), x read and y written; 2 flops per stored entry."""
         lib = csr_on(S_scipy, dev)
         e_lib, scale = rel_err(lib @ x, sk.sell_spmv_plain(S, x))
         check(e_lib <= 1e-5 * scale, f"library CSR product disagrees ({tag})")
-        return row(name, replaces, launches3["sell_spmv"], err,
-                   lambda: sk.sell_spmv(S, x),
-                   lambda: sk.sell_spmv_plain(S, x), lambda: lib @ x,
-                   T * Sy * sellm.LANE * 8 + (S.shape[0] + S.shape[1]) * 4,
-                   2 * S.nnz, source=sell_src, plain_reps=5, tag=tag)
+        vectors = (S.shape[0] + S.shape[1]) * 4
+        r = row(name, replaces, launches, err, lambda: sk.sell_spmv(S, x),
+                lambda: sk.sell_spmv_plain(S, x), lambda: lib @ x,
+                S.nnz * 8 + vectors, 2 * S.nnz, source=sell_src,
+                plain_reps=5, tag=tag)
+        slot_model(S, vectors, tag)
+        return r
 
     k3 = {}
     for name, (S, S_host) in sell_operators(ml_s).items():
         _, x, err = kernel_inputs[f"K3 {name}"]
         k3[name] = sell_row("sell_spmv", "pyamg_tpu/ops/sell_kernels.py:29",
-                            S, to_scipy(S_host), x, err, f"sell_spmv {name}")
+                            S, to_scipy(S_host), x, err, f"sell_spmv {name}",
+                            launches3["sell_spmv"])
     rows.append(k3["R0"])
+    # no square SELL past the TPU's 6 MB budget runs on either main path
     big_sd, big_s, xk4, err4 = kernel_inputs["K4"]
     rows.append(sell_row(
-        "sell_spmv (K4 regime, 2-D Poisson 1800^2)",
+        "sell_spmv (K4 regime, 2-D Poisson 1800^2, off the main path)",
         "pyamg_tpu/ops/sell_kernels.py:108", big_sd,
-        sellm.sell_to_scipy(big_s), xk4, err4, "sell_spmv K4 regime 1800^2"))
+        sellm.sell_to_scipy(big_s), xk4, err4, "sell_spmv K4 regime 1800^2",
+        0))
 
     S, xg, bg, Dinv, err5 = kernel_inputs["K5"]
-    T, Sy, _ = S.vals.shape
     n = S.shape[0]
-    # one directional sweep reads the plan, b, Dinv and x once and writes
-    # x; 2 flops per stored entry and 3 per row for the update
+    # one directional sweep reads the stored entries, b, Dinv and x once
+    # and writes x; 2 flops per stored entry and 3 per row for the update
     rows.append(row(
         "sell_gs_sweep", "pyamg_tpu/ops/sell_kernels.py:241",
         launches3["sell_gs_sweep"], err5,
         lambda: sk.sell_gs_sweep(S, xg, bg, Dinv, 1.0, "forward"),
         lambda: sk.sell_gs_sweep_plain(S, xg, bg, Dinv, 1.0, "forward"),
-        None, T * Sy * sellm.LANE * 8 + 4 * n * 4, 2 * S.nnz + 3 * n,
+        None, S.nnz * 8 + 4 * n * 4, 2 * S.nnz + 3 * n,
         source=sell_src, plain_reps=2, tag="sell_gs_sweep A1 forward"))
+    slot_model(S, 4 * n * 4, "sell_gs_sweep A1 forward")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

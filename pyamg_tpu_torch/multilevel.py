@@ -333,7 +333,6 @@ class MultilevelSolver:
         b = as_tensor(b, self.device, dtype).reshape(-1)
         x = torch.zeros_like(b) if x0 is None else \
             as_tensor(x0, self.device, dtype).reshape(-1)
-        cyc = self._make_cycle(cycle)
 
         def mv(v):
             return matvec(A0, v)
@@ -343,12 +342,13 @@ class MultilevelSolver:
                 raise NotImplementedError(
                     f"accel={accel!r} is not ported yet (only 'cg')")
             x, info, resbuf, nres = cg_loop(
-                mv, lambda r: cyc(torch.zeros_like(r), r), x, b, tol, "rr",
+                mv, self.aspreconditioner(cycle).matvec, x, b, tol, "rr",
                 maxiter, callback=callback)
             if residuals is not None:
                 residuals[:] = resbuf[:nres].tolist()
             return (x, int(info)) if return_info else x
 
+        cyc = self._make_cycle(cycle)
         normb = norm(b)
         rtol = tol * torch.where(normb == 0, 1.0, normb)
         nr = norm(b - mv(x))
