@@ -7,13 +7,17 @@ Phases, each printed on its own lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the build of the CUDA kernels from ``pyamg_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together), with each kernel's
+   registers, shared memory, stack frame and spills from ``-Xptxas -v``;
 2. kernels: K1 (banded SpMV) and K2 (multicolor Gauss-Seidel sweep) against
    their plain PyTorch versions at the 500^2 path's shapes, and the
    double-single ``two_prod`` against float64; K3 (SELL SpMV) on every
-   SELL operator of the 3-D Poisson 64^3 hierarchy and, in the K4 regime,
-   on the SELL plan of 2-D Poisson 1800^2; K5 (hybrid Gauss-Seidel)
-   forward, backward and symmetric on the 64^3 path's square SELL levels;
+   SELL operator of the 3-D Poisson 64^3 hierarchy, on x and on x holding
+   an inf and a NaN, and, in the K4 regime, on the SELL plan of 2-D Poisson
+   1800^2; K5 (hybrid Gauss-Seidel) forward, backward and symmetric, omega
+   1 and 0.8, on the 64^3 path's square SELL levels A1 and A2 (and on x
+   holding inf and NaN) and, with x past shared memory, on the 1800^2 plan
+   (off the main path);
 3. main path: 2-D Poisson 500^2, grid smoothed aggregation, stencil
    compression, dense coarse tail, double-single refinement, solved to
    1e-10 on the card with the kernels' launch counts read around it; then a
@@ -21,17 +25,19 @@ Phases, each printed on its own lines:
 4. sa3d: 3-D Poisson 64^3, standard smoothed aggregation, DIA and SELL
    layouts, ``solve_refined(tol=1e-10, accel="cg")`` as
    ``bench_suite.bench_sa_poisson_3d_64`` runs it, with the launch counts
-   read around the solve; then a 24^3 solve on the card against the same
-   solve on the CPU;
+   read around the solve, per kernel and per SELL operator; then a 24^3
+   solve on the card against the same solve on the CPU;
 5. times after a warm-up: for each path the warm solve (host clock) and
    one warm solve under torch.profiler, broken down into device busy
    time, idle share, device operations, host syncs and kernels by device
-   time; one 500^2 V-cycle; and K1-K5 beside their byte bound, plain
-   versions and library call (device time per call from torch.profiler:
-   the median of calls made with L2 flushed before each, and the mean
-   with L2 warm; and CUDA events around back-to-back calls).  A bound counts each input read once and
-   each output written once: for a SELL operator its stored non-zeros
-   (value and column), not the padded slots of its plan.
+   time; one 500^2 V-cycle; and one row per kernel and operator (K1, K2,
+   K3 on the six 64^3 operators and in the K4 regime, K5 on A1 and A2)
+   beside its byte bound, plain version and library call (device time per
+   call from torch.profiler: the median of calls made with L2 flushed
+   before each, for the kernel and the library call, and the mean with L2
+   warm; and CUDA events around back-to-back calls).  A bound counts each
+   input read once and each output written once: for a SELL operator its
+   stored non-zeros (value and column), not the padded slots of its plan.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
@@ -39,6 +45,7 @@ non-zero before printing a result.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -59,6 +66,10 @@ SELL_64 = {"P0": ("tall", 8, 13, 2048), "R0": ("fat", 8, 152, 256),
            "R1": ("fat", 41, 839, 8), "A2": ("tall", 1, 89, 8)}
 LAYOUT_64 = [("DIA", "SELL", "SELL"), ("SELL", "SELL", "SELL"),
              ("SELL", "ELL", "ELL"), ("DIA", "NoneType", "NoneType")]
+# a profiler trace that comes back without its device operations is taken
+# again, after a pause (an empty trace has come back whole after one)
+TRACE_TRIES = 5
+TRACE_PAUSE_S = 0.5
 
 
 def check(cond, msg):
@@ -84,17 +95,25 @@ def cuda_ms(fn, reps=200, warmup=10):
 
 def device_events(body, n):
     """The device operations that torch.profiler records over ``n`` calls
-    of ``body``, in order of their start."""
+    of ``body``, in order of their start.  Every caller's body runs work on
+    the device, so a trace that holds none (the profiler now and then
+    returns one) is taken again after a pause, up to TRACE_TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            body()
-        torch.cuda.synchronize()
-    return sorted((e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    for k in range(TRACE_TRIES):
+        if k:
+            time.sleep(TRACE_PAUSE_S)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                body()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+    return events
 
 
 def device_ms(fn, reps=50):
@@ -111,30 +130,43 @@ def device_ms(fn, reps=50):
     return total_us / reps / 1e3
 
 
-def flushed_ms(fn, flush, reps=50):
+def flush_ops(flush):
+    """The names of the device operations of one read through ``flush``."""
+    names = {e.name for e in device_events(flush.sum, 1)}
+    check(names, "the trace of the L2 flush holds no device operation")
+    return names
+
+
+def flushed_ms(fn, flush, skip, reps=50):
     """Device milliseconds of each of ``reps`` calls of ``fn``, each made
     after reading through ``flush`` (a tensor larger than the card's 50 MB
     L2), so that the call finds its inputs in device memory, not in L2.
-    The read's own kernels mark the calls apart and are not counted."""
+    The read's own operations (``skip``, from ``flush_ops``) mark the
+    calls apart and are not counted."""
     import torch
     fn()
     torch.cuda.synchronize()
-    skip = {e.name for e in device_events(flush.sum, 1)}
     check(not skip & {e.name for e in device_events(fn, 1)},
           "the L2 flush runs a kernel that the timed call runs too")
 
     def body():
         flush.sum()
         fn()
-    calls, cur = [], None
-    for e in device_events(body, reps):
-        if e.name in skip:
-            if cur is not None:
-                calls.append(cur)
-            cur = None
-        else:
-            cur = (cur or 0.0) + e.time_range.end - e.time_range.start
-    calls.append(cur)
+
+    for k in range(TRACE_TRIES):    # a trace that lost operations is taken
+        if k:                       # again
+            time.sleep(TRACE_PAUSE_S)
+        calls, cur = [], None
+        for e in device_events(body, reps):
+            if e.name in skip:
+                if cur is not None:
+                    calls.append(cur)
+                cur = None
+            else:
+                cur = (cur or 0.0) + e.time_range.end - e.time_range.start
+        calls.append(cur)
+        if len(calls) == reps and all(c for c in calls):
+            break
     check(len(calls) == reps and all(c for c in calls),
           f"{len(calls)} flushed calls traced, {reps} made")
     return [c / 1e3 for c in calls]
@@ -171,6 +203,54 @@ def build_hierarchy(N, max_n, device, ds=True):
     if ds:
         ml.enable_ds_refinement(A64, device=device)
     return A64, ml, full
+
+
+def ptxas_report(log):
+    """[(kernel, registers, shared-memory bytes, stack frame, spill
+    stores, spill loads)] from an ``nvcc -Xptxas -v`` log."""
+    out, name, spills = [], None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = name = m.group(1)
+            # <length><identifier> pieces of the mangled name
+            for k in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+                ident = k.group(2)[:int(k.group(1))]
+                if ident.endswith("_kernel"):
+                    name = ident
+            args = re.search(r"_kernelI(.+?)EEv", mangled)
+            if args:
+                name += "<" + ",".join(
+                    a.replace("Li", "").replace("Lb0", "false")
+                    .replace("Lb1", "true")
+                    for a in args.group(1).split("E") if a) + ">"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            spills = tuple(int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1)),
+                        int(smem.group(1)) if smem else 0, *spills))
+            name, spills = None, (0, 0, 0)
+    return out
+
+
+def same_non_finite(got, want):
+    """Whether two vectors are non-finite (inf, NaN) at the same places."""
+    import torch
+    return bool(torch.equal(torch.isfinite(got), torch.isfinite(want)) and
+                torch.equal(torch.isnan(got), torch.isnan(want)))
+
+
+def non_finite(x):
+    """A copy of x with an inf at a third and a NaN at two thirds."""
+    x = x.clone()
+    x[x.shape[0] // 3] = float("inf")
+    x[2 * x.shape[0] // 3] = float("nan")
+    return x
 
 
 def build_kernels():
@@ -227,18 +307,23 @@ def profiled(fn):
     device ops [(name, start, end)], host syncs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    ops, syncs = [], 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ops.append((e.name, e.time_range.start, e.time_range.end))
-        elif e.name == "aten::_local_scalar_dense":
-            syncs += 1
+    for k in range(TRACE_TRIES):    # as device_events: a trace with no
+        if k:                       # device operation is taken again
+            time.sleep(TRACE_PAUSE_S)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ops, syncs = [], 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ops.append((e.name, e.time_range.start, e.time_range.end))
+            elif e.name == "aten::_local_scalar_dense":
+                syncs += 1
+        if ops:
+            break
     busy = busy_us([(s, t) for _, s, t in ops])
     check(busy > 0, "the profiled solve ran nothing on the device")
     return wall_us, busy, ops, syncs
@@ -286,9 +371,10 @@ def main():
     for name, built in build_kernels().items():
         print(f"device: {name} build {built['seconds']:.1f} s -> "
               f"{built['path']}")
-        for line in built["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"device: ptxas {line.strip()}")
+        for kname, regs, smem, frame, st, ld in ptxas_report(built["log"]):
+            print(f"device: ptxas {name} {kname}: {regs} registers, {smem} "
+                  f"bytes static shared memory, stack frame {frame} B, spill "
+                  f"stores {st} B, spill loads {ld} B")
     print(f"device: kernels built in {time.perf_counter() - t0:.1f} s")
 
     # -- 2. kernels against their plain versions ---------------------------
@@ -372,13 +458,23 @@ def main():
                             device=dev).float()
         y = sk.sell_spmv(S, x)
         want = sk.sell_spmv_plain(S, x)
+        xn = non_finite(x)
+        yn, wantn = sk.sell_spmv(S, xn), sk.sell_spmv_plain(S, xn)
         torch.cuda.synchronize()
         err, scale = rel_err(y, want)
         tol = 1e-6 * scale
+        fin = torch.isfinite(wantn)
+        errn = float((yn[fin] - wantn[fin]).abs().max())
         print(f"kernels: K3 {name} {S.kind}/{S.t} {S.shape} passes "
-              f"{S.n_passes} K={S.K} Sy={S.Sy} max_abs_err={err:.3e} "
-              f"tol={tol:.3e}")
+              f"{S.n_passes} K={S.K} Sy={S.Sy} "
+              f"{sk.spmv_geometry(S.n_passes, S.shape[0])} "
+              f"max_abs_err={err:.3e} tol={tol:.3e}; x with inf and NaN: "
+              f"{int((~fin).sum())} non-finite, same places "
+              f"{same_non_finite(yn, wantn)}, max_abs_err={errn:.3e}")
         check(err <= tol, f"K3 {name} disagrees with its plain version")
+        check(same_non_finite(yn, wantn) and errn <= tol,
+              f"K3 {name} disagrees with its plain version on an x holding "
+              f"inf and NaN")
         kernel_inputs[f"K3 {name}"] = (S, x, err)
 
     t0 = time.perf_counter()
@@ -404,13 +500,16 @@ def main():
                                "plain version")
     kernel_inputs["K4"] = (big_sd, big_s, x, err)
 
-    for name in ("A1", "A2"):
-        S, _ = sell_ops[name]
-        lvl = ml_s.levels[int(name[1])]
+    def k5_case(name, S, Dinv, nonfinite):
+        """K5 forward, backward and symmetric, omega 1 and 0.8, against the
+        plain version (and, with ``nonfinite``, forward and backward on an
+        x holding inf and NaN): (S, x, b, Dinv, error of forward, omega 1)."""
         n = S.shape[0]
-        Dinv = lvl.pre[2]["Dinv"]
         x = torch.as_tensor(rng.standard_normal(n), device=dev).float()
         b = torch.as_tensor(rng.standard_normal(n), device=dev).float()
+        print(f"kernels: K5 {name} n={n} passes {S.n_passes} "
+              f"{sk.gs_geometry(S.n_passes, S.Sy * sellm.LANE)}")
+        first = None
         for sweep in ("forward", "backward", "symmetric"):
             for omega in (1.0, 0.8):
                 got = sk.sell_gs_sweep(S, x, b, Dinv, omega, sweep)
@@ -418,13 +517,35 @@ def main():
                 torch.cuda.synchronize()
                 err, scale = rel_err(got, want)
                 tol = 1e-5 * scale
-                print(f"kernels: K5 {name} n={n} tiles "
-                      f"{-(-n // sk.GS_TILE)} {sweep} omega={omega} "
+                print(f"kernels: K5 {name} {sweep} omega={omega} "
                       f"max_abs_err={err:.3e} tol={tol:.3e}")
                 check(err <= tol, f"K5 {name} {sweep} disagrees with its "
                                   f"plain version")
-                if (name, sweep, omega) == ("A1", "forward", 1.0):
-                    kernel_inputs["K5"] = (S, x, b, Dinv, err)
+                first = err if first is None else first
+        for sweep in ("forward", "backward") if nonfinite else ():
+            xn = non_finite(x)
+            got = sk.sell_gs_sweep(S, xn, b, Dinv, 1.0, sweep)
+            want = sk.sell_gs_sweep_plain(S, xn, b, Dinv, 1.0, sweep)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            err = float((got[fin] - want[fin]).abs().max()) if fin.any() \
+                else 0.0
+            print(f"kernels: K5 {name} {sweep} x with inf and NaN: "
+                  f"{int((~fin).sum())} non-finite, same places "
+                  f"{same_non_finite(got, want)}, max_abs_err={err:.3e}")
+            check(same_non_finite(got, want) and
+                  err <= 1e-5 * float(want[fin].abs().max()),
+                  f"K5 {name} {sweep} disagrees with its plain version on "
+                  f"an x holding inf and NaN")
+        return S, x, b, Dinv, first
+
+    for name in ("A1", "A2"):
+        S, _ = sell_ops[name]
+        Dinv = ml_s.levels[int(name[1])].pre[2]["Dinv"]
+        kernel_inputs[f"K5 {name}"] = k5_case(name, S, Dinv, True)
+
+    # K5 where x does not fit in shared memory, off the main path
+    k5_case("1800^2 (off the main path)", big_sd, 1.0 / big_sd.diag, False)
 
     # -- 3. main path --------------------------------------------------------
     dk.reset_launch_counts()
@@ -513,6 +634,18 @@ def main():
     check(relres3 < 1e-10, "true relative residual not below 1e-10")
     check(all(v > 0 for v in launches3.values()),
           "a kernel of the 64^3 path was never launched")
+    # the same launches per operator (keyed by plan, as the wrappers count)
+    ops3 = sell_operators(ml3)
+    per_op3 = {k.__name__: {name: k.by_plan[sk.plan_key(S)]
+                            for name, (S, _) in ops3.items()
+                            if k is sk.sell_spmv or S.square}
+               for k in sk.KERNELS}
+    print(f"sa3d: launches per operator {per_op3}")
+    check(all(v > 0 for d in per_op3.values() for v in d.values()) and
+          all(sum(per_op3[k.__name__].values()) == k.launches
+              for k in sk.KERNELS),
+          "a SELL operator of the 64^3 path was never launched, or the "
+          "per-operator counts do not add up to the kernels' totals")
 
     # the same small solve on the card and on the CPU (plain versions)
     xs = {}
@@ -551,24 +684,29 @@ def main():
     # read before each timed kernel call, so that the call reads its inputs
     # from device memory as the bound assumes (5x the 50 MB L2)
     flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
+    skip = flush_ops(flush)
 
     def row(name, replaces, launches, err, fn, plain, library, nbytes, ops,
             source="pyamg_tpu_torch/csrc/dia_kernels.cu", plain_reps=50,
             tag=None):
         """A kernel's line: device times per call (profiler; the kernel's
-        the median of calls made with L2 flushed, and also its mean
-        L2-warm), and its bound, the larger of bytes over the memory rate
-        and float32 operations over the float32 rate."""
+        and the library call's the median of calls made with L2 flushed,
+        and also their mean L2-warm), and its bound, the larger of bytes
+        over the memory rate and float32 operations over the float32
+        rate."""
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-        cold = flushed_ms(fn, flush)
+        cold = flushed_ms(fn, flush, skip)
         r = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, "max_abs_err": err,
              "ms": statistics.median(cold),
              "plain_ms": device_ms(plain, plain_reps),
              "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": None if library is None else device_ms(library)}
-        lib = "-" if library is None else f"{r['library_ms'] * 1e3:.2f} us"
+             "library_ms": None if library is None else
+             statistics.median(flushed_ms(library, flush, skip))}
+        lib = "-" if library is None else \
+            f"{r['library_ms'] * 1e3:.2f} us (L2 flushed, median; " \
+            f"{device_ms(library) * 1e3:.2f} us L2-warm)"
         print(f"times: {tag or name} device {r['ms'] * 1e3:.2f} us per call "
               f"with L2 flushed (median; {min(cold) * 1e3:.2f}-"
               f"{max(cold) * 1e3:.2f} us over {len(cold)} calls), "
@@ -576,18 +714,13 @@ def main():
               f"({cuda_ms(fn) * 1e3:.2f} us per call with the host), bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
               f"{nbytes / 1e6:.2f} MB), plain {r['plain_ms'] * 1e3:.2f} us "
-              f"(L2-warm), library {lib} (L2-warm), launches on the main "
-              f"path {launches}")
+              f"(L2-warm), library {lib}, launches on the main path "
+              f"{launches}")
         return r
 
     D, data, xk, err1 = kernel_inputs["K1"]
     n, nd = D.shape[0], len(D.offsets)
-    S = to_scipy(D).tocsr()
-    Acsr = torch.sparse_csr_tensor(
-        torch.as_tensor(S.indptr, dtype=torch.int64),
-        torch.as_tensor(S.indices, dtype=torch.int64),
-        torch.as_tensor(S.data, dtype=torch.float32), size=S.shape,
-        device=dev)
+    Acsr = csr_on(to_scipy(D), dev)
     e_lib, scale = rel_err(Acsr @ xk,
                            dk.dia_spmv_plain(data, D.offsets, n, xk))
     check(e_lib <= 1e-5 * scale, "library CSR product disagrees")
@@ -624,9 +757,11 @@ def main():
     xb = torch.as_tensor(rng.standard_normal(big.shape[0]),
                          device=dev).float()
     nb = big.shape[0]
-    ms_big = device_ms(lambda: dk.dia_spmv(data, big.offsets, nb, xb))
+    ms_big = statistics.median(flushed_ms(
+        lambda: dk.dia_spmv(data, big.offsets, nb, xb), flush, skip))
     bytes_big = (len(big.offsets) * nb + 2 * nb) * 4
-    print(f"times: dia_spmv 2048^2 f32 device {ms_big * 1e3:.2f} us, bound "
+    print(f"times: dia_spmv 2048^2 f32 device {ms_big * 1e3:.2f} us with L2 "
+          f"flushed (median), bound "
           f"{bytes_big / HBM_BYTES_PER_S * 1e6:.2f} us, "
           f"{bytes_big / (ms_big * 1e-3) / 1e9:.1f} GB/s")
 
@@ -667,13 +802,12 @@ def main():
         slot_model(S, vectors, tag)
         return r
 
-    k3 = {}
     for name, (S, S_host) in sell_operators(ml_s).items():
         _, x, err = kernel_inputs[f"K3 {name}"]
-        k3[name] = sell_row("sell_spmv", "pyamg_tpu/ops/sell_kernels.py:29",
-                            S, to_scipy(S_host), x, err, f"sell_spmv {name}",
-                            launches3["sell_spmv"])
-    rows.append(k3["R0"])
+        rows.append(sell_row(
+            f"sell_spmv {name}", "pyamg_tpu/ops/sell_kernels.py:29", S,
+            to_scipy(S_host), x, err, f"sell_spmv {name}",
+            per_op3["sell_spmv"][name]))
     # no square SELL past the TPU's 6 MB budget runs on either main path
     big_sd, big_s, xk4, err4 = kernel_inputs["K4"]
     rows.append(sell_row(
@@ -682,18 +816,21 @@ def main():
         sellm.sell_to_scipy(big_s), xk4, err4, "sell_spmv K4 regime 1800^2",
         0))
 
-    S, xg, bg, Dinv, err5 = kernel_inputs["K5"]
-    n = S.shape[0]
-    # one directional sweep reads the stored entries, b, Dinv and x once
-    # and writes x; 2 flops per stored entry and 3 per row for the update
-    rows.append(row(
-        "sell_gs_sweep", "pyamg_tpu/ops/sell_kernels.py:241",
-        launches3["sell_gs_sweep"], err5,
-        lambda: sk.sell_gs_sweep(S, xg, bg, Dinv, 1.0, "forward"),
-        lambda: sk.sell_gs_sweep_plain(S, xg, bg, Dinv, 1.0, "forward"),
-        None, S.nnz * 8 + 4 * n * 4, 2 * S.nnz + 3 * n,
-        source=sell_src, plain_reps=2, tag="sell_gs_sweep A1 forward"))
-    slot_model(S, 4 * n * 4, "sell_gs_sweep A1 forward")
+    for name in ("A1", "A2"):
+        S, xg, bg, Dinv, err5 = kernel_inputs[f"K5 {name}"]
+        n = S.shape[0]
+        tag = f"sell_gs_sweep {name} forward"
+        # one directional sweep reads the stored entries, b, Dinv and x
+        # once and writes x; 2 flops per stored entry and 3 per row for the
+        # update
+        rows.append(row(
+            tag, "pyamg_tpu/ops/sell_kernels.py:241",
+            per_op3["sell_gs_sweep"][name], err5,
+            lambda: sk.sell_gs_sweep(S, xg, bg, Dinv, 1.0, "forward"),
+            lambda: sk.sell_gs_sweep_plain(S, xg, bg, Dinv, 1.0, "forward"),
+            None, S.nnz * 8 + 4 * n * 4, 2 * S.nnz + 3 * n,
+            source=sell_src, plain_reps=2, tag=tag))
+        slot_model(S, 4 * n * 4, tag)
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,9 @@ class SELL:
     the window base row of each pass, ``diag`` the main diagonal (square
     operators; else empty).  On the host they are numpy arrays; ``to``
     places them on a device and adds ``bases_t``, the bases as an int32
-    tensor, made once so that no call copies them."""
+    tensor, made once so that no call copies them, and ``zero_delta0``:
+    whether every slot holding 0 has delta 0 (the padded slots have; the
+    SpMV kernel then skips the delta read of a slot holding 0)."""
 
     vals: object
     delta: object
@@ -77,6 +79,7 @@ class SELL:
     base_lo: int = 0
     base_hi: int = 0
     bases_t: object = None
+    zero_delta0: bool = False
 
     @property
     def n_passes(self) -> int:
@@ -113,12 +116,14 @@ class SELL:
         return self.diag
 
     def to(self, device) -> "SELL":
+        vals = as_tensor(self.vals, device, torch.float32)
+        delta = as_tensor(self.delta, device, torch.int32)
         return dataclasses.replace(
-            self, vals=as_tensor(self.vals, device, torch.float32),
-            delta=as_tensor(self.delta, device, torch.int32),
+            self, vals=vals, delta=delta,
             diag=as_tensor(self.diag, device, torch.float32),
             bases_t=torch.tensor(self.bases, dtype=torch.int32,
-                                 device=device))
+                                 device=device),
+            zero_delta0=not bool(((vals == 0) & (delta != 0)).any()))
 
     def __repr__(self):
         return (f"SELL(shape={self.shape}, passes={self.n_passes}, "

@@ -11,6 +11,8 @@ tile order, the tile-entry reads and the pass-by-pass residual are all
 seen.
 """
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -183,6 +185,36 @@ def test_spmv_plain_matches_reference_tiled(ref_hierarchy, case,
     _spmv_case(ref_hierarchy, case, monkeypatch)
 
 
+def _non_finite_x(m, seed):
+    """A float32 x of length m with an inf and a NaN among finite values."""
+    x = np.random.default_rng(seed).standard_normal(m).astype(np.float32)
+    x[m // 3] = np.inf
+    x[(2 * m) // 3] = np.nan
+    return x
+
+
+def _same_non_finite(got, want):
+    """Non-finite at the same places, the finite values alike."""
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.abs(got[fin] - want[fin]).max() <= \
+        1e-5 * max(1.0, np.abs(want[fin]).max())
+
+
+@pytest.mark.parametrize("case", ["square48", "tall", "fat", "P0", "R0"])
+def test_spmv_plain_non_finite_like_reference(ref_hierarchy, case):
+    """Every slot is multiplied, a padded one (value 0) too: where a slot
+    reaches an inf or a NaN of x, the plain version gives NaN as the JAX
+    package's kernel does."""
+    ref, got = _plans(ref_hierarchy, case)
+    x = _non_finite_x(ref.shape[1], 4)
+    want = np.asarray(ref_sk.sell_spmv(ref, jnp.asarray(x), interpret=True))
+    y = sk.sell_spmv(got.to("cpu"), torch.as_tensor(x)).numpy()
+    assert not np.isfinite(want).all()
+    _same_non_finite(y, want)
+
+
 def test_spmv_checks_its_operands(ref_hierarchy):
     _, got = _plans(ref_hierarchy, "P0")
     A = got.to("cpu")
@@ -219,6 +251,24 @@ def test_gs_sweep_plain_matches_reference(ref_hierarchy, case, sweep, omega,
     assert sk.sell_gs_sweep.launches == before
     assert np.abs(out.numpy() - want).max() <= 1e-5 * np.abs(want).max()
     np.testing.assert_array_equal(t["x"].numpy(), x)      # x not touched
+
+
+@pytest.mark.parametrize("sweep", ["forward", "backward"])
+def test_gs_sweep_plain_non_finite_like_reference(ref_hierarchy, sweep,
+                                                  monkeypatch):
+    use_interpret(monkeypatch.setattr)
+    ref, got = _plans(ref_hierarchy, "square48")
+    n = ref.shape[0]
+    x = _non_finite_x(n, 5)
+    b = np.random.default_rng(6).standard_normal(n).astype(np.float32)
+    Dinv = (1.0 / np.asarray(ref.diag)).astype(np.float32)
+    want = np.asarray(ref_sk.sell_gs_sweep(ref, jnp.asarray(x), jnp.asarray(b),
+                                           jnp.asarray(Dinv), 1.0, sweep))
+    out = sk.sell_gs_sweep(got.to("cpu"), torch.as_tensor(x),
+                           torch.as_tensor(b), torch.as_tensor(Dinv), 1.0,
+                           sweep).numpy()
+    assert not np.isfinite(want).all()
+    _same_non_finite(out, want)
 
 
 def test_gs_sweep_tile_order_matters(ref_hierarchy):
@@ -267,6 +317,22 @@ def test_placed_plan_keeps_the_host_plan(ref_hierarchy):
     assert torch.equal(A.vals, torch.as_tensor(got.vals))
     assert torch.equal(A.delta, torch.as_tensor(got.delta))
     assert A.bases == got.bases and got.bases_t is None
+
+
+@pytest.mark.parametrize("case", ["square48", "tall", "fat", "R0"])
+def test_placed_plan_knows_its_zero_slots(ref_hierarchy, case):
+    """The padded slots hold value 0 and delta 0, so a placed plan may skip
+    the delta read of a slot holding 0; a slot holding 0 with another
+    delta turns that off."""
+    _, got = _plans(ref_hierarchy, case)
+    assert got.to("cpu").zero_delta0
+    vals = np.array(got.vals)
+    delta = np.array(got.delta)
+    p, s, l = np.argwhere(vals != 0)[0]
+    vals[p, s, l] = 0
+    delta[p, s, l] = 1
+    odd = dataclasses.replace(got, vals=vals, delta=delta).to("cpu")
+    assert not odd.zero_delta0
 
 
 def test_dense_of_a_sell_level(ref_hierarchy):
