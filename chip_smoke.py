@@ -9,9 +9,14 @@ Phases, each printed on its own lines:
    versions, and the build of the CUDA kernels from ``pyamg_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
    registers, shared memory, stack frame and spills from ``-Xptxas -v``;
-2. kernels: K1 (banded SpMV) and K2 (multicolor Gauss-Seidel sweep) against
-   their plain PyTorch versions at the 500^2 path's shapes, and the
-   double-single ``two_prod`` against float64; K3 (SELL SpMV) on every
+2. kernels: K1 (banded SpMV) against its plain PyTorch version at the
+   500^2 path's shapes, at 2048^2, on a band of 80 diagonals and on a
+   2-column x; K2 (multicolor Gauss-Seidel sweep, one launch a sweep) on
+   the DIA operators of both paths (500^2 levels 0 and 1, 64^3 A0) and,
+   in the regime that reads the band each pass, 2-D Poisson 2048^2:
+   symmetric, omega 1 and 0.8, float32 and float64, on an x holding an
+   inf and a NaN and on a 2-column x, each to 0; the double-single
+   ``two_prod`` against float64; K3 (SELL SpMV) on every
    SELL operator of the 3-D Poisson 64^3 hierarchy, on x and on x holding
    an inf and a NaN, and, in the K4 regime, on the SELL plan of 2-D Poisson
    1800^2; K5 (hybrid Gauss-Seidel) forward, backward and symmetric, omega
@@ -20,18 +25,22 @@ Phases, each printed on its own lines:
    (off the main path);
 3. main path: 2-D Poisson 500^2, grid smoothed aggregation, stencil
    compression, dense coarse tail, double-single refinement, solved to
-   1e-10 on the card with the kernels' launch counts read around it; then a
-   96^2 solve on the card against the same solve on the CPU;
+   1e-10 on the card with the kernels' launch counts read around it, and
+   K2's launches and color passes per DIA level; then a 96^2 solve on the
+   card against the same solve on the CPU;
 4. sa3d: 3-D Poisson 64^3, standard smoothed aggregation, DIA and SELL
    layouts, ``solve_refined(tol=1e-10, accel="cg")`` as
    ``bench_suite.bench_sa_poisson_3d_64`` runs it, with the launch counts
-   read around the solve, per kernel and per SELL operator; then a 24^3
-   solve on the card against the same solve on the CPU;
+   read around the solve, per kernel, per SELL operator and per DIA level;
+   then a 24^3 solve on the card against the same solve on the CPU;
 5. times after a warm-up: for each path the warm solve (host clock) and
    one warm solve under torch.profiler, broken down into device busy
    time, idle share, device operations, host syncs and kernels by device
-   time; one 500^2 V-cycle; and one row per kernel and operator (K1, K2,
-   K3 on the six 64^3 operators and in the K4 regime, K5 on A1 and A2)
+   time; one 500^2 V-cycle; K2 at 500^2 level 1 in the launch shapes its
+   geometry does not pick (64 or 16 blocks, or the band read each pass);
+   and one row per kernel and operator (K1, K2 on each DIA operator of
+   both paths and at 2048^2, K3 on the six 64^3 operators and in the K4
+   regime, K5 on A1 and A2)
    beside its byte bound, plain version and library call (device time per
    call from torch.profiler: the median of calls made with L2 flushed
    before each, for the kernel and the library call, and the mean with L2
@@ -221,8 +230,8 @@ def ptxas_report(log):
             args = re.search(r"_kernelI(.+?)EEv", mangled)
             if args:
                 name += "<" + ",".join(
-                    a.replace("Li", "").replace("Lb0", "false")
-                    .replace("Lb1", "true")
+                    a.replace("Li", ",").replace("Lb0", "false")
+                    .replace("Lb1", "true").strip(",")
                     for a in args.group(1).split("E") if a) + ">"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -351,8 +360,9 @@ def main():
     from pyamg_tpu_torch.ops import ds as dsm
     from pyamg_tpu_torch.ops import sell_kernels as sk
     from pyamg_tpu_torch.sparse import sell as sellm
-    from pyamg_tpu_torch.relaxation.relaxation import gs_order
-    from pyamg_tpu_torch.sparse.matrix import dia_from_ell, to_scipy
+    from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
+                                                       make_coloring)
+    from pyamg_tpu_torch.sparse.matrix import DIA, dia_from_ell, to_scipy
     from pyamg_tpu_torch.gallery import poisson
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -379,62 +389,119 @@ def main():
 
     # -- 2. kernels against their plain versions ---------------------------
     _, ml_k, _ = build_hierarchy(500, 0, dev, ds=False)
+    t0 = time.perf_counter()
+    _, ml_s = build_sa3d(64)
+    ml_s.to_device(dev)
+    print(f"kernels: 64^3 setup+compress+place {time.perf_counter() - t0:.2f}"
+          f" s")
     kernel_inputs = {}
     K1_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
-    def k1_case(name, D, dtype):
-        data = torch.as_tensor(np.asarray(D.data), device=dev).to(dtype)
-        n = D.shape[0]
-        x = torch.as_tensor(rng.standard_normal(n), device=dev).to(dtype)
-        y = dk.dia_spmv(data, D.offsets, n, x)
-        want = dk.dia_spmv_plain(data, D.offsets, n, x)
+    def k1_case(name, band, offsets, n, dtype, cols=1):
+        data = torch.as_tensor(np.asarray(band), device=dev).to(dtype)
+        shape = (n,) if cols == 1 else (n, cols)
+        x = torch.as_tensor(rng.standard_normal(shape), device=dev).to(dtype)
+        y = dk.dia_spmv(data, offsets, n, x)
+        want = dk.dia_spmv_plain(data, offsets, n, x)
         torch.cuda.synchronize()
         err, scale = rel_err(y, want)
         tol = K1_RTOL[dtype] * scale
-        print(f"kernels: K1 {name} {str(dtype)[6:]} n={n} "
-              f"ndiag={len(D.offsets)} max_abs_err={err:.3e} tol={tol:.3e}")
-        check(err <= tol, f"K1 {name} {dtype} disagrees with its plain "
-                          f"version")
+        print(f"kernels: K1 {name} {str(dtype)[6:]} x {tuple(x.shape)} "
+              f"ndiag={len(offsets)} max_abs_err={err:.3e} tol={tol:.3e}")
+        check(y.shape == want.shape and err <= tol,
+              f"K1 {name} {dtype} disagrees with its plain version")
         return data, x, err
 
-    big = dia_from_ell(poisson((2048, 2048)).astype(np.float32))
+    P2048 = poisson((2048, 2048)).astype(np.float32)
+    big = dia_from_ell(P2048)
     for name, D in (("fine500", ml_k.levels[0].A),
                     ("level1", ml_k.levels[1].A), ("2048sq", big)):
         for dtype in (torch.float32, torch.float64):
-            data, x, err = k1_case(name, D, dtype)
+            data, x, err = k1_case(name, D.data, D.offsets, D.shape[0],
+                                   dtype)
             if (name, dtype) == ("fine500", torch.float32):
                 kernel_inputs["K1"] = (D, data, x, err)
+    D = ml_k.levels[0].A
+    k1_case("fine500", D.data, D.offsets, D.shape[0], torch.float32, cols=2)
+    # a band of more than 64 diagonals (the kernels once took at most 64)
+    wide = tuple(sorted(rng.choice(np.arange(-3000, 3001), 80,
+                                   replace=False).tolist()))
+    for dtype in (torch.float32, torch.float64):
+        k1_case("80 diagonals", rng.standard_normal((80, 250_000)), wide,
+                250_000, dtype)
 
-    for lvl_i in (0, 1):
-        lvl = ml_k.levels[lvl_i]
-        D = lvl.A
-        kind, sopts, params = lvl.pre
-        n = D.shape[0]
-        colors = torch.as_tensor(params["colors"], device=dev)
-        for dtype, omega, rtol in ((torch.float32, 1.0, 1e-5),
-                                   (torch.float64, 1.0, 1e-12),
-                                   (torch.float32, 0.8, 1e-5)):
-            order = gs_order(sopts["ncolors"], sopts["sweep"],
-                             sopts["iterations"], omega)
-            data = torch.as_tensor(np.asarray(D.data), device=dev).to(dtype)
-            Dinv = torch.as_tensor(params["Dinv"], device=dev).to(dtype)
+    def dia_level(lvl):
+        """(DIA, colors, ncolors, Dinv) of a level's presmoother."""
+        _, sopts, params = lvl.pre
+        return lvl.A, params["colors"], sopts["ncolors"], params["Dinv"]
+
+    colors_b, nc_b = make_coloring(P2048)
+    k2_ops = {"500^2 level 0": dia_level(ml_k.levels[0]),
+              "500^2 level 1": dia_level(ml_k.levels[1]),
+              "64^3 A0": dia_level(ml_s.levels[0]),
+              "2048^2": (big, colors_b, nc_b, dinv_vec(P2048))}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k2_case(name, D, colors, nc, Dinv):
+        """K2 symmetric, omega 1 and 0.8, float32 and float64, on an x
+        holding inf and NaN and on a 2-column x, each against the plain
+        version to 0: (DIA, data, x, b, Dinv, colors, order, error) of
+        float32, omega 1."""
+        n, nd = D.shape[0], len(D.offsets)
+        col = torch.as_tensor(colors, device=dev)
+        halo = max(abs(o) for o in D.offsets)
+        first = None
+        for dtype in (torch.float32, torch.float64):
+            data = torch.as_tensor(D.data, device=dev).to(dtype)
+            Di = torch.as_tensor(Dinv, device=dev).to(dtype)
             x = torch.as_tensor(rng.standard_normal(n), device=dev).to(dtype)
             b = torch.as_tensor(rng.standard_normal(n), device=dev).to(dtype)
-            got = dk.dia_gs_sweep(data, D.offsets, n, x, b, Dinv, colors,
-                                  order, omega)
-            want = dk.dia_gs_sweep_plain(data, D.offsets, n, x, b, Dinv,
-                                         colors, order, omega)
+            print(f"kernels: K2 {name} {str(dtype)[6:]} n={n} ndiag={nd} "
+                  f"{dk.gs_geometry(n, nd, halo, data.element_size(), sms)}")
+            for omega in (1.0, 0.8):
+                order = gs_order(nc, "symmetric", 1, omega)
+                got = dk.dia_gs_sweep(data, D.offsets, n, x, b, Di, col,
+                                      order, omega)
+                want = dk.dia_gs_sweep_plain(data, D.offsets, n, x, b, Di,
+                                             col, order, omega)
+                torch.cuda.synchronize()
+                err, _ = rel_err(got, want)
+                print(f"kernels: K2 {name} {str(dtype)[6:]} omega={omega} "
+                      f"order={order} max_abs_err={err:.3e}")
+                check(err == 0, f"K2 {name} {dtype} omega={omega} disagrees "
+                                f"with its plain version")
+                if first is None:
+                    first = (D, data, x, b, Di, col, order, err)
+            order = gs_order(nc, "symmetric", 1, 1.0)
+            xn = non_finite(x)
+            got = dk.dia_gs_sweep(data, D.offsets, n, xn, b, Di, col, order)
+            want = dk.dia_gs_sweep_plain(data, D.offsets, n, xn, b, Di, col,
+                                         order, 1.0)
             torch.cuda.synchronize()
-            err, scale = rel_err(got, want)
-            tol = rtol * scale
-            print(f"kernels: K2 level{lvl_i} {str(dtype)[6:]} omega={omega} "
-                  f"n={n} ndiag={len(D.offsets)} order={order} "
-                  f"max_abs_err={err:.3e} tol={tol:.3e}")
-            check(err <= tol, f"K2 level{lvl_i} disagrees with its plain "
-                              f"version")
-            if (lvl_i, dtype, omega) == (0, torch.float32, 1.0):
-                kernel_inputs["K2"] = (D, data, x, b, Dinv, colors, order,
-                                       err)
+            fin = torch.isfinite(want)
+            err = float((got[fin] - want[fin]).abs().max())
+            print(f"kernels: K2 {name} {str(dtype)[6:]} x with inf and NaN: "
+                  f"{int((~fin).sum())} non-finite, same places "
+                  f"{same_non_finite(got, want)}, max_abs_err={err:.3e}")
+            check(same_non_finite(got, want) and err == 0,
+                  f"K2 {name} {dtype} disagrees with its plain version on an "
+                  f"x holding inf and NaN")
+        _, data, _, _, Di, _, order, _ = first
+        x2 = torch.as_tensor(rng.standard_normal((n, 2)), device=dev).float()
+        b2 = torch.as_tensor(rng.standard_normal((n, 2)), device=dev).float()
+        got = dk.dia_gs_sweep(data, D.offsets, n, x2, b2, Di, col, order)
+        want = dk.dia_gs_sweep_plain(data, D.offsets, n, x2, b2, Di, col,
+                                     order, 1.0)
+        torch.cuda.synchronize()
+        err, _ = rel_err(got, want)
+        print(f"kernels: K2 {name} float32 x {tuple(x2.shape)} "
+              f"max_abs_err={err:.3e}")
+        check(got.shape == (n, 2) and err == 0,
+              f"K2 {name} disagrees with its plain version on a 2-column x")
+        return first
+
+    for name, op in k2_ops.items():
+        kernel_inputs[f"K2 {name}"] = k2_case(name, *op)
 
     a = torch.as_tensor(rng.standard_normal(1 << 20), device=dev).float()
     c = torch.as_tensor(rng.standard_normal(1 << 20), device=dev).float()
@@ -445,11 +512,6 @@ def main():
                              "card (a fused multiply-add crept in)")
 
     # K3 on every SELL operator of the 64^3 path, K5 on its square levels
-    t0 = time.perf_counter()
-    _, ml_s = build_sa3d(64)
-    ml_s.to_device(dev)
-    print(f"kernels: 64^3 setup+compress+place {time.perf_counter() - t0:.2f}"
-          f" s")
     sell_ops = sell_operators(ml_s)
     check(sorted(sell_ops) == sorted(SELL_64),
           f"SELL operators {sorted(sell_ops)} at 64^3")
@@ -547,6 +609,28 @@ def main():
     # K5 where x does not fit in shared memory, off the main path
     k5_case("1800^2 (off the main path)", big_sd, 1.0 / big_sd.diag, False)
 
+    def k2_per_level(hier, tag):
+        """{level: (K2 launches, color passes, passes a sweep)} of the DIA
+        levels of ``hier`` from the counters of the last solve; fails
+        unless every DIA level ran and each launch ran one whole sweep."""
+        out = {}
+        for i, lvl in enumerate(hier.levels):
+            if not isinstance(lvl.A, DIA) or lvl.pre[0] != "gauss_seidel":
+                continue
+            key = (lvl.A.shape[0], len(lvl.A.offsets))
+            per = {len(gs_order(so["ncolors"], so["sweep"], so["iterations"],
+                                so["omega"])) for _, so, _ in (lvl.pre,
+                                                               lvl.post)}
+            out[f"{tag} level {i}"] = (dk.dia_gs_sweep.by_op[key],
+                                       dk.dia_gs_sweep.passes[key],
+                                       per.pop() if len(per) == 1 else None)
+        check(out and all(l > 0 and (k is None or p == l * k)
+                          for l, p, k in out.values()) and
+              sum(l for l, _, _ in out.values()) ==
+              dk.dia_gs_sweep.launches,
+              f"K2 at {tag} is not one launch per sweep on every DIA level")
+        return out
+
     # -- 3. main path --------------------------------------------------------
     dk.reset_launch_counts()
     sk.reset_launch_counts()
@@ -580,6 +664,9 @@ def main():
     check(relres < 1e-10, "true relative residual not below 1e-10")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
+    k2_500 = k2_per_level(ml, "500^2")
+    print(f"main: K2 launches per solve {launches['dia_gs_sweep']}, per DIA "
+          f"level (launches, color passes, passes a sweep) {k2_500}")
 
     # the same small solve on the card and on the CPU (plain versions)
     xs = {}
@@ -591,8 +678,8 @@ def main():
     diff = float(np.linalg.norm(xs["cuda"] - xs["cpu"]) /
                  np.linalg.norm(xs["cpu"]))
     print(f"main: 96^2 solve, card vs CPU relative difference {diff:.3e} "
-          f"(tol 1e-7)")
-    check(diff < 1e-7, "the card's solve disagrees with the CPU's")
+          f"(tol 1e-9)")
+    check(diff < 1e-9, "the card's solve disagrees with the CPU's")
 
     # -- 4. sa3d: 3-D Poisson 64^3, standard SA, SELL ----------------------
     t0 = time.perf_counter()
@@ -640,7 +727,10 @@ def main():
                             for name, (S, _) in ops3.items()
                             if k is sk.sell_spmv or S.square}
                for k in sk.KERNELS}
-    print(f"sa3d: launches per operator {per_op3}")
+    k2_64 = k2_per_level(ml3, "64^3")
+    print(f"sa3d: launches per operator {per_op3}; K2 launches per solve "
+          f"{launches3['dia_gs_sweep']}, per DIA level (launches, color "
+          f"passes, passes a sweep) {k2_64}")
     check(all(v > 0 for d in per_op3.values() for v in d.values()) and
           all(sum(per_op3[k.__name__].values()) == k.launches
               for k in sk.KERNELS),
@@ -731,26 +821,59 @@ def main():
                 lambda: Acsr @ xk,
                 (nd * n + 2 * n) * 4, 2 * nd * n)]
 
-    D, data, xg, bg, Dinv, colors, order, err2 = kernel_inputs["K2"]
+    # K2 on each DIA operator, launches per solve from each path's cold
+    # solve (2048^2 is off both paths)
+    k2_launches = {"500^2 level 0": k2_500["500^2 level 0"][0],
+                   "500^2 level 1": k2_500["500^2 level 1"][0],
+                   "64^3 A0": k2_64["64^3 level 0"][0], "2048^2": 0}
+    for name in k2_ops:
+        D, data, xg, bg, Dinv, colors, order, err2 = \
+            kernel_inputs[f"K2 {name}"]
+        n, nd = D.shape[0], len(D.offsets)
+        # each pass updates only the rows of its color: 2 flops per stored
+        # diagonal and 3 for the update
+        per_color = torch.bincount(colors.long()).tolist()
+        off_path = name == "2048^2"
+        g = dk.gs_geometry(n, nd, max(abs(o) for o in D.offsets), 4, sms)
+        rows.append(row(
+            f"dia_gs_sweep {name}" + (" (off the main path)" if off_path
+                                      else ""),
+            "pyamg_tpu/ops/pallas_kernels.py:126", k2_launches[name], err2,
+            lambda: dk.dia_gs_sweep(data, D.offsets, n, xg, bg, Dinv, colors,
+                                    order),
+            lambda: dk.dia_gs_sweep_plain(data, D.offsets, n, xg, bg, Dinv,
+                                          colors, order, 1.0),
+            None,
+            # each input (data, b, Dinv, colors, x) read once, x written once
+            (nd * n + 4 * n) * 4 + 4 * n,
+            sum(per_color[c] for c in order) * (2 * nd + 3),
+            plain_reps=5 if off_path else 50,
+            tag=f"dia_gs_sweep {name} ({len(order)} passes, {g})"))
+
+    # K2 in the launch shapes gs_geometry does not pick for the small
+    # operator of the 500^2 path: fewer, larger blocks, and the band read
+    # each pass
+    D, data, xg, bg, Dinv, colors, order, _ = kernel_inputs[
+        "K2 500^2 level 1"]
     n, nd = D.shape[0], len(D.offsets)
-    # each pass updates only the rows of its color: 2 flops per stored
-    # diagonal and 3 for the update
-    per_color = torch.bincount(colors.long()).tolist()
-    rows.append(row(
-        "dia_gs_sweep", "pyamg_tpu/ops/pallas_kernels.py:126",
-        launches["dia_gs_sweep"], err2,
-        lambda: dk.dia_gs_sweep(data, D.offsets, n, xg, bg, Dinv, colors,
-                                order),
-        lambda: dk.dia_gs_sweep_plain(data, D.offsets, n, xg, bg, Dinv,
-                                      colors, order, 1.0),
-        None,
-        # each input (data, b, Dinv, colors, x) read once, x written once
-        (nd * n + 4 * n) * 4 + 4 * n,
-        sum(per_color[c] for c in order) * (2 * nd + 3)))
-    per_pass = len(order) * ((nd * n + 4 * n) * 4 + 4 * n)
-    print(f"times: dia_gs_sweep per-pass byte model ({len(order)} passes, "
-          f"each reading the band, b, Dinv, colors and x and writing x): "
-          f"{per_pass / HBM_BYTES_PER_S * 1e6:.2f} us")
+    halo = max(abs(o) for o in D.offsets)
+    want = dk.dia_gs_sweep_plain(data, D.offsets, n, xg, bg, Dinv, colors,
+                                 order, 1.0)
+    for blocks, staged in ((64, True), (16, True), (sms, False)):
+        g = dk.gs_shape(n, blocks, nd, halo, 4, staged)
+
+        def shape_call(g=g):
+            return dk.gs_launch(g, data, D.offsets, n, xg, bg, Dinv, colors,
+                                order, 1.0)
+
+        err, _ = rel_err(shape_call(), want)
+        check(err == 0, f"K2 in the launch shape {g} disagrees with its "
+                        f"plain version")
+        cold = flushed_ms(shape_call, flush, skip)
+        print(f"times: dia_gs_sweep 500^2 level 1 shape {g}: "
+              f"{statistics.median(cold) * 1e3:.2f} us with L2 flushed "
+              f"(median), {device_ms(shape_call) * 1e3:.2f} us L2-warm, "
+              f"max_abs_err={err:.3e}")
 
     # K1 where data and x exceed the 50 MB L2 (2048^2, float32)
     data = torch.as_tensor(np.asarray(big.data), device=dev)

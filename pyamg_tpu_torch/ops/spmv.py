@@ -35,9 +35,10 @@ def spmv(A: ELL, x):
 
 
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for banded A (kernel K1 on CUDA tensors)."""
-    if not isinstance(x, torch.Tensor) or x.ndim != 1:
-        raise TypeError("dia_spmv takes a 1-D tensor")
+    """y = A @ x for banded A and x of shape (n,) or (n, k) (kernel K1 on
+    CUDA tensors, once per column)."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError("dia_spmv takes a tensor")
     return dia_kernels.dia_spmv(A.data, A.offsets, A.shape[0], x)
 
 
