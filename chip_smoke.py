@@ -12,10 +12,12 @@ Phases, each printed on its own lines:
 2. kernels: K1 (banded SpMV) against its plain PyTorch version at the
    500^2 path's shapes, at 2048^2, on a band of 80 diagonals and on a
    2-column x; K2 (multicolor Gauss-Seidel sweep, one launch a sweep) on
-   the DIA operators of both paths (500^2 levels 0 and 1, 64^3 A0) and,
-   in the regime that reads the band each pass, 2-D Poisson 2048^2:
-   symmetric, omega 1 and 0.8, float32 and float64, on an x holding an
-   inf and a NaN and on a 2-column x, each to 0; the double-single
+   the DIA operators of both paths (500^2 levels 0 and 1 in the staged
+   regime, 64^3 A0 in the regime that reads the band each pass), on 2-D
+   Poisson 2048^2 (the band past shared memory), and in the staged regime
+   on a one-sided band and on a band of 80 diagonals: symmetric, omega 1 and 0.8, float32 and float64, on an x
+   holding an inf and a NaN and on a 2-column x, each to 0; the
+   double-single
    ``two_prod`` against float64; K3 (SELL SpMV) on every
    SELL operator of the 3-D Poisson 64^3 hierarchy, on x and on x holding
    an inf and a NaN, and, in the K4 regime, on the SELL plan of 2-D Poisson
@@ -36,15 +38,13 @@ Phases, each printed on its own lines:
 5. times after a warm-up: for each path the warm solve (host clock) and
    one warm solve under torch.profiler, broken down into device busy
    time, idle share, device operations, host syncs and kernels by device
-   time; one 500^2 V-cycle; K2 at 500^2 level 1 in the launch shapes its
-   geometry does not pick (64 or 16 blocks, or the band read each pass);
-   and one row per kernel and operator (K1, K2 on each DIA operator of
-   both paths and at 2048^2, K3 on the six 64^3 operators and in the K4
-   regime, K5 on A1 and A2)
-   beside its byte bound, plain version and library call (device time per
-   call from torch.profiler: the median of calls made with L2 flushed
-   before each, for the kernel and the library call, and the mean with L2
-   warm; and CUDA events around back-to-back calls).  A bound counts each
+   time; one 500^2 V-cycle; and one row per kernel and operator (K1, K2
+   on each DIA operator of both paths and at 2048^2, K3 on the six 64^3
+   operators and in the K4 regime, K5 on A1 and A2) beside its byte
+   bound, plain version and library call (device time per call from
+   torch.profiler: the median of calls made with L2 flushed before each,
+   for the kernel and the library call, and the mean with L2 warm; and
+   CUDA events around back-to-back calls).  A bound counts each
    input read once and each output written once: for a SELL operator its
    stored non-zeros (value and column), not the padded slots of its plan.
 
@@ -362,7 +362,8 @@ def main():
     from pyamg_tpu_torch.sparse import sell as sellm
     from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
                                                        make_coloring)
-    from pyamg_tpu_torch.sparse.matrix import DIA, dia_from_ell, to_scipy
+    from pyamg_tpu_torch.sparse.matrix import (DIA, DIA_TILE, dia_from_ell,
+                                               to_scipy)
     from pyamg_tpu_torch.gallery import poisson
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -502,6 +503,34 @@ def main():
 
     for name, op in k2_ops.items():
         kernel_inputs[f"K2 {name}"] = k2_case(name, *op)
+
+    def random_band(n, offsets, scale):
+        """(DIA, colors, 4, Dinv): random entries times ``scale`` on
+        ``offsets``, 4 on the main diagonal, 4 random colors."""
+        data = np.zeros((len(offsets), -(-n // DIA_TILE) * DIA_TILE),
+                        np.float32)
+        data[:, :n] = rng.standard_normal((len(offsets), n)) * scale
+        data[offsets.index(0), :n] = 4.0
+        return (DIA(data, tuple(offsets), (n, n)),
+                rng.integers(0, 4, n).astype(np.int32), 4,
+                np.full(n, 0.25, np.float32))
+
+    # K2 in the staged regime on a one-sided band (a block waits for blocks
+    # that do not read its rows) and on 80 diagonals (the kernel for any
+    # width), 7 and 8 passes
+    wide80 = sorted({0, *rng.choice(np.arange(-250, 251), 79,
+                                    replace=False).tolist()})
+    while len(wide80) < 80:
+        wide80 = sorted({*wide80, int(rng.integers(-250, 251))})
+    for name, op in (("one-sided band",
+                      random_band(262_144, [-1500, -40, -1, 0], 1.0)),
+                     ("80 diagonals", random_band(30_000, wide80, 0.02))):
+        D, n = op[0], op[0].shape[0]
+        halo = max(abs(o) for o in D.offsets)
+        check(all(dk.gs_geometry(n, len(D.offsets), halo, item, sms).staged
+                  for item in (4, 8)),
+              f"K2's {name} case is not in the staged regime")
+        k2_case(name, *op)
 
     a = torch.as_tensor(rng.standard_normal(1 << 20), device=dev).float()
     c = torch.as_tensor(rng.standard_normal(1 << 20), device=dev).float()
@@ -849,31 +878,6 @@ def main():
             sum(per_color[c] for c in order) * (2 * nd + 3),
             plain_reps=5 if off_path else 50,
             tag=f"dia_gs_sweep {name} ({len(order)} passes, {g})"))
-
-    # K2 in the launch shapes gs_geometry does not pick for the small
-    # operator of the 500^2 path: fewer, larger blocks, and the band read
-    # each pass
-    D, data, xg, bg, Dinv, colors, order, _ = kernel_inputs[
-        "K2 500^2 level 1"]
-    n, nd = D.shape[0], len(D.offsets)
-    halo = max(abs(o) for o in D.offsets)
-    want = dk.dia_gs_sweep_plain(data, D.offsets, n, xg, bg, Dinv, colors,
-                                 order, 1.0)
-    for blocks, staged in ((64, True), (16, True), (sms, False)):
-        g = dk.gs_shape(n, blocks, nd, halo, 4, staged)
-
-        def shape_call(g=g):
-            return dk.gs_launch(g, data, D.offsets, n, xg, bg, Dinv, colors,
-                                order, 1.0)
-
-        err, _ = rel_err(shape_call(), want)
-        check(err == 0, f"K2 in the launch shape {g} disagrees with its "
-                        f"plain version")
-        cold = flushed_ms(shape_call, flush, skip)
-        print(f"times: dia_gs_sweep 500^2 level 1 shape {g}: "
-              f"{statistics.median(cold) * 1e3:.2f} us with L2 flushed "
-              f"(median), {device_ms(shape_call) * 1e3:.2f} us L2-warm, "
-              f"max_abs_err={err:.3e}")
 
     # K1 where data and x exceed the 50 MB L2 (2048^2, float32)
     data = torch.as_tensor(np.asarray(big.data), device=dev)

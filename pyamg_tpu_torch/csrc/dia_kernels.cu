@@ -40,27 +40,37 @@
 //       caller raises `epoch` past every tag of a launch, so the words
 //       never need clearing.
 //   (b) device: the band does not fit in the resident blocks' shared
-//       memory; each pass reads it (and b, Dinv, colors, x) from device
-//       memory and writes every row of x, still in one launch.  After its
-//       pass a block publishes flags[block] = epoch + p + 1 with a
-//       release store, and the blocks within `reach` = ceil(h / rows) of
-//       it spin on it with acquire loads before pass p + 1.
+//       memory, or reaches past the next block (then every row of a
+//       staged block would be exchanged each pass, which measured slower
+//       than reading the band again from L2); each pass reads the band
+//       (and b, Dinv, colors, x) from device memory and writes every row
+//       of x, still in one launch.  After its pass a block publishes
+//       flags[block] = epoch + p + 1 with a release store, and the blocks
+//       within `reach` = ceil(h / rows) of it spin on it with acquire
+//       loads before pass p + 1.  A launch of one pass waits for no
+//       block; it is an ordinary launch of any number of blocks.
 // In both, x in device memory is double-buffered: pass p reads what pass
-// p - 1 wrote and writes the other buffer.  A block can run at most one
-// pass ahead of a neighbour whose rows it reads (it waits for them), and
-// the neighbour reads its rows in turn, so a buffer is never overwritten
-// while still read, and every read sees exactly the previous pass's x,
+// p - 1 wrote and writes the other buffer.  The wait relation is
+// symmetric: a block waits for every block whose rows it reads and for
+// every block that reads its rows (in (a) it also polls the rows that the
+// negated offsets reach; in (b) it waits for all blocks within `reach`).
+// So a block runs at most one pass ahead of any block that reads its
+// rows, a buffer is never overwritten while still read (with a one-sided
+// band, a block that waited only for the rows it reads could run two
+// passes ahead of its reader and overwrite the words the reader still
+// polls), and every read sees exactly the previous pass's x,
 // as the plain version computes it (no reliance on the coloring: an
 // explicit zero in the band times an inf or NaN of the same color gives
 // NaN where the plain version does).  Halo x is read through L2
 // (ld.relaxed.gpu, ld.global.cg), never through L1, which is not
 // coherent across SMs.  Pass 0 reads x0 itself; the last pass writes out.
 //
-// The 5-, 9- and 7-diagonal operators of the 2-D and 3-D Poisson paths
-// get staged kernels of their own width, with the offsets in registers and
-// all terms of a row loaded together.  Tried on the card and dropped
-// (PERF.md, section 6): pass counters instead of tagged words in the staged
-// regime (slower at all three main-path operators), sorting a block's
+// The 5- and 7-diagonal operators of the 2-D and 3-D Poisson paths get
+// staged kernels of their own width, with the offsets in registers and all
+// terms of a row loaded together; probes/k2_regimes.py times them against
+// the kernel for any width (PERF.md, section 6).  Tried on the card and
+// dropped (same section): pass counters instead of tagged words in the
+// staged regime (slower at all three main-path operators), sorting a block's
 // rows by color so that a pass runs whole warps of its color (the sort and
 // the indirection cost more than the idle lanes), and two rows a thread
 // computed without a branch.
@@ -232,8 +242,13 @@ dia_spmv_kernel(const T* __restrict__ data, long long npad, int ndiag,
     for (int k = 0; k < cnt; ++k) {
       const int j = i + soffs[k];
       const T xv = in_range(j, 0, n) ? __ldg(x + j) : T(0);
-      const T t = Rn<T>::mul(__ldg(data + (d0 + k) * npad + i), xv);
+      const T a = __ldg(data + (d0 + k) * npad + i);
+#ifdef PYAMG_DIA_SPMV_FMA       // a contracted sum, for a timing probe
+      acc = fma(a, xv, acc);
+#else
+      const T t = Rn<T>::mul(a, xv);
       acc = d0 + k == 0 ? t : Rn<T>::add(acc, t);
+#endif
     }
   }
   if (i < n) y[i] = acc;
@@ -363,9 +378,12 @@ dia_gs_staged_kernel(const T* __restrict__ data, long long npad, int ndiag,
   for (int li = tid; li < cnt; li += nt) sod[li] = Rn<T>::mul(omega, sod[li]);
   __syncthreads();
   // a halo row is read if some diagonal reaches it from the block's rows:
-  // diagonal d reads [off, off + cnt) of the block's numbering
-  for (int d = 0; d < ndiag; ++d) {
-    const int lo = soffs[d], hi = soffs[d] + cnt;
+  // diagonal d reads [off, off + cnt) of the block's numbering.  The rows
+  // that -off reaches are read too, so that a block waits for every block
+  // that reads its rows (see the note at the top)
+  for (int d = 0; d < 2 * ndiag; ++d) {
+    const int off = d < ndiag ? soffs[d] : -soffs[d - ndiag];
+    const int lo = off, hi = off + cnt;
     for (int j = max(lo, -halo) + tid; j < min(hi, 0); j += nt)
       if (in_range(r0 + j, 0, n)) need[j + halo] = 1;
     for (int j = max(lo, cnt) + tid; j < min(hi, cnt + halo); j += nt)
@@ -568,11 +586,12 @@ cudaError_t resident_blocks(const void* kernel, int threads, int smem,
   return cudaSuccess;
 }
 
-// launch `kernel` cooperatively, after checking that every block can be
-// resident at once (or the waits between blocks would deadlock)
+// launch `kernel`; `cooperative` (its blocks wait for each other): after
+// checking that every block can be resident at once (or the waits would
+// deadlock)
 template <typename Kernel, typename... Args>
-int launch_resident(Kernel kernel, int* allowed, int blocks, int threads,
-                    int smem, void* stream, Args... args) {
+int launch(Kernel kernel, bool cooperative, int* allowed, int blocks,
+           int threads, int smem, void* stream, Args... args) {
   cudaError_t e = cudaSuccess;
   if (smem > *allowed) {
     e = cudaFuncSetAttribute(
@@ -580,12 +599,14 @@ int launch_resident(Kernel kernel, int* allowed, int blocks, int threads,
     if (e != cudaSuccess) return static_cast<int>(e);
     *allowed = smem;
   }
-  long long resident = 0;
-  e = resident_blocks(reinterpret_cast<const void*>(kernel), threads, smem,
-                      &resident);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (resident < blocks)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  if (cooperative) {
+    long long resident = 0;
+    e = resident_blocks(reinterpret_cast<const void*>(kernel), threads, smem,
+                        &resident);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (resident < blocks)
+      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(threads);
@@ -595,7 +616,7 @@ int launch_resident(Kernel kernel, int* allowed, int blocks, int threads,
   attr.id = cudaLaunchAttributeCooperative;
   attr.val.cooperative = 1;
   cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cooperative ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
@@ -612,7 +633,9 @@ int dia_spmv(const T* data, int ndiag, long long npad, const int* offsets,
 }
 
 // staged: `words` holds 2 * n * Tagged<T>::kWords words; device regime:
-// `scratch` holds n values (when n_order > 1) and `flags` kMaxFlagBlocks
+// `scratch` holds n values and `flags` kMaxFlagBlocks (when n_order > 1).
+// A device-regime launch of one pass waits for no block, so it is an
+// ordinary launch of any number of blocks.
 template <typename T>
 int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
                  int n, const T* b, const T* dinv, const int* colors,
@@ -621,6 +644,7 @@ int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
                  unsigned epoch, int staged, int blocks, int threads,
                  int rows, int reach, int halo, int smem, void* stream) {
   if (n <= 0) return 0;
+  const bool waits = n_order > 1;
   const bool bad =
       ndiag < 1 || npad < n || n_order < 1 || blocks < 1 || rows < 1 ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
@@ -628,33 +652,33 @@ int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
       static_cast<long long>(blocks - 1) * rows >= n || halo < 0 ||
       smem < gs_smem(staged, rows, ndiag, halo, sizeof(T)) ||
       smem > kMaxSmem ||
-      (staged ? (n_order > 1 && words == nullptr)
-              : ((n_order > 1 && scratch == nullptr) || flags == nullptr ||
-                 blocks > kMaxFlagBlocks ||
-                 static_cast<long long>(reach) * rows < halo));
+      (staged ? (waits && words == nullptr)
+              : waits && (scratch == nullptr || flags == nullptr ||
+                          blocks > kMaxFlagBlocks ||
+                          static_cast<long long>(reach) * rows < halo));
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   if (staged) {
-    // the band widths of the 2-D 5- and 9-point and 3-D 7-point
-    // operators get kernels of their own
-    static int allowed[4] = {48 * 1024, 48 * 1024, 48 * 1024, 48 * 1024};
+    // the band widths of the 2-D 5-point and 3-D 7-point operators get
+    // kernels of their own (the 2-D 9-point one ran no faster in its own)
+    static int allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
     auto run = [&](auto kernel, int* allowed_k) {
-      return launch_resident(kernel, allowed_k, blocks, threads, smem,
-                             stream, data, npad, ndiag, offsets, n, b, dinv,
-                             colors, order, n_order, omega, x0, out, words,
-                             epoch, rows, halo);
+      return launch(kernel, true, allowed_k, blocks, threads, smem, stream,
+                    data, npad, ndiag, offsets, n, b, dinv, colors, order,
+                    n_order, omega, x0, out, words, epoch, rows, halo);
     };
+#ifndef PYAMG_DIA_GS_GENERIC   // a build for a timing probe: any width
     switch (ndiag) {
       case 5: return run(dia_gs_staged_kernel<T, 5>, &allowed[1]);
       case 7: return run(dia_gs_staged_kernel<T, 7>, &allowed[2]);
-      case 9: return run(dia_gs_staged_kernel<T, 9>, &allowed[3]);
-      default: return run(dia_gs_staged_kernel<T, 0>, &allowed[0]);
     }
+#endif
+    return run(dia_gs_staged_kernel<T, 0>, &allowed[0]);
   }
   static int allowed = 48 * 1024;
-  return launch_resident(dia_gs_device_kernel<T>, &allowed, blocks, threads,
-                         smem, stream, data, npad, ndiag, offsets, n, b, dinv,
-                         colors, order, n_order, omega, x0, out, scratch,
-                         flags, epoch, rows, reach, halo);
+  return launch(dia_gs_device_kernel<T>, waits, &allowed, blocks, threads,
+                smem, stream, data, npad, ndiag, offsets, n, b, dinv, colors,
+                order, n_order, omega, x0, out, scratch, flags, epoch, rows,
+                reach, halo);
 }
 
 }  // namespace

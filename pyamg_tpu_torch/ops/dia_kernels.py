@@ -18,9 +18,11 @@ of other blocks within its halo (``max |offset|`` rows).  In the staged
 regime a block keeps its rows of the band, b, Dinv, colors and x in
 shared memory, so the band is read from device memory once per sweep,
 and the rows other blocks read pass between blocks as tagged words (the
-value beside the pass that wrote it); where the band does not fit, each
-pass reads it again, still in one launch, and the blocks wait for each
-other through pass counters.  ``gs_geometry`` picks the regime and the
+value beside the pass that wrote it); where the band does not fit, or
+reaches past the next block, each pass reads it again, still in one
+launch, and the blocks wait for each other through pass counters.  A
+block waits for the blocks whose rows it reads and for those that read
+its rows.  ``gs_geometry`` picks the regime and the
 launch shape (plain Python, reached by the CPU tests);
 ``csrc/dia_kernels.cu`` says why the result equals the plain version's
 bit for bit.
@@ -74,7 +76,13 @@ def build() -> dict:
 
 @functools.cache
 def _lib():
-    lib = ctypes.CDLL(build()["path"])
+    return bind(build()["path"])
+
+
+def bind(path):
+    """The library at ``path`` built from ``csrc/dia_kernels.cu``, its
+    entry points typed for ctypes."""
+    lib = ctypes.CDLL(path)
     vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint)
     for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
@@ -212,8 +220,9 @@ class GsGeometry:
     lie in the ``reach`` blocks on each side.  ``staged``: the block's
     rows of the band, b, Dinv, colors and x live in ``smem`` bytes of
     shared memory, and the rows other blocks read pass between blocks as
-    tagged words; else every pass reads everything from device memory and
-    the blocks wait for each other through pass counters."""
+    tagged words (a block polls those ``staged_reads`` gives); else every
+    pass reads everything from device memory and the blocks wait for each
+    other through pass counters."""
     staged: bool
     blocks: int
     threads: int
@@ -226,10 +235,33 @@ class GsGeometry:
         return k * self.rows, min(n, (k + 1) * self.rows)
 
     def waits_for(self, k):
-        """The blocks whose previous pass block k waits for."""
+        """The blocks whose previous pass block k may wait for."""
         lo = max(0, k - self.reach)
         hi = min(self.blocks, k + self.reach + 1)
         return [j for j in range(lo, hi) if j != k]
+
+
+def staged_reads(offsets, lo, hi, halo, n):
+    """The rows outside ``[lo, hi)`` that a staged block owning those rows
+    polls before each pass (the kernel's ``need``), as sorted disjoint
+    ``(start, stop)`` ranges: those within ``halo`` of its edges that a
+    diagonal or a diagonal's negation reaches from its rows.  The negated
+    reach makes a block wait for every block that reads its rows."""
+    spans = []
+    for off in {*offsets, *(-o for o in offsets)}:
+        a, e = lo + off, hi + off
+        for s, t in ((max(a, lo - halo), min(e, lo)),
+                     (max(a, hi), min(e, hi + halo))):
+            s, t = max(s, 0), min(t, n)
+            if s < t:
+                spans.append((s, t))
+    merged = []
+    for s, t in sorted(spans):
+        if merged and s <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], t))
+        else:
+            merged.append((s, t))
+    return merged
 
 
 def gs_smem(staged, rows, ndiag, halo, itemsize):
@@ -246,12 +278,14 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
-def gs_shape(n, blocks, ndiag, halo, itemsize, staged):
-    """A K2 launch of at most ``blocks`` blocks over ``n`` rows (whole
-    warps of rows each), ``staged`` or not."""
+def _gs_shape(n, blocks, ndiag, halo, itemsize, staged,
+              threads=MAX_THREADS):
+    """A K2 launch of at most ``blocks`` blocks of at most ``threads``
+    threads over ``n`` rows (whole warps of rows each), ``staged`` or
+    not."""
     rows = _round_up(-(-n // blocks), 32)
     blocks = -(-n // rows)
-    return GsGeometry(staged, blocks, min(MAX_THREADS, rows), rows,
+    return GsGeometry(staged, blocks, min(threads, rows), rows,
                       min(blocks - 1, -(-halo // rows)), halo,
                       gs_smem(staged, rows, ndiag, halo, itemsize))
 
@@ -260,14 +294,18 @@ def gs_shape(n, blocks, ndiag, halo, itemsize, staged):
 def gs_geometry(n, ndiag, halo, itemsize, sms=SM_COUNT, max_smem=MAX_SMEM):
     """K2's launch for ``n`` rows, ``ndiag`` diagonals reaching ``halo``
     rows, ``itemsize``-byte values, on a card of ``sms`` SMs: one block
-    per SM, fewer where a block would take under ``GS_MIN_ROWS`` rows,
-    staged where a block's rows fit in ``max_smem`` bytes of shared
-    memory; else one block per SM reading the band each pass."""
+    per SM, fewer where a block would take under ``GS_MIN_ROWS`` rows.
+    Staged where a block's rows fit in ``max_smem`` bytes of shared memory
+    and the band reaches no further than the next block (``halo <=
+    rows``); else one block per SM reading the band each pass.  Where the
+    band reaches further, every row of a staged block is read by other
+    blocks each pass, and reading the band again from L2 costs less than
+    exchanging the block as tagged words (PERF.md, section 6)."""
     blocks = min(sms, max(1, -(-n // GS_MIN_ROWS)))
-    g = gs_shape(n, blocks, ndiag, halo, itemsize, True)
-    if g.smem <= max_smem:
+    g = _gs_shape(n, blocks, ndiag, halo, itemsize, True)
+    if g.smem <= max_smem and halo <= g.rows:
         return g
-    return gs_shape(n, sms, ndiag, halo, itemsize, False)
+    return _gs_shape(n, sms, ndiag, halo, itemsize, False)
 
 
 class _Exchange:
@@ -324,9 +362,11 @@ def dia_gs_sweep_plain(data, offsets, n, x, b, Dinv, colors, order, omega):
     return x
 
 
-def gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega):
+def _gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega,
+               lib=None):
     """Launch K2 once with geometry ``g`` on 1-D CUDA operands already
-    checked, and return the new x.  Counts nothing: the wrapper does."""
+    checked (through ``lib``, by default the built source), and return the
+    new x.  Counts nothing: the wrapper does."""
     dev = data.device
     out = torch.empty_like(x)
     stream = _stream(dev)
@@ -336,7 +376,7 @@ def gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega):
         words = ex.words_for(2 * n * (data.element_size() // 4))
     elif len(order) > 1:
         scratch = torch.empty_like(x)
-    fn = getattr(_lib(), f"pyamg_dia_gs_sweep_{_suffix(data.dtype)}")
+    fn = getattr(lib or _lib(), f"pyamg_dia_gs_sweep_{_suffix(data.dtype)}")
     rc = fn(data.data_ptr(), len(offsets), data.shape[1],
             _device_ints(offsets, dev).data_ptr(), n, b.data_ptr(),
             Dinv.data_ptr(), colors.data_ptr(),
@@ -371,8 +411,8 @@ def dia_gs_sweep(data, offsets, n, x, b, Dinv, colors, order, omega=1.0):
     key = (n, len(offsets))
 
     def one(xc, bc):
-        out = gs_launch(g, data, offsets, n, xc, bc, Dinv, colors, order,
-                        omega)
+        out = _gs_launch(g, data, offsets, n, xc, bc, Dinv, colors, order,
+                         omega)
         dia_gs_sweep.launches += 1          # one kernel per sweep
         dia_gs_sweep.by_op[key] += 1
         dia_gs_sweep.passes[key] += len(order)

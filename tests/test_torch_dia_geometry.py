@@ -7,11 +7,16 @@ band each pass, and small shapes: the blocks' row ranges cover [0, n)
 exactly once, shared memory fits, every block waits for every block its
 halo reaches, and a launch shape is one the CUDA entry point accepts.
 
+The staged regime's tagged words are replayed under random schedules: a
+block polls the rows ``staged_reads`` gives, and may run ahead of blocks
+that do not read its rows.  No block may find a word overwritten by a
+later pass before it read it (the kernel would spin on it), and no
+schedule may deadlock; with one-sided bands and four passes or more.
+
 Then the blocked sweep is emulated in torch: in each pass a block reads
-its own rows and those of the blocks it waits for as of the previous pass
-(of a staged block, only the rows within the halo of its edges, the only
-ones it writes to device memory before the last pass), and NaN from every
-other row.  The result must equal ``dia_gs_sweep_plain`` bit for bit.
+its own rows and, as of the previous pass, the rows it polls (staged) or
+those of the blocks it waits for (device), and NaN from every other row.
+The result must equal ``dia_gs_sweep_plain`` bit for bit.
 """
 
 import numpy as np
@@ -23,7 +28,7 @@ from pyamg_tpu_torch.gallery import poisson
 from pyamg_tpu_torch.ops import dia_kernels as dk
 from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
                                                    make_coloring)
-from pyamg_tpu_torch.sparse.matrix import dia_from_ell
+from pyamg_tpu_torch.sparse.matrix import DIA, DIA_TILE, dia_from_ell
 
 torch.set_num_threads(1)
 
@@ -43,6 +48,7 @@ def _check_shape(g, n, ndiag, halo, itemsize, max_smem=dk.MAX_SMEM):
     assert g.halo == halo
     assert dk.gs_smem(g.staged, g.rows, ndiag, halo, itemsize) == g.smem
     assert g.smem <= max_smem or not g.staged
+    assert g.halo <= g.rows or not g.staged     # reaches the next block only
     assert g.blocks <= dk.FLAG_BLOCKS
     assert g.reach * g.rows >= halo or g.reach == g.blocks - 1
     # every row a block's halo reaches lies in a block it waits for
@@ -60,13 +66,12 @@ def test_main_path_geometry(name, itemsize):
     n, ndiag, halo = SHAPES[name]
     g = dk.gs_geometry(n, ndiag, halo, itemsize)
     _check_shape(g, n, ndiag, halo, itemsize)
-    staged = name != "2048^2"
-    if (name, itemsize) == ("64^3 A0", 8):     # its halo of 4096 rows a
-        staged = False                        # side does not fit twice
-    assert g.staged == staged
+    # 2048^2 does not fit; 64^3 A0's halo of 4096 rows reaches three
+    # blocks a side
+    assert g.staged == (name not in ("2048^2", "64^3 A0"))
     # one block per SM
     assert dk.SM_COUNT - 8 <= g.blocks <= dk.SM_COUNT
-    if name == "64^3 A0":       # the halo reaches three blocks a side
+    if name == "64^3 A0":
         assert g.reach == 3
 
 
@@ -82,6 +87,116 @@ def test_small_geometry(n, ndiag, halo, sms):
             assert g.blocks <= sms
 
 
+def _reads_own_reach(offsets, lo, hi, halo, n):
+    """The rows a staged block would poll if it polled only the rows its
+    own diagonals reach (without their negation)."""
+    spans = []
+    for off in offsets:
+        for s, t in ((max(lo + off, lo - halo), min(hi + off, lo)),
+                     (max(lo + off, hi), min(hi + off, hi + halo))):
+            if max(s, 0) < min(t, n):
+                spans.append((max(s, 0), min(t, n)))
+    return spans
+
+
+def _replay_words(g, offsets, n, n_order, rng, reads=dk.staged_reads):
+    """Replay a staged launch's tagged words under a random schedule: a
+    ready block (every word it polls holds the pass it waits for) reads
+    them, does its pass and publishes its rows in the other buffer.  Fails
+    if a block finds a word that a later pass overwrote, or if no block is
+    ready before all are done."""
+    ranges = [g.row_range(k, n) for k in range(g.blocks)]
+    polls = []
+    for k, (lo, hi) in enumerate(ranges):
+        blocks = set()
+        for s, t in reads(offsets, lo, hi, g.halo, n):
+            for j in range(s // g.rows, (t - 1) // g.rows + 1):
+                a, e = ranges[j]
+                # only the rows within the halo of a block's edges are
+                # published: none of its interior is polled
+                assert j != k and max(s, a, a + g.halo) >= \
+                    min(t, e, e - g.halo)
+                blocks.add(j)
+        polls.append(sorted(blocks))
+    tag = [[-1, -1] for _ in ranges]   # the pass of each buffer's words
+    p = [0] * g.blocks
+    while min(p) < n_order:
+        ready = []
+        for k in range(g.blocks):
+            if p[k] == n_order:
+                continue
+            seen = [tag[j][p[k] & 1] for j in polls[k]] if p[k] else []
+            assert all(t <= p[k] for t in seen), \
+                f"block {k} finds pass {p[k]}'s words overwritten"
+            if all(t == p[k] for t in seen):
+                ready.append(k)
+        assert ready, f"no block can go on at passes {p}"
+        k = ready[rng.integers(len(ready))]
+        if p[k] < n_order - 1:
+            tag[k][(p[k] + 1) & 1] = p[k] + 1
+        p[k] += 1
+
+
+# one-sided and lopsided bands, and the main paths' symmetric ones
+PROTOCOL_BANDS = [(-4096, -64, -1, 0), (0, 1, 64, 4096), (-7, 0, 1, 300),
+                  (-300, -1, 0, 20), (-1, 0, 1), (-500, -1, 0, 1, 500),
+                  (-4096, -64, -1, 0, 1, 64, 4096)]
+
+
+@pytest.mark.parametrize("offsets", PROTOCOL_BANDS)
+@pytest.mark.parametrize("n_order", [3, 5, 7])
+def test_staged_words_never_overwritten_before_read(offsets, n_order):
+    rng = np.random.default_rng(n_order)
+    halo = max(abs(o) for o in offsets)
+    for n, blocks in ((60_000, 132), (9_000, 13), (40_000, 40),
+                      (400_000, 132)):
+        # staged shapes gs_geometry gives, and ones it leaves to the
+        # device regime (the halo past the next block), which the kernel
+        # runs all the same
+        g = dk._gs_shape(n, blocks, len(offsets), halo, 4, True)
+        assert g.blocks > 2
+        for _ in range(4):
+            _replay_words(g, offsets, n, n_order, rng)
+
+
+@pytest.mark.parametrize("offsets", [(-4096, -64, -1, 0), (0, 1, 64, 4096)])
+def test_replay_catches_reads_that_do_not_wait_both_ways(offsets):
+    """Polling only the rows its own diagonals reach lets a block run two
+    passes ahead of a block that reads its rows; the replay sees it."""
+    g = dk._gs_shape(60_000, 132, len(offsets), 4096, 4, True)
+    rng = np.random.default_rng(0)
+    with pytest.raises(AssertionError, match="overwritten"):
+        for _ in range(20):
+            _replay_words(g, offsets, 60_000, 5, rng, _reads_own_reach)
+
+
+def test_staged_wait_relation_is_symmetric():
+    """Block k polls a row of block j exactly when j polls a row of k."""
+    for offsets in PROTOCOL_BANDS:
+        halo = max(abs(o) for o in offsets)
+        g = dk._gs_shape(60_000, 132, len(offsets), halo, 4, True)
+        polls = set()
+        for k in range(g.blocks):
+            lo, hi = g.row_range(k, 60_000)
+            for s, t in dk.staged_reads(offsets, lo, hi, halo, 60_000):
+                polls |= {(k, j) for j in range(s // g.rows,
+                                                (t - 1) // g.rows + 1)}
+        assert polls == {(j, k) for k, j in polls}, offsets
+
+
+def _band(n, offsets, seed):
+    """A diagonally dominant DIA of random entries on ``offsets``, with 4
+    random colors: (name, DIA, colors, ncolors, Dinv)."""
+    rng = np.random.default_rng(seed)
+    npad = -(-n // DIA_TILE) * DIA_TILE
+    data = np.zeros((len(offsets), npad), np.float32)
+    data[:, :n] = rng.standard_normal((len(offsets), n))
+    data[offsets.index(0), :n] = 4.0
+    colors = torch.as_tensor(rng.integers(0, 4, n).astype(np.int32))
+    return (f"band {offsets}", DIA(torch.as_tensor(data), offsets, (n, n)),
+            colors, 4, torch.full((n,), 0.25))
+
+
 def _operators():
     """(name, DIA, colors, ncolors, Dinv) at 48^2 levels 0 and 1 of the
     grid-SA hierarchy and a 16^3 7-point operator."""
@@ -94,6 +209,8 @@ def _operators():
         colors, nc = make_coloring(A)
         out.append((name, dia_from_ell(A).to("cpu"), torch.as_tensor(colors),
                     nc, torch.as_tensor(dinv_vec(A))))
+    out.append(_band(2304, (-200, -48, -1, 0), 1))
+    out.append(_band(2304, (-7, 0, 1, 150), 2))
     return out
 
 
@@ -113,13 +230,12 @@ def _emulate(g, D, x, b, Dinv, colors, order, omega):
             lo, hi = g.row_range(k, n)
             view = torch.full_like(cur, float("nan"))
             view[lo:hi] = cur[lo:hi]
-            for j in g.waits_for(k):
-                a, e = g.row_range(j, n)
-                if g.staged:    # only the rows within the halo of its edges
-                    view[a:min(e, a + g.halo)] = cur[a:min(e, a + g.halo)]
-                    view[max(a, e - g.halo):e] = cur[max(a, e - g.halo):e]
-                else:
+            if g.staged:        # only the rows it polls
+                for a, e in dk.staged_reads(D.offsets, lo, hi, g.halo, n):
                     view[a:e] = cur[a:e]
+            for j in () if g.staged else g.waits_for(k):
+                a, e = g.row_range(j, n)
+                view[a:e] = cur[a:e]
             new[lo:hi] = dk.dia_gs_sweep_plain(
                 D.data, D.offsets, n, view, b, Dinv, colors, [c],
                 omega)[lo:hi]
@@ -127,7 +243,7 @@ def _emulate(g, D, x, b, Dinv, colors, order, omega):
     return cur
 
 
-@pytest.mark.parametrize("op", [0, 1, 2])
+@pytest.mark.parametrize("op", [0, 1, 2, 3, 4])
 @pytest.mark.parametrize("omega", [1.0, 0.8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_blocked_sweep_equals_plain(operators, op, omega, dtype):
@@ -148,6 +264,8 @@ def test_blocked_sweep_equals_plain(operators, op, omega, dtype):
         for max_smem in (dk.MAX_SMEM, 1024):
             shapes.add(dk.gs_geometry(n, len(D.offsets), halo, itemsize, sms,
                                       max_smem))
+    # a staged shape whose halo reaches past the next block
+    shapes.add(dk._gs_shape(n, 40, len(D.offsets), halo, itemsize, True))
     assert any(g.blocks > 1 and g.staged for g in shapes)
     assert any(g.blocks > 1 and not g.staged for g in shapes)
     for g in shapes:
