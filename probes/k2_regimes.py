@@ -9,8 +9,8 @@ sweep at omega 1) it runs K2 in these shapes:
 
 - ``staged``: the staged one-launch kernel wherever a block's rows fit
   in shared memory (one block an SM), from the build of
-  ``csrc/dia_kernels.cu``, whose 5- and 7-diagonal operators get kernels
-  of their own width; ``staged generic``: the same launch in a build with
+  ``csrc/dia_kernels.cu``, whose 5-diagonal operators get a kernel of
+  their own width; ``staged generic``: the same launch in a build with
   ``-DPYAMG_DIA_GS_GENERIC`` (the kernel for any number of diagonals;
   the same build also has ``-DPYAMG_DIA_SPMV_FMA``);
   both timed twice, in the order A B B A, so that the spread between two

@@ -65,10 +65,10 @@
 // (ld.relaxed.gpu, ld.global.cg), never through L1, which is not
 // coherent across SMs.  Pass 0 reads x0 itself; the last pass writes out.
 //
-// The 5- and 7-diagonal operators of the 2-D and 3-D Poisson paths get
-// staged kernels of their own width, with the offsets in registers and all
-// terms of a row loaded together; probes/k2_regimes.py times them against
-// the kernel for any width (PERF.md, section 6).  Tried on the card and
+// The 5-diagonal operators of the 2-D Poisson path get a staged kernel of
+// their own width, with the offsets in registers and all terms of a row
+// loaded together; probes/k2_regimes.py times it against the kernel for
+// any width (PERF.md, section 6).  Tried on the card and
 // dropped (same section): pass counters instead of tagged words in the
 // staged regime (slower at all three main-path operators), sorting a block's
 // rows by color so that a pass runs whole warps of its color (the sort and
@@ -658,19 +658,17 @@ int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
                           static_cast<long long>(reach) * rows < halo));
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
   if (staged) {
-    // the band widths of the 2-D 5-point and 3-D 7-point operators get
-    // kernels of their own (the 2-D 9-point one ran no faster in its own)
-    static int allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+    // the 2-D 5-point operators get a kernel of their own width (the 2-D
+    // 9-point one ran no faster in its own, and the 3-D 7-point one of
+    // the main path reaches past the next block, so it is not staged)
+    static int allowed[2] = {48 * 1024, 48 * 1024};
     auto run = [&](auto kernel, int* allowed_k) {
       return launch(kernel, true, allowed_k, blocks, threads, smem, stream,
                     data, npad, ndiag, offsets, n, b, dinv, colors, order,
                     n_order, omega, x0, out, words, epoch, rows, halo);
     };
 #ifndef PYAMG_DIA_GS_GENERIC   // a build for a timing probe: any width
-    switch (ndiag) {
-      case 5: return run(dia_gs_staged_kernel<T, 5>, &allowed[1]);
-      case 7: return run(dia_gs_staged_kernel<T, 7>, &allowed[2]);
-    }
+    if (ndiag == 5) return run(dia_gs_staged_kernel<T, 5>, &allowed[1]);
 #endif
     return run(dia_gs_staged_kernel<T, 0>, &allowed[0]);
   }
