@@ -9,10 +9,15 @@ Phases, each printed on its own lines:
    versions, and the build of the CUDA kernels from ``pyamg_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
    registers, shared memory, stack frame and spills from ``-Xptxas -v``;
-2. kernels: K1 (banded SpMV) against its plain PyTorch version at the
-   500^2 path's shapes, at 2048^2, on a band of 80 diagonals and on a
-   2-column x; K2 (multicolor Gauss-Seidel sweep, one launch a sweep) on
-   the DIA operators of both paths (500^2 levels 0 and 1 in the staged
+2. kernels: K1 (banded SpMV) against its plain PyTorch version to 0 on
+   every DIA operator of both paths (500^2 levels 0 and 1, 64^3 A0) and
+   at 2048^2, float32 and float64; on a 2- and a 3-column x (one launch
+   each), an x holding an inf and a NaN, an x off a 16-byte boundary, a
+   band of 80 diagonals, a band wider than the offsets a launch takes by
+   value (read from device memory), an ``npad`` that is not a multiple of
+   4 with an n that is not a multiple of the rows a thread, and the
+   one-sided band {-1500, -40, -1, 0}; K2 (multicolor Gauss-Seidel
+   sweep, one launch a sweep) on the DIA operators of both paths (500^2 levels 0 and 1 in the staged
    regime, 64^3 A0 in the regime that reads the band each pass), on 2-D
    Poisson 2048^2 (the band past shared memory), and in the staged regime
    on a one-sided band and on a band of 80 diagonals: symmetric, omega 1 and 0.8, float32 and float64, on an x
@@ -27,9 +32,9 @@ Phases, each printed on its own lines:
    (off the main path);
 3. main path: 2-D Poisson 500^2, grid smoothed aggregation, stencil
    compression, dense coarse tail, double-single refinement, solved to
-   1e-10 on the card with the kernels' launch counts read around it, and
-   K2's launches and color passes per DIA level; then a 96^2 solve on the
-   card against the same solve on the CPU;
+   1e-10 on the card with the kernels' launch counts read around it, K1's
+   launches and K2's launches and color passes per DIA level; then a 96^2
+   solve on the card against the same solve on the CPU;
 4. sa3d: 3-D Poisson 64^3, standard smoothed aggregation, DIA and SELL
    layouts, ``solve_refined(tol=1e-10, accel="cg")`` as
    ``bench_suite.bench_sa_poisson_3d_64`` runs it, with the launch counts
@@ -38,8 +43,8 @@ Phases, each printed on its own lines:
 5. times after a warm-up: for each path the warm solve (host clock) and
    one warm solve under torch.profiler, broken down into device busy
    time, idle share, device operations, host syncs and kernels by device
-   time; one 500^2 V-cycle; and one row per kernel and operator (K1, K2
-   on each DIA operator of both paths and at 2048^2, K3 on the six 64^3
+   time; one 500^2 V-cycle; and one row per kernel and operator (K1 and
+   K2 on each DIA operator of both paths and at 2048^2, K3 on the six 64^3
    operators and in the K4 regime, K5 on A1 and A2) beside its byte
    bound, plain version and library call (device time per call from
    torch.profiler: the median of calls made with L2 flushed before each,
@@ -396,40 +401,76 @@ def main():
     print(f"kernels: 64^3 setup+compress+place {time.perf_counter() - t0:.2f}"
           f" s")
     kernel_inputs = {}
-    K1_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+    k1_capacity = dk._lib().spmv_capacity
 
-    def k1_case(name, band, offsets, n, dtype, cols=1):
-        data = torch.as_tensor(np.asarray(band), device=dev).to(dtype)
+    def k1_case(name, band, offsets, n, dtype, cols=1, x=None):
+        """K1 once against its plain version to 0 (non-finite at the same
+        places), one launch: (data, x, error)."""
+        data = band if isinstance(band, torch.Tensor) else \
+            torch.as_tensor(np.asarray(band), device=dev)
+        data = data.to(dtype)
         shape = (n,) if cols == 1 else (n, cols)
-        x = torch.as_tensor(rng.standard_normal(shape), device=dev).to(dtype)
+        if x is None:
+            x = torch.as_tensor(rng.standard_normal(shape),
+                                device=dev).to(dtype)
+        before = dk.dia_spmv.launches
         y = dk.dia_spmv(data, offsets, n, x)
+        launched = dk.dia_spmv.launches - before
         want = dk.dia_spmv_plain(data, offsets, n, x)
         torch.cuda.synchronize()
-        err, scale = rel_err(y, want)
-        tol = K1_RTOL[dtype] * scale
+        fin = torch.isfinite(want)
+        err = float((y[fin] - want[fin]).abs().max())
+        same = same_non_finite(y, want)
+        g = dk.spmv_geometry(n, cols, data.shape[1], data.element_size(),
+                             sms)
         print(f"kernels: K1 {name} {str(dtype)[6:]} x {tuple(x.shape)} "
-              f"ndiag={len(offsets)} max_abs_err={err:.3e} tol={tol:.3e}")
-        check(y.shape == want.shape and err <= tol,
-              f"K1 {name} {dtype} disagrees with its plain version")
+              f"ndiag={len(offsets)} npad={data.shape[1]} {g} launches "
+              f"{launched} non-finite {int((~fin).sum())} same places "
+              f"{same} max_abs_err={err:.3e}")
+        check(y.shape == want.shape and same and err == 0 and launched == 1,
+              f"K1 {name} {dtype} disagrees with its plain version or took "
+              f"{launched} launches")
         return data, x, err
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     P2048 = poisson((2048, 2048)).astype(np.float32)
     big = dia_from_ell(P2048)
-    for name, D in (("fine500", ml_k.levels[0].A),
-                    ("level1", ml_k.levels[1].A), ("2048sq", big)):
+    k1_ops = {"500^2 level 0": ml_k.levels[0].A,
+              "500^2 level 1": ml_k.levels[1].A,
+              "64^3 A0": ml_s.levels[0].A, "2048^2": big}
+    for name, D in k1_ops.items():
         for dtype in (torch.float32, torch.float64):
             data, x, err = k1_case(name, D.data, D.offsets, D.shape[0],
                                    dtype)
-            if (name, dtype) == ("fine500", torch.float32):
-                kernel_inputs["K1"] = (D, data, x, err)
+            if dtype == torch.float32:
+                kernel_inputs[f"K1 {name}"] = (D, data, x, err)
+            if name == "500^2 level 0":
+                k1_case(f"{name}, x with inf and NaN", data, D.offsets,
+                        D.shape[0], dtype, x=non_finite(x))
     D = ml_k.levels[0].A
-    k1_case("fine500", D.data, D.offsets, D.shape[0], torch.float32, cols=2)
-    # a band of more than 64 diagonals (the kernels once took at most 64)
+    n = D.shape[0]
+    for cols in (2, 3):
+        k1_case("500^2 level 0", D.data, D.offsets, n, torch.float32, cols)
+    xo = torch.as_tensor(rng.standard_normal(n + 1), device=dev).float()
+    k1_case("500^2 level 0, x off a 16-byte boundary", D.data, D.offsets, n,
+            torch.float32, x=xo[1:])
+    # 80 diagonals, and more than the launch takes by value (the offsets
+    # from device memory)
     wide = tuple(sorted(rng.choice(np.arange(-3000, 3001), 80,
                                    replace=False).tolist()))
+    wider = tuple(sorted(rng.choice(np.arange(-30_000, 30_001),
+                                    k1_capacity + 1, replace=False).tolist()))
+    wider_band = rng.standard_normal((len(wider), 8_192), dtype=np.float32)
     for dtype in (torch.float32, torch.float64):
         k1_case("80 diagonals", rng.standard_normal((80, 250_000)), wide,
                 250_000, dtype)
+        k1_case(f"{len(wider)} diagonals, past the {k1_capacity} by value",
+                wider_band, wider, 8_000, dtype)
+        # npad not a multiple of 4, n not a multiple of the rows a thread
+        k1_case("npad 250,001, n 249,999", rng.standard_normal((5, 250_001)),
+                D.offsets, 249_999, dtype)
+        k1_case("one-sided band", rng.standard_normal((4, 262_144)),
+                (-1500, -40, -1, 0), 262_144, dtype)
 
     def dia_level(lvl):
         """(DIA, colors, ncolors, Dinv) of a level's presmoother."""
@@ -441,7 +482,6 @@ def main():
               "500^2 level 1": dia_level(ml_k.levels[1]),
               "64^3 A0": dia_level(ml_s.levels[0]),
               "2048^2": (big, colors_b, nc_b, dinv_vec(P2048))}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def k2_case(name, D, colors, nc, Dinv):
         """K2 symmetric, omega 1 and 0.8, float32 and float64, on an x
@@ -660,6 +700,21 @@ def main():
               f"K2 at {tag} is not one launch per sweep on every DIA level")
         return out
 
+    def k1_per_level(hier, tag):
+        """{level: K1 launches} of the DIA levels of ``hier`` from the
+        counters of the last solve (keyed by operator, as the wrapper
+        counts); fails unless every DIA level but the coarsest (solved
+        directly) ran K1 and the levels add up to the kernel's total."""
+        out = {f"{tag} level {i}": dk.dia_spmv.by_op[(lvl.A.shape[0],
+                                                      len(lvl.A.offsets))]
+               for i, lvl in enumerate(hier.levels) if isinstance(lvl.A, DIA)}
+        last = f"{tag} level {len(hier.levels) - 1}"
+        check(out and all(v > 0 for k, v in out.items() if k != last) and
+              sum(out.values()) == dk.dia_spmv.launches,
+              f"K1 at {tag} did not run on every DIA level, or its launches "
+              f"per level do not add up to its total")
+        return out
+
     # -- 3. main path --------------------------------------------------------
     dk.reset_launch_counts()
     sk.reset_launch_counts()
@@ -694,8 +749,11 @@ def main():
     check(all(v > 0 for v in launches.values()),
           "a kernel of the main path was never launched")
     k2_500 = k2_per_level(ml, "500^2")
-    print(f"main: K2 launches per solve {launches['dia_gs_sweep']}, per DIA "
-          f"level (launches, color passes, passes a sweep) {k2_500}")
+    k1_500 = k1_per_level(ml, "500^2")
+    print(f"main: K1 launches per solve {launches['dia_spmv']}, per DIA "
+          f"level {k1_500}; K2 launches per solve "
+          f"{launches['dia_gs_sweep']}, per DIA level (launches, color "
+          f"passes, passes a sweep) {k2_500}")
 
     # the same small solve on the card and on the CPU (plain versions)
     xs = {}
@@ -757,9 +815,11 @@ def main():
                             if k is sk.sell_spmv or S.square}
                for k in sk.KERNELS}
     k2_64 = k2_per_level(ml3, "64^3")
-    print(f"sa3d: launches per operator {per_op3}; K2 launches per solve "
-          f"{launches3['dia_gs_sweep']}, per DIA level (launches, color "
-          f"passes, passes a sweep) {k2_64}")
+    k1_64 = k1_per_level(ml3, "64^3")
+    print(f"sa3d: launches per operator {per_op3}; K1 launches per solve "
+          f"{launches3['dia_spmv']}, per DIA level {k1_64}; K2 launches per "
+          f"solve {launches3['dia_gs_sweep']}, per DIA level (launches, "
+          f"color passes, passes a sweep) {k2_64}")
     check(all(v > 0 for d in per_op3.values() for v in d.values()) and
           all(sum(per_op3[k.__name__].values()) == k.launches
               for k in sk.KERNELS),
@@ -837,18 +897,33 @@ def main():
               f"{launches}")
         return r
 
-    D, data, xk, err1 = kernel_inputs["K1"]
-    n, nd = D.shape[0], len(D.offsets)
-    Acsr = csr_on(to_scipy(D), dev)
-    e_lib, scale = rel_err(Acsr @ xk,
-                           dk.dia_spmv_plain(data, D.offsets, n, xk))
-    check(e_lib <= 1e-5 * scale, "library CSR product disagrees")
-    rows = [row("dia_spmv", "pyamg_tpu/ops/pallas_kernels.py:52",
-                launches["dia_spmv"], err1,
-                lambda: dk.dia_spmv(data, D.offsets, n, xk),
-                lambda: dk.dia_spmv_plain(data, D.offsets, n, xk),
-                lambda: Acsr @ xk,
-                (nd * n + 2 * n) * 4, 2 * nd * n)]
+    # K1 on each DIA operator, launches per solve from each path's cold
+    # solve (2048^2 is off both paths); the library call is torch.sparse's
+    # CSR product of the same operator
+    k1_launches = {"500^2 level 0": k1_500["500^2 level 0"],
+                   "500^2 level 1": k1_500["500^2 level 1"],
+                   "64^3 A0": k1_64["64^3 level 0"], "2048^2": 0}
+    rows = []
+    for name in k1_ops:
+        D, data, xk, err1 = kernel_inputs[f"K1 {name}"]
+        n, nd = D.shape[0], len(D.offsets)
+        Acsr = csr_on(to_scipy(DIA(data.cpu().numpy(), D.offsets, D.shape)),
+                      dev)
+        e_lib, scale = rel_err(Acsr @ xk,
+                               dk.dia_spmv_plain(data, D.offsets, n, xk))
+        check(e_lib <= 1e-5 * scale, f"library CSR product disagrees ({name})")
+        g = dk.spmv_geometry(n, 1, data.shape[1], 4, sms)
+        off_path = name == "2048^2"
+        rows.append(row(
+            f"dia_spmv {name}" + (" (off the main path)" if off_path else ""),
+            "pyamg_tpu/ops/pallas_kernels.py:52", k1_launches[name], err1,
+            lambda: dk.dia_spmv(data, D.offsets, n, xk),
+            lambda: dk.dia_spmv_plain(data, D.offsets, n, xk),
+            lambda: Acsr @ xk,
+            # the band's rows, x read once and y written once
+            (nd * n + 2 * n) * 4, 2 * nd * n,
+            plain_reps=5 if off_path else 50,
+            tag=f"dia_spmv {name} ({nd} diagonals, {g})"))
 
     # K2 on each DIA operator, launches per solve from each path's cold
     # solve (2048^2 is off both paths)
@@ -878,19 +953,6 @@ def main():
             sum(per_color[c] for c in order) * (2 * nd + 3),
             plain_reps=5 if off_path else 50,
             tag=f"dia_gs_sweep {name} ({len(order)} passes, {g})"))
-
-    # K1 where data and x exceed the 50 MB L2 (2048^2, float32)
-    data = torch.as_tensor(np.asarray(big.data), device=dev)
-    xb = torch.as_tensor(rng.standard_normal(big.shape[0]),
-                         device=dev).float()
-    nb = big.shape[0]
-    ms_big = statistics.median(flushed_ms(
-        lambda: dk.dia_spmv(data, big.offsets, nb, xb), flush, skip))
-    bytes_big = (len(big.offsets) * nb + 2 * nb) * 4
-    print(f"times: dia_spmv 2048^2 f32 device {ms_big * 1e3:.2f} us with L2 "
-          f"flushed (median), bound "
-          f"{bytes_big / HBM_BYTES_PER_S * 1e6:.2f} us, "
-          f"{bytes_big / (ms_big * 1e-3) / 1e9:.1f} GB/s")
 
     # the 64^3 path: warm solves, one profiled, then K3-K5 at its shapes
     walls3 = []

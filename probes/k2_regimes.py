@@ -11,19 +11,13 @@ sweep at omega 1) it runs K2 in these shapes:
   in shared memory (one block an SM), from the build of
   ``csrc/dia_kernels.cu``, whose 5-diagonal operators get a kernel of
   their own width; ``staged generic``: the same launch in a build with
-  ``-DPYAMG_DIA_GS_GENERIC`` (the kernel for any number of diagonals;
-  the same build also has ``-DPYAMG_DIA_SPMV_FMA``);
+  ``-DPYAMG_DIA_GS_GENERIC`` (the kernel for any number of diagonals);
   both timed twice, in the order A B B A, so that the spread between two
   timings of one launch shows beside the difference between them;
   ``staged, 2 an SM``: two blocks of 512 threads an SM;
 - ``device, b an SM``: one launch that reads the band each pass, b blocks
   of 1024 / b threads an SM, b = 1, 2, 4;
 - ``pass``: the device kernel launched once a pass, 256 threads a block.
-
-K1 (``dia_spmv``) is timed at the same operators in both builds (A B B
-A): as built, each product and sum rounded as its plain version rounds
-them, and with ``-DPYAMG_DIA_SPMV_FMA`` as fused multiply-adds (not
-exact).  Both take their offsets from shared memory.
 
 Each K2 shape is held to its plain version to 0, then timed with
 torch.profiler: the median (and range) of 50 calls each made after a
@@ -124,8 +118,8 @@ def main():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nvcc = "/usr/local/cuda/bin/nvcc"
     libs = {"staged": dk._lib(), "staged generic": dk.bind(shared_library(
-        dk.SOURCE, [nvcc, *NVCC_FLAGS, "-DPYAMG_DIA_GS_GENERIC",
-                    "-DPYAMG_DIA_SPMV_FMA"], "dia_kernels_variant")["path"])}
+        dk.SOURCE, [nvcc, *NVCC_FLAGS, "-DPYAMG_DIA_GS_GENERIC"],
+        "dia_kernels_variant")["path"])}
     rng = np.random.default_rng(2022)
 
     _, ml2, _ = cs.build_hierarchy(500, 4096, dev)
@@ -194,27 +188,6 @@ def main():
         order = gs_order(nc, "symmetric", 1, 1.0)
         want = dk.dia_gs_sweep_plain(data, D.offsets, n, x, b, Dinv, colors,
                                      order, 1.0)
-        offs = dk._device_ints(D.offsets, dev)
-        for label, lib in (("rounded", libs["staged"]),
-                           ("FMA", libs["staged generic"]),
-                           ("FMA", libs["staged generic"]),
-                           ("rounded", libs["staged"])):
-            fn = lib.pyamg_dia_spmv_f32
-
-            def spmv(fn=fn):
-                y = torch.empty_like(x)
-                dk._check(fn(data.data_ptr(), nd, data.shape[1],
-                             offs.data_ptr(), n, x.data_ptr(), y.data_ptr(),
-                             dk._stream(dev)), "dia_spmv")
-                return y
-
-            err = float((spmv() - dk.dia_spmv_plain(data, D.offsets, n, x))
-                        .abs().max())
-            cold = cs.flushed_ms(spmv, flush, skip)
-            print(f"k1: {name} {label}: {statistics.median(cold) * 1e3:.2f} "
-                  f"us flushed (median; {min(cold) * 1e3:.2f}-"
-                  f"{max(cold) * 1e3:.2f}), {cs.device_ms(spmv) * 1e3:.2f} us "
-                  f"L2-warm, max_abs_err={err:.3e}", flush=True)
         for label, g in shapes(n, nd, halo):
             lib = libs.get(label)
 

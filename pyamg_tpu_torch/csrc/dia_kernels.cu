@@ -11,9 +11,35 @@
 //   one TPU grid (passes x tiles) with x resident in VMEM.
 //
 // Both are bound by device-memory bytes: K1 reads ndiag*n matrix values
-// plus x and writes y, 2 flops per 4-8 bytes.  K1 is one thread per row;
-// the diagonal loop reads data[d, i] coalesced along i and neighbouring
-// rows share their x reads in L1/L2.
+// plus x and writes y, 2 flops per 4-8 bytes.
+//
+// K1.  A thread owns kR consecutive rows, kR = 16 / sizeof(T) (4 float, 2
+// double), so a warp's rows of one diagonal are 16-byte loads of the band:
+// data's rows lie npad apart and npad is a multiple of 8192 (any npad that
+// is a multiple of kR will do).  Since every thread's first row is a
+// multiple of kR, x[i + off] for its rows starts at the same place
+// r = off mod kR of an aligned 16-byte vector in every thread: the kernel
+// loads that vector and the next one and picks the kR values from r, the
+// counterpart of the TPU kernel's lane rolls.  The coefficients and x
+// values of a group of diagonals are all loaded before any is used
+// (band_rows, shared with K2), so a thread has its whole band in flight at
+// once instead of a load pair a diagonal; the 5-, 7- and 9-diagonal
+// operators of the main paths get kernels of their own width (every
+// diagonal in one group, offsets at fixed places of the parameter), any
+// other width takes groups of 8 (slower at all three widths, and at 9 by
+// a second round trip: PERF.md, section 6).  Threads
+// whose x window leaves [0, n), the last partial row group, a band whose
+// npad is not a multiple of kR and x of shape (n, k) take scalar loads of
+// x (and of the band, where it is not aligned) in the same kernel.  An
+// (n, k) x is one launch: thread t takes row group t / k of column
+// t % k, so the k threads of a row group read the same band vector and
+// the band is read once for all columns.  The offsets travel by value in
+// a __grid_constant__ kernel parameter (the constant bank): no load from
+// device memory and no shared-memory staging.  A band of more than
+// kSpmvOffsets diagonals reads them from device memory instead, a load
+// that the band's addresses wait for.
+// ops/dia_kernels.spmv_geometry gives the launch shape: enough blocks to
+// spread small operators over every SM.
 //
 // K2.  A sweep of P passes used to be P launches, each reading the whole
 // band again; one pass of a 250,000-row operator is a few microseconds of
@@ -85,15 +111,28 @@
 // C ABI (loaded with ctypes): every entry point checks its arguments and
 // launch shape, launches on the given stream, does not synchronise,
 // allocates nothing, and returns a CUDA error code (0 on success).
-// Offsets and the pass order are int32 arrays in device memory, so an
-// operator may have any number of diagonals.
+// K2's offsets and pass order are int32 arrays in device memory, and K1
+// takes its offsets from the host (by value) or, past kSpmvOffsets
+// diagonals, from device memory, so an operator may have any number of
+// diagonals.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
+#include <cstdint>
+#include <cstring>
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;           // K1 block
-constexpr int kOffsets = 1024;          // K1 offsets staged at a time
+constexpr int kSpmvThreads = 256;       // K1 block, at most
+// K1 offsets passed by value, at most (PERF.md, section 6: the measured
+// cost of a larger parameter)
+#ifndef PYAMG_DIA_SPMV_OFFSETS
+#define PYAMG_DIA_SPMV_OFFSETS 1024
+#endif
+constexpr int kSpmvOffsets = PYAMG_DIA_SPMV_OFFSETS;
 constexpr int kMaxThreads = 1024;       // K2 block, at most
 constexpr int kMaxSmem = 232448;        // dynamic shared memory a block may use
 constexpr int kMaxFlagBlocks = 1024;    // entries of the pass-counter array
@@ -219,39 +258,177 @@ struct Tagged<double> {
 };
 
 // ---------------------------------------------------------------------------
+// band_rows: shared by K1 and K2
+// ---------------------------------------------------------------------------
+
+// acc[r] = sum_d a_d[r] * x_d[r] for kR rows, each product rounded and the
+// terms added in diagonal order from the first.  load(d, a, x) fills the
+// kR coefficients and x values of diagonal d; the loads of kChunk
+// diagonals are issued before any is used, so that they are in flight
+// together.
+template <typename T, int kR, int kChunk, typename Load>
+__device__ __forceinline__ void band_rows(int ndiag, Load load,
+                                          T (&acc)[kR]) {
+  for (int d0 = 0; d0 < ndiag; d0 += kChunk) {
+    T a[kChunk][kR], xv[kChunk][kR];
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+      if (d0 + u < ndiag) load(d0 + u, a[u], xv[u]);
+#pragma unroll
+    for (int u = 0; u < kChunk; ++u)
+      if (d0 + u < ndiag) {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const T t = Rn<T>::mul(a[u][r], xv[u][r]);
+          acc[r] = d0 + u == 0 ? t : Rn<T>::add(acc[r], t);
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K1
 // ---------------------------------------------------------------------------
 
-// one thread per row; the offsets pass through shared memory in pieces of
-// kOffsets, so any number of diagonals fits
+// 16 bytes of T: kN values, loaded and stored whole
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dia_spmv_kernel(const T* __restrict__ data, long long npad, int ndiag,
-                const int* __restrict__ offsets, int n,
-                const T* __restrict__ x, T* __restrict__ y) {
-  __shared__ int soffs[kOffsets];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  T acc = T(0);
-  for (int d0 = 0; d0 < ndiag; d0 += kOffsets) {
-    const int cnt = min(kOffsets, ndiag - d0);
-    __syncthreads();              // the previous piece is used up
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x)
-      soffs[k] = offsets[d0 + k];
-    __syncthreads();
-    if (i >= n) continue;
-    for (int k = 0; k < cnt; ++k) {
-      const int j = i + soffs[k];
-      const T xv = in_range(j, 0, n) ? __ldg(x + j) : T(0);
-      const T a = __ldg(data + (d0 + k) * npad + i);
-#ifdef PYAMG_DIA_SPMV_FMA       // a contracted sum, for a timing probe
-      acc = fma(a, xv, acc);
-#else
-      const T t = Rn<T>::mul(a, xv);
-      acc = d0 + k == 0 ? t : Rn<T>::add(acc, t);
-#endif
-    }
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
   }
-  if (i < n) y[i] = acc;
+  static __device__ __forceinline__ void store(float* p,
+                                               const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec16<double> {
+  static constexpr int kN = 2;
+  static __device__ __forceinline__ void load(const double* p,
+                                              double (&v)[2]) {
+    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  }
+  static __device__ __forceinline__ void store(double* p,
+                                               const double (&v)[2]) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+};
+
+// which operands of a K1 launch take 16-byte accesses
+constexpr int kBandVec = 1;   // the band: npad % kR == 0, data aligned
+constexpr int kXVec = 2;      // x: k == 1, aligned
+constexpr int kYVec = 4;      // y: k == 1, aligned
+
+// K1's offsets by value, up to kCap of them; lo and hi: the least and
+// the largest offset, rounded down to a multiple of the rows a thread
+template <int kCap>
+struct SpmvBand {
+  int ndiag, lo, hi;
+  int off[kCap];
+};
+
+// v = x[r .. r + kR) of the two aligned vectors at p (the second is read
+// only when r > 0): the x values of a thread's rows for one diagonal
+template <typename T, int kR>
+__device__ __forceinline__ void x_window(const T* p, int r, T (&v)[kR]) {
+  T lo[kR], hi[kR], w[2 * kR];
+  Vec16<T>::load(p, lo);
+  if (r) {
+    Vec16<T>::load(p + kR, hi);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kR; ++j) hi[j] = T(0);
+  }
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    w[j] = lo[j];
+    w[kR + j] = hi[j];
+  }
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    T s = w[j];
+#pragma unroll
+    for (int q = 1; q < kR; ++q)
+      if (r == q) s = w[j + q];
+    v[j] = s;
+  }
+}
+
+// kD > 0: exactly kD diagonals, all loaded in one group; kD == 0: any
+// number, in groups of 8.  kByValue: the offsets are band.off, else
+// `offsets` in device memory.
+template <typename T, int kD, bool kByValue, typename Band>
+__global__ void __launch_bounds__(kSpmvThreads)
+dia_spmv_kernel(const T* __restrict__ data, long long npad,
+                const __grid_constant__ Band band,
+                const int* __restrict__ offsets, int n, int k,
+                const T* __restrict__ x, T* __restrict__ y, int vec) {
+  constexpr int kR = Vec16<T>::kN;
+  constexpr int kChunk = kD > 0 ? kD : 8;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = k == 1 ? t : t / k;
+  const int c = t - g * k;
+  const int i0 = g * kR;
+  if (i0 >= n) return;
+  const int nd = kD > 0 ? kD : band.ndiag;
+  auto off = [&](int d) {
+    if constexpr (kByValue) {
+      return band.off[d];
+    } else {
+      return __ldg(offsets + d);
+    }
+  };
+  T acc[kR];
+#ifdef PYAMG_DIA_SPMV_SCALAR_X   // a build for a timing probe: no x window
+  vec &= ~kXVec;
+#endif
+  if ((vec & kXVec) && (vec & kBandVec) && i0 + band.lo >= 0 &&
+      i0 + band.hi + 2 * kR <= n) {
+    // every diagonal's x window lies in [0, n): 16-byte loads only
+    band_rows<T, kR, kChunk>(nd, [&](int d, T (&a)[kR], T (&xv)[kR]) {
+      const int o = off(d);
+      Vec16<T>::load(data + d * npad + i0, a);
+      x_window<T, kR>(x + i0 + (o & -kR), o & (kR - 1), xv);
+    }, acc);
+  } else {
+    // the edges, a band not aligned, or an (n, k) x: x one value at a time
+    const bool bvec = vec & kBandVec;
+    band_rows<T, kR, kChunk>(nd, [&](int d, T (&a)[kR], T (&xv)[kR]) {
+      const int o = off(d);
+      const T* p = data + d * npad + i0;
+      if (bvec) {
+        Vec16<T>::load(p, a);
+      } else {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) a[r] = i0 + r < n ? __ldg(p + r) : T(0);
+      }
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const int j = i0 + r + o;
+        xv[r] = in_range(j, 0, n)
+                    ? __ldg(x + static_cast<long long>(j) * k + c)
+                    : T(0);
+      }
+    }, acc);
+  }
+  if ((vec & kYVec) && i0 + kR <= n) {
+    Vec16<T>::store(y + i0, acc);
+  } else {
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (i0 + r < n) y[static_cast<long long>(i0 + r) * k + c] = acc[r];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -267,33 +444,6 @@ __host__ __device__ inline long long gs_smem(bool staged, int rows,
   return (staged ? static_cast<long long>(rows) * ((ndiag + 2LL) * item + 4) +
                        2LL * (rows + 2LL * halo) * item + 2LL * halo
                  : 0) + 4LL * ndiag;
-}
-
-// sum_d coef(d) * xat(j + off_d), each product rounded and the terms
-// added in diagonal order from the first.  The coefficients and x values
-// of kChunk diagonals are loaded before any is used, so that their loads
-// from device memory are in flight together.
-template <typename T, typename Coef, typename XAt>
-__device__ __forceinline__ T band_row(int ndiag, const int* offsets, int j,
-                                      Coef coef, XAt xat) {
-  constexpr int kChunk = 8;
-  T acc = T(0);
-  for (int d0 = 0; d0 < ndiag; d0 += kChunk) {
-    T a[kChunk], xv[kChunk];
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u)
-      if (d0 + u < ndiag) {
-        a[u] = coef(d0 + u);
-        xv[u] = xat(j + offsets[d0 + u]);
-      }
-#pragma unroll
-    for (int u = 0; u < kChunk; ++u)
-      if (d0 + u < ndiag) {
-        const T t = Rn<T>::mul(a[u], xv[u]);
-        acc = d0 + u == 0 ? t : Rn<T>::add(acc, t);
-      }
-  }
-  return acc;
 }
 
 // rows are visited boundary first: [0, nl) and [rs, cnt) of a block's
@@ -528,11 +678,14 @@ dia_gs_device_kernel(const T* __restrict__ data, long long npad, int ndiag,
       const int i = r0 + vis.row(k);
       T v = __ldcg(src + i);
       if (__ldg(colors + i) == c) {
-        const T acc = band_row<T>(
-            ndiag, soffs, i, [&](int d) { return __ldg(data + d * npad + i); },
-            [&](int j) { return in_range(j, 0, n) ? __ldcg(src + j) : T(0); });
+        T acc[1];
+        band_rows<T, 1, 8>(ndiag, [&](int d, T (&a)[1], T (&xv)[1]) {
+          a[0] = __ldg(data + d * npad + i);
+          const int j = i + soffs[d];
+          xv[0] = in_range(j, 0, n) ? __ldcg(src + j) : T(0);
+        }, acc);
         v = gs_update(v, Rn<T>::mul(omega, __ldg(dinv + i)), __ldg(b + i),
-                      acc);
+                      acc[0]);
       }
       dst[i] = v;
     }
@@ -621,15 +774,66 @@ int launch(Kernel kernel, bool cooperative, int* allowed, int blocks,
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <typename T>
-int dia_spmv(const T* data, int ndiag, long long npad, const int* offsets,
-             int n, const T* x, T* y, void* stream) {
-  if (n <= 0) return 0;
-  if (ndiag < 1 || npad < n) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  dia_spmv_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      data, npad, ndiag, offsets, n, x, y);
+// K1 over `threads` x `blocks` threads (ops/dia_kernels.spmv_geometry):
+// the offsets by value from `host_offsets` when there are at most
+// kSpmvOffsets, else from `offsets` in device memory
+template <typename T, int kD, bool kByValue, typename Band>
+int spmv_launch(const Band& band, int blocks, int threads, void* stream,
+                const T* data, long long npad, const int* offsets, int n,
+                int k, const T* x, T* y, int vec) {
+  dia_spmv_kernel<T, kD, kByValue, Band>
+      <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+          data, npad, band, offsets, n, k, x, y, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dia_spmv(const T* data, int ndiag, long long npad,
+             const int* host_offsets, const int* offsets, int n, int k,
+             const T* x, T* y, int threads, int blocks, void* stream) {
+  constexpr int kR = Vec16<T>::kN;
+  if (n <= 0) return 0;
+  const long long work = (n + kR - 1LL) / kR * k;
+  const bool bad = ndiag < 1 || npad < n || k < 1 ||
+                   host_offsets == nullptr || threads < 32 ||
+                   threads > kSpmvThreads || threads % 32 != 0 ||
+                   blocks < 1 || static_cast<long long>(blocks) * threads < work ||
+                   static_cast<long long>(blocks - 1) * threads >= work ||
+                   static_cast<long long>(blocks) * threads > INT_MAX ||
+                   (ndiag > kSpmvOffsets && offsets == nullptr);
+  if (bad) return static_cast<int>(cudaErrorInvalidValue);
+  int lo = host_offsets[0], hi = host_offsets[0];
+  for (int d = 1; d < ndiag; ++d) {
+    lo = std::min(lo, host_offsets[d]);
+    hi = std::max(hi, host_offsets[d]);
+  }
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = (npad % kR == 0 && aligned(data) ? kBandVec : 0) |
+                  (k == 1 && aligned(x) ? kXVec : 0) |
+                  (k == 1 && aligned(y) ? kYVec : 0);
+  if (ndiag > kSpmvOffsets) {
+    const SpmvBand<1> band = {ndiag, lo & -kR, hi & -kR, {0}};
+    return spmv_launch<T, 0, false>(band, blocks, threads, stream, data,
+                                    npad, offsets, n, k, x, y, vec);
+  }
+  SpmvBand<kSpmvOffsets> band;    // the offsets past ndiag are not read
+  band.ndiag = ndiag;
+  band.lo = lo & -kR;
+  band.hi = hi & -kR;
+  std::memcpy(band.off, host_offsets, sizeof(int) * ndiag);
+  auto run = [&](auto width) {
+    return spmv_launch<T, decltype(width)::value, true>(
+        band, blocks, threads, stream, data, npad, nullptr, n, k, x, y, vec);
+  };
+#ifndef PYAMG_DIA_SPMV_GENERIC   // a build for a timing probe: any width
+  // the main paths' 2-D 5-point, 3-D 7-point and 2-D 9-point operators
+  if (ndiag == 5) return run(std::integral_constant<int, 5>());
+  if (ndiag == 7) return run(std::integral_constant<int, 7>());
+  if (ndiag == 9) return run(std::integral_constant<int, 9>());
+#endif
+  return run(std::integral_constant<int, 0>());
 }
 
 // staged: `words` holds 2 * n * Tagged<T>::kWords words; device regime:
@@ -683,16 +887,22 @@ int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
 
 extern "C" {
 
+int pyamg_dia_spmv_capacity() { return kSpmvOffsets; }
+
 int pyamg_dia_spmv_f32(const float* data, int ndiag, long long npad,
-                       const int* offsets, int n, const float* x, float* y,
-                       void* stream) {
-  return dia_spmv<float>(data, ndiag, npad, offsets, n, x, y, stream);
+                       const int* host_offsets, const int* offsets, int n,
+                       int k, const float* x, float* y, int threads,
+                       int blocks, void* stream) {
+  return dia_spmv<float>(data, ndiag, npad, host_offsets, offsets, n, k, x,
+                         y, threads, blocks, stream);
 }
 
 int pyamg_dia_spmv_f64(const double* data, int ndiag, long long npad,
-                       const int* offsets, int n, const double* x, double* y,
-                       void* stream) {
-  return dia_spmv<double>(data, ndiag, npad, offsets, n, x, y, stream);
+                       const int* host_offsets, const int* offsets, int n,
+                       int k, const double* x, double* y, int threads,
+                       int blocks, void* stream) {
+  return dia_spmv<double>(data, ndiag, npad, host_offsets, offsets, n, k, x,
+                          y, threads, blocks, stream);
 }
 
 int pyamg_dia_gs_sweep_f32(const float* data, int ndiag, long long npad,

@@ -6,9 +6,13 @@ Counterpart of ``pyamg_tpu/ops/pallas_kernels.py``.
 
 K1 ``dia_spmv`` replaces the TPU kernel ``_dia_call`` (behind
 ``dia_spmv_pallas``).  It is bound by bytes on the H100: it reads
-``ndiag*n`` matrix values plus x and writes y, ~2 flops per value.  The
-design is one thread per row with coalesced ``data[d, i]`` reads;
-neighbouring rows share x reads through L1/L2.
+``ndiag*n`` matrix values plus x and writes y, ~2 flops per value.  A
+thread owns the rows of 16 bytes (4 float32, 2 float64), loads a row
+group of every diagonal of the band and its x values before it uses any
+(16-byte loads where they stay in bounds), and takes its offsets by value
+from a kernel parameter.  An x of shape ``(n, k)`` is one launch that
+reads the band once.  ``spmv_geometry`` gives the launch shape (plain
+Python, reached by the CPU tests).
 
 K2 ``dia_gs_sweep`` replaces ``_dia_gs_call``, which ran every color pass
 of a sweep in one TPU grid with x resident in VMEM.  Here too one launch
@@ -27,18 +31,17 @@ launch shape (plain Python, reached by the CPU tests);
 ``csrc/dia_kernels.cu`` says why the result equals the plain version's
 bit for bit.
 
-Both take any number of diagonals (the offsets go to the kernels through
-device memory) and x of shape ``(n,)`` or ``(n, k)``; on CUDA tensors a
-2-D x runs the kernel once per column.
+Both take any number of diagonals and x of shape ``(n,)`` or ``(n, k)``;
+on CUDA tensors K2 runs once per column of a 2-D x.
 
 The kernels live in ``csrc/dia_kernels.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use (``_native/build.py``) and called through a plain
 C ABI with ctypes.  A wrapper given CUDA tensors launches its kernel or
 raises; given CPU tensors it runs the plain version.  Each wrapper's
 ``launches`` counts the kernels it launched (one per K1 product and one
-per K2 sweep, per column of x); ``dia_gs_sweep.by_op`` counts K2's
-launches per operator, keyed by ``(n, ndiag)``, and
-``dia_gs_sweep.passes`` the color passes they ran, keyed the same.
+per K2 sweep and column of x), and its ``by_op`` the same per operator,
+keyed by ``(n, ndiag)``; ``dia_gs_sweep.passes`` counts the color passes
+K2 ran, keyed the same.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ _FLOATS = (torch.float32, torch.float64)
 # may use (kMaxSmem); the wrapper passes the card's own SM count
 SM_COUNT = 132
 MAX_SMEM = 232_448
+SPMV_THREADS = 256          # K1 threads a block, at most (kSpmvThreads)
 MAX_THREADS = 1024          # K2 threads a block, at most (kMaxThreads)
 FLAG_BLOCKS = 1024          # entries of a pass-counter array (kMaxFlagBlocks)
 GS_MIN_ROWS = 128           # rows a K2 block takes, at least
@@ -81,19 +85,24 @@ def _lib():
 
 def bind(path):
     """The library at ``path`` built from ``csrc/dia_kernels.cu``, its
-    entry points typed for ctypes."""
+    entry points typed for ctypes, and ``spmv_capacity``: the most
+    offsets a K1 launch takes by value."""
     lib = ctypes.CDLL(path)
     vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint)
     for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         spmv = getattr(lib, f"pyamg_dia_spmv_{suffix}")
         spmv.restype = i32
-        spmv.argtypes = [vp, i32, i64, vp, i32, vp, vp, vp]
+        spmv.argtypes = [vp, i32, i64, vp, vp, i32, i32, vp, vp, i32, i32,
+                         vp]
         gs = getattr(lib, f"pyamg_dia_gs_sweep_{suffix}")
         gs.restype = i32
         gs.argtypes = [vp, i32, i64, vp, i32, vp, vp, vp, vp, i32, real,
                        vp, vp, vp, vp, vp, u32, i32, i32, i32, i32, i32,
                        i32, i32, vp]
+    lib.pyamg_dia_spmv_capacity.restype = i32
+    lib.pyamg_dia_spmv_capacity.argtypes = []
+    lib.spmv_capacity = lib.pyamg_dia_spmv_capacity()
     return lib
 
 
@@ -112,6 +121,12 @@ def _device_ints(values, device):
         t = _INTS[key] = torch.tensor([int(v) for v in values],
                                       dtype=torch.int32, device=device)
     return t
+
+
+@functools.lru_cache(maxsize=None)
+def _host_ints(values):
+    """A ctypes int32 array of ``values`` (a tuple), made once per tuple."""
+    return (ctypes.c_int * len(values))(*(int(v) for v in values))
 
 
 def _check(rc: int, name: str):
@@ -185,27 +200,67 @@ def dia_spmv_plain(data, offsets, n, x):
     return acc
 
 
+@dataclasses.dataclass(frozen=True)
+class SpmvGeometry:
+    """One K1 launch: ``blocks`` blocks of ``threads`` threads.  Thread t
+    computes column ``t % k`` of the row group ``t // k``, rows ``[g *
+    rows, min(n, (g + 1) * rows))``, where ``rows`` values fill 16 bytes;
+    ``vector``: the band's row groups are 16-byte loads (``npad`` a
+    multiple of ``rows``; the kernel also checks the pointers)."""
+    rows: int
+    threads: int
+    blocks: int
+    vector: bool
+
+    def rows_of(self, t, n, k):
+        """(column, first row, end row) of thread ``t``."""
+        g, c = divmod(t, k)
+        return c, min(n, g * self.rows), min(n, (g + 1) * self.rows)
+
+
+@functools.lru_cache(maxsize=None)
+def spmv_geometry(n, k, npad, itemsize, sms=SM_COUNT):
+    """K1's launch for ``n`` rows of ``k`` columns of ``itemsize``-byte
+    values and a band of row stride ``npad``, on a card of ``sms`` SMs:
+    one thread per 16 bytes of rows and column, blocks of up to
+    ``SPMV_THREADS`` threads but small enough that there are at least
+    ``sms`` blocks where there are ``32 * sms`` threads (a 28,000-row
+    level still spreads over every SM)."""
+    rows = 16 // itemsize
+    work = -(-n // rows) * k
+    threads = min(SPMV_THREADS, max(32, work // sms // 32 * 32))
+    return SpmvGeometry(rows, threads, max(1, -(-work // threads)),
+                        npad % rows == 0)
+
+
 def dia_spmv(data, offsets, n, x):
     """y = A @ x for the DIA operator ``(data, offsets)`` of logical size
-    ``n`` (K1 on CUDA tensors, the plain version on CPU tensors)."""
+    ``n`` and x of shape ``(n,)`` or ``(n, k)`` (K1, one launch, on CUDA
+    tensors; the plain version on CPU tensors)."""
     _check_band(data, offsets, n, x)
     if data.device.type == "cpu":
         return dia_spmv_plain(data, offsets, n, x)
-    fn = getattr(_lib(), f"pyamg_dia_spmv_{_suffix(data.dtype)}")
-    offs = _device_ints(offsets, data.device)
-
-    def one(xc):
-        y = torch.empty_like(xc)
-        _check(fn(data.data_ptr(), len(offsets), data.shape[1],
-                  offs.data_ptr(), n, xc.data_ptr(), y.data_ptr(),
-                  _stream(data.device)), "dia_spmv")
-        dia_spmv.launches += 1
-        return y
-
-    return _columns(one, x)
+    dev = data.device
+    lib = _lib()
+    k = 1 if x.ndim == 1 else x.shape[1]
+    g = spmv_geometry(n, k, data.shape[1], data.element_size(),
+                      _sm_count(dev))
+    offs = tuple(int(o) for o in offsets)
+    # past the by-value capacity, the offsets go through device memory
+    far = _device_ints(offs, dev).data_ptr() \
+        if len(offs) > lib.spmv_capacity else None
+    y = torch.empty_like(x)
+    _check(getattr(lib, f"pyamg_dia_spmv_{_suffix(data.dtype)}")(
+        data.data_ptr(), len(offs), data.shape[1], _host_ints(offs), far, n,
+        k, x.data_ptr(), y.data_ptr(), g.threads, g.blocks, _stream(dev)),
+        "dia_spmv")
+    dia_spmv.launches += 1
+    dia_spmv.by_op[(n, len(offs))] += 1
+    return y
 
 
 dia_spmv.launches = 0
+dia_spmv.by_op = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -436,5 +491,5 @@ KERNELS = (dia_spmv, dia_gs_sweep)
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
-    dia_gs_sweep.by_op.clear()
+        k.by_op.clear()
     dia_gs_sweep.passes.clear()

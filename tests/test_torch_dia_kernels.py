@@ -204,6 +204,24 @@ def test_multi_column_x_like_reference(levels, level, omega):
             Dt, torch.tensor(x[:, j]), torch.tensor(b[:, j]), **args))
 
 
+def test_three_column_x_level1_like_reference(levels):
+    """x of shape (n, 3) through the wrapper (one product, the plain
+    version on the CPU) at 48^2 level 1 against the JAX package's jnp
+    path, to 1e-6 relative in float32 (sums of 9 products in the same
+    order)."""
+    D, _, _, _ = levels[1]
+    n = D.shape[0]
+    x = np.random.default_rng(31).standard_normal((n, 3)).astype(np.float32)
+    before = dk.dia_spmv.launches
+    got = dk.dia_spmv(torch.as_tensor(np.asarray(D.data)), D.offsets, n,
+                      torch.as_tensor(x))
+    assert dk.dia_spmv.launches == before and got.shape == (n, 3)
+    want = np.asarray(ref_dia_spmv(RefDIA(jnp.asarray(D.data), D.offsets,
+                                          D.shape), jnp.asarray(x)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
+                               atol=1e-6 * np.abs(want).max())
+
+
 def test_dia_from_ell_past_64_offsets_like_reference():
     """dia_from_ell(max_diags=100) on a host operator with 90 distinct
     offsets: the port and the JAX package build the same band, and their

@@ -31,6 +31,11 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the probes run on the card beside chip_smoke.py
+    probes = os.path.join(ROOT, "probes")
+    for f in os.listdir(probes):
+        if f.endswith(".py"):
+            yield os.path.join(probes, f)
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),
