@@ -17,13 +17,13 @@ Phases, each printed on its own lines:
    value (read from device memory), an ``npad`` that is not a multiple of
    4 with an n that is not a multiple of the rows a thread, and the
    one-sided band {-1500, -40, -1, 0}; K2 (multicolor Gauss-Seidel
-   sweep, one launch a sweep) on the DIA operators of both paths (500^2 levels 0 and 1 in the staged
-   regime, 64^3 A0 in the regime that reads the band each pass), on 2-D
-   Poisson 2048^2 (the band past shared memory), and in the staged regime
-   on a one-sided band and on a band of 80 diagonals: symmetric, omega 1 and 0.8, float32 and float64, on an x
-   holding an inf and a NaN and on a 2-column x, each to 0; the
-   double-single
-   ``two_prod`` against float64; K3 (SELL SpMV) on every
+   sweep, one launch a sweep) on the DIA operators of both paths (500^2
+   levels 0 and 1 in the staged regime, 64^3 A0 in the regime that reads
+   the band each pass), on 2-D Poisson 2048^2 (the band past shared
+   memory), and in the staged regime on a one-sided band and on a band
+   of 80 diagonals: symmetric, omega 1 and 0.8, float32 and float64, on
+   an x holding an inf and a NaN and on a 2-column x, each to 0; the
+   double-single ``two_prod`` against float64; K3 (SELL SpMV) on every
    SELL operator of the 3-D Poisson 64^3 hierarchy, on x and on x holding
    an inf and a NaN, and, in the K4 regime, on the SELL plan of 2-D Poisson
    1800^2; K5 (hybrid Gauss-Seidel) forward, backward and symmetric, omega

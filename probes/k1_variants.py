@@ -15,9 +15,6 @@ On the DIA operators of both main paths (2-D Poisson 500^2 levels 0 and
   shows beside the difference between them;
 - ``generic``: a build with ``-DPYAMG_DIA_SPMV_GENERIC`` (every width in
   groups of 8 diagonals; no kernel of the operator's own width);
-- ``scalar x``: a build with ``-DPYAMG_DIA_SPMV_SCALAR_X`` (x read one
-  value at a time everywhere, as at the edges: no window of two aligned
-  vectors);
 - ``offsets N``: builds with ``-DPYAMG_DIA_SPMV_OFFSETS=N`` (N offsets at
   most by value in the kernel parameter; N = 1 sends every band through
   device memory): the device time, and the host's time a launch over
@@ -67,8 +64,7 @@ def main():
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nvcc = "/usr/local/cuda/bin/nvcc"
-    builds = {"generic": (dk.SOURCE, ["-DPYAMG_DIA_SPMV_GENERIC"]),
-              "scalar x": (dk.SOURCE, ["-DPYAMG_DIA_SPMV_SCALAR_X"])}
+    builds = {"generic": (dk.SOURCE, ["-DPYAMG_DIA_SPMV_GENERIC"])}
     builds.update({f"offsets {c}": (dk.SOURCE,
                                     [f"-DPYAMG_DIA_SPMV_OFFSETS={c}"])
                    for c in OFFSETS})
@@ -153,8 +149,7 @@ def main():
         g = dk.spmv_geometry(n, 1, data.shape[1], 4, sms)
         order = ["parent", "new", "new", "parent"] if args.parent else \
             ["new", "new"]
-        for label in order + ["generic", "scalar x", "new", "scalar x",
-                              *(f"offsets {c}" for c in OFFSETS)]:
+        for label in order + ["generic", *(f"offsets {c}" for c in OFFSETS)]:
             timed(f"{name} {label} {g}", caller(label, data, offsets, n, x),
                   want)
         for t in THREADS:

@@ -16,28 +16,26 @@
 // K1.  A thread owns kR consecutive rows, kR = 16 / sizeof(T) (4 float, 2
 // double), so a warp's rows of one diagonal are 16-byte loads of the band:
 // data's rows lie npad apart and npad is a multiple of 8192 (any npad that
-// is a multiple of kR will do).  Since every thread's first row is a
-// multiple of kR, x[i + off] for its rows starts at the same place
-// r = off mod kR of an aligned 16-byte vector in every thread: the kernel
-// loads that vector and the next one and picks the kR values from r, the
-// counterpart of the TPU kernel's lane rolls.  The coefficients and x
-// values of a group of diagonals are all loaded before any is used
-// (band_rows, shared with K2), so a thread has its whole band in flight at
-// once instead of a load pair a diagonal; the 5-, 7- and 9-diagonal
-// operators of the main paths get kernels of their own width (every
-// diagonal in one group, offsets at fixed places of the parameter), any
-// other width takes groups of 8 (slower at all three widths, and at 9 by
-// a second round trip: PERF.md, section 6).  Threads
-// whose x window leaves [0, n), the last partial row group, a band whose
-// npad is not a multiple of kR and x of shape (n, k) take scalar loads of
-// x (and of the band, where it is not aligned) in the same kernel.  An
-// (n, k) x is one launch: thread t takes row group t / k of column
-// t % k, so the k threads of a row group read the same band vector and
-// the band is read once for all columns.  The offsets travel by value in
-// a __grid_constant__ kernel parameter (the constant bank): no load from
-// device memory and no shared-memory staging.  A band of more than
-// kSpmvOffsets diagonals reads them from device memory instead, a load
-// that the band's addresses wait for.
+// is a multiple of kR will do; another npad, or a band not on a 16-byte
+// boundary, takes scalar loads in the same kernel).  x is read value by
+// value, masked to [0, n): a warp's reads of one diagonal cover 512
+// contiguous bytes, which L1 serves.  Reading x as two aligned 16-byte
+// vectors a diagonal and picking the rows' values from off mod kR, the
+// counterpart of the TPU kernel's lane rolls, measured slower on every
+// main-path operator (PERF.md, section 6).  The coefficients and x values
+// of a group of diagonals are all loaded before any is used (band_rows,
+// shared with K2), so a thread has its whole band in flight at once
+// instead of a load pair a diagonal; the 5-, 7- and 9-diagonal operators
+// of the main paths get kernels of their own width (every diagonal in one
+// group, offsets at fixed places of the parameter), any other width takes
+// groups of 8 (slower at all three widths, and at 9 by a second round
+// trip: same section).  An (n, k) x is one launch: thread t takes row
+// group t / k of column t % k, so the k threads of a row group read the
+// same band vector and the band is read once for all columns.  The
+// offsets travel by value in a __grid_constant__ kernel parameter (the
+// constant bank): no load from device memory and no shared-memory
+// staging.  A band of more than kSpmvOffsets diagonals reads them from
+// device memory instead, a load that the band's addresses wait for.
 // ops/dia_kernels.spmv_geometry gives the launch shape: enough blocks to
 // spread small operators over every SM.
 //
@@ -118,7 +116,6 @@
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cstring>
@@ -327,43 +324,14 @@ struct Vec16<double> {
 
 // which operands of a K1 launch take 16-byte accesses
 constexpr int kBandVec = 1;   // the band: npad % kR == 0, data aligned
-constexpr int kXVec = 2;      // x: k == 1, aligned
-constexpr int kYVec = 4;      // y: k == 1, aligned
+constexpr int kYVec = 2;      // y: k == 1, aligned
 
-// K1's offsets by value, up to kCap of them; lo and hi: the least and
-// the largest offset, rounded down to a multiple of the rows a thread
+// K1's offsets by value, up to kCap of them
 template <int kCap>
 struct SpmvBand {
-  int ndiag, lo, hi;
+  int ndiag;
   int off[kCap];
 };
-
-// v = x[r .. r + kR) of the two aligned vectors at p (the second is read
-// only when r > 0): the x values of a thread's rows for one diagonal
-template <typename T, int kR>
-__device__ __forceinline__ void x_window(const T* p, int r, T (&v)[kR]) {
-  T lo[kR], hi[kR], w[2 * kR];
-  Vec16<T>::load(p, lo);
-  if (r) {
-    Vec16<T>::load(p + kR, hi);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kR; ++j) hi[j] = T(0);
-  }
-#pragma unroll
-  for (int j = 0; j < kR; ++j) {
-    w[j] = lo[j];
-    w[kR + j] = hi[j];
-  }
-#pragma unroll
-  for (int j = 0; j < kR; ++j) {
-    T s = w[j];
-#pragma unroll
-    for (int q = 1; q < kR; ++q)
-      if (r == q) s = w[j + q];
-    v[j] = s;
-  }
-}
 
 // kD > 0: exactly kD diagonals, all loaded in one group; kD == 0: any
 // number, in groups of 8.  kByValue: the offsets are band.off, else
@@ -389,39 +357,24 @@ dia_spmv_kernel(const T* __restrict__ data, long long npad,
       return __ldg(offsets + d);
     }
   };
+  const bool bvec = vec & kBandVec;
   T acc[kR];
-#ifdef PYAMG_DIA_SPMV_SCALAR_X   // a build for a timing probe: no x window
-  vec &= ~kXVec;
-#endif
-  if ((vec & kXVec) && (vec & kBandVec) && i0 + band.lo >= 0 &&
-      i0 + band.hi + 2 * kR <= n) {
-    // every diagonal's x window lies in [0, n): 16-byte loads only
-    band_rows<T, kR, kChunk>(nd, [&](int d, T (&a)[kR], T (&xv)[kR]) {
-      const int o = off(d);
-      Vec16<T>::load(data + d * npad + i0, a);
-      x_window<T, kR>(x + i0 + (o & -kR), o & (kR - 1), xv);
-    }, acc);
-  } else {
-    // the edges, a band not aligned, or an (n, k) x: x one value at a time
-    const bool bvec = vec & kBandVec;
-    band_rows<T, kR, kChunk>(nd, [&](int d, T (&a)[kR], T (&xv)[kR]) {
-      const int o = off(d);
-      const T* p = data + d * npad + i0;
-      if (bvec) {
-        Vec16<T>::load(p, a);
-      } else {
+  band_rows<T, kR, kChunk>(nd, [&](int d, T (&a)[kR], T (&xv)[kR]) {
+    const int o = off(d);
+    const T* p = data + d * npad + i0;
+    if (bvec) {
+      Vec16<T>::load(p, a);
+    } else {
 #pragma unroll
-        for (int r = 0; r < kR; ++r) a[r] = i0 + r < n ? __ldg(p + r) : T(0);
-      }
+      for (int r = 0; r < kR; ++r) a[r] = i0 + r < n ? __ldg(p + r) : T(0);
+    }
 #pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const int j = i0 + r + o;
-        xv[r] = in_range(j, 0, n)
-                    ? __ldg(x + static_cast<long long>(j) * k + c)
-                    : T(0);
-      }
-    }, acc);
-  }
+    for (int r = 0; r < kR; ++r) {
+      const int j = i0 + r + o;
+      xv[r] = in_range(j, 0, n) ? __ldg(x + static_cast<long long>(j) * k + c)
+                                : T(0);
+    }
+  }, acc);
   if ((vec & kYVec) && i0 + kR <= n) {
     Vec16<T>::store(y + i0, acc);
   } else {
@@ -797,31 +750,24 @@ int dia_spmv(const T* data, int ndiag, long long npad,
   const bool bad = ndiag < 1 || npad < n || k < 1 ||
                    host_offsets == nullptr || threads < 32 ||
                    threads > kSpmvThreads || threads % 32 != 0 ||
-                   blocks < 1 || static_cast<long long>(blocks) * threads < work ||
+                   blocks < 1 ||
+                   static_cast<long long>(blocks) * threads < work ||
                    static_cast<long long>(blocks - 1) * threads >= work ||
                    static_cast<long long>(blocks) * threads > INT_MAX ||
                    (ndiag > kSpmvOffsets && offsets == nullptr);
   if (bad) return static_cast<int>(cudaErrorInvalidValue);
-  int lo = host_offsets[0], hi = host_offsets[0];
-  for (int d = 1; d < ndiag; ++d) {
-    lo = std::min(lo, host_offsets[d]);
-    hi = std::max(hi, host_offsets[d]);
-  }
   auto aligned = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
   };
   const int vec = (npad % kR == 0 && aligned(data) ? kBandVec : 0) |
-                  (k == 1 && aligned(x) ? kXVec : 0) |
                   (k == 1 && aligned(y) ? kYVec : 0);
   if (ndiag > kSpmvOffsets) {
-    const SpmvBand<1> band = {ndiag, lo & -kR, hi & -kR, {0}};
+    const SpmvBand<1> band = {ndiag, {0}};
     return spmv_launch<T, 0, false>(band, blocks, threads, stream, data,
                                     npad, offsets, n, k, x, y, vec);
   }
   SpmvBand<kSpmvOffsets> band;    // the offsets past ndiag are not read
   band.ndiag = ndiag;
-  band.lo = lo & -kR;
-  band.hi = hi & -kR;
   std::memcpy(band.off, host_offsets, sizeof(int) * ndiag);
   auto run = [&](auto width) {
     return spmv_launch<T, decltype(width)::value, true>(

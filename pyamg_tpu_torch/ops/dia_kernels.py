@@ -1,5 +1,5 @@
 """CUDA kernels K1 (banded SpMV) and K2 (multicolor GS sweep) for DIA
-operators, their plain PyTorch versions, K2's launch geometry, and their
+operators, their plain PyTorch versions, their launch geometries, and their
 launch counters.
 
 Counterpart of ``pyamg_tpu/ops/pallas_kernels.py``.
@@ -7,9 +7,9 @@ Counterpart of ``pyamg_tpu/ops/pallas_kernels.py``.
 K1 ``dia_spmv`` replaces the TPU kernel ``_dia_call`` (behind
 ``dia_spmv_pallas``).  It is bound by bytes on the H100: it reads
 ``ndiag*n`` matrix values plus x and writes y, ~2 flops per value.  A
-thread owns the rows of 16 bytes (4 float32, 2 float64), loads a row
-group of every diagonal of the band and its x values before it uses any
-(16-byte loads where they stay in bounds), and takes its offsets by value
+thread owns the rows of 16 bytes (4 float32, 2 float64), loads its row
+group of every diagonal of the band (one 16-byte load each) and the x
+values they multiply before it uses any, and takes its offsets by value
 from a kernel parameter.  An x of shape ``(n, k)`` is one launch that
 reads the band once.  ``spmv_geometry`` gives the launch shape (plain
 Python, reached by the CPU tests).
@@ -211,11 +211,6 @@ class SpmvGeometry:
     threads: int
     blocks: int
     vector: bool
-
-    def rows_of(self, t, n, k):
-        """(column, first row, end row) of thread ``t``."""
-        g, c = divmod(t, k)
-        return c, min(n, g * self.rows), min(n, (g + 1) * self.rows)
 
 
 @functools.lru_cache(maxsize=None)

@@ -36,7 +36,7 @@ def spmv(A: ELL, x):
 
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for banded A and x of shape (n,) or (n, k) (kernel K1 on
-    CUDA tensors, once per column)."""
+    CUDA tensors, one launch)."""
     if not isinstance(x, torch.Tensor):
         raise TypeError("dia_spmv takes a tensor")
     return dia_kernels.dia_spmv(A.data, A.offsets, A.shape[0], x)

@@ -7,12 +7,12 @@ that is or is not a multiple of the rows a thread; a row group that the
 kernel loads as one 16-byte vector starts on a 16-byte boundary.
 
 Then the kernel's walk is emulated in torch, as ``csrc/dia_kernels.cu``
-does it: a thread whose every x window lies in [0, n) reads two aligned
-vectors of x a diagonal and picks its rows' values from ``off mod rows``;
-the others read x value by value, masked to [0, n), and the band value by
-value where it is not aligned.  Rows past n hold NaN in the band and are
-never stored.  The result must equal ``dia_spmv_plain`` bit for bit, inf
-and NaN included.
+does it: each thread reads its row group of every diagonal as one vector
+(or value by value, masked to rows < n, where ``npad`` is not a multiple
+of the rows a thread), the x values of its rows and column masked to
+[0, n), adds the products in diagonal order and stores its rows below n.
+Rows past n hold NaN in the band.  The result must equal
+``dia_spmv_plain`` bit for bit, inf and NaN included.
 """
 
 import numpy as np
@@ -44,7 +44,8 @@ def _threads(g, n, k):
                                ONE_WAVE - 1, ONE_WAVE + 5, 250_000])
 def test_geometry_covers_every_row_once(n, k, itemsize):
     rows = 16 // itemsize
-    for npad in {n, n + 1, -(-n // rows) * rows, -(-n // DIA_TILE) * DIA_TILE}:
+    for npad in {n, n + 1, -(-n // rows) * rows,
+                 -(-n // DIA_TILE) * DIA_TILE}:
         g = dk.spmv_geometry(n, k, npad, itemsize, SMS)
         assert g.rows == rows and g.vector == (npad % rows == 0)
         work = -(-n // rows) * k
@@ -59,8 +60,6 @@ def test_geometry_covers_every_row_once(n, k, itemsize):
             live = a + r < e
             np.add.at(count, (a[live] + r) * k + c[live], 1)
         assert (count == 1).all()
-        assert g.rows_of(g.blocks * g.threads - 1, n, k)[1:] == \
-            (int(a[-1]), int(e[-1]))
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -75,40 +74,29 @@ def test_vector_rows_are_aligned(n, npad, itemsize):
         assert ((d * npad + a) * itemsize % 16 == 0).all()
 
 
-def _emulate(g, data, offsets, n, x, x_aligned=True):
+def _emulate(g, data, offsets, n, x):
     """K1's walk in geometry g: what each thread of dia_spmv_kernel stores,
     in a y that starts as NaN."""
     k = 1 if x.ndim == 1 else x.shape[1]
-    R = g.rows
     xf = x.reshape(-1)
     y = torch.full((n * k,), float("nan"), dtype=x.dtype)
     c, a, e = (torch.as_tensor(v) for v in _threads(g, n, k))
     live = a < e
     c, i0 = c[live], a[live]
-    lo = min(offsets) // R * R          # the kernel's `o & -kR`
-    hi = max(offsets) // R * R
-    interior = (k == 1 and x_aligned and g.vector) & (i0 + lo >= 0) & \
-        (i0 + hi + 2 * R <= n)
-    rr = torch.arange(R)
-    rows = i0[:, None] + rr                         # (threads, R)
+    rows = i0[:, None] + torch.arange(g.rows)       # (threads, rows)
+    zero = torch.zeros((), dtype=x.dtype)
     acc = None
     for d, off in enumerate(offsets):
-        # the band: a 16-byte vector, or values masked to rows < n
+        # the band: a 16-byte vector (rows past n within npad), or values
+        # masked to rows < n
         band = data[d][rows.clamp(max=data.shape[1] - 1)]
-        if not g.vector:
-            band = torch.where(rows < n, band, torch.zeros((), dtype=x.dtype))
-        # x, interior threads: the vectors at base and base + R, picked
-        # from r; every other thread: values masked to [0, n)
-        base, r = i0 + off // R * R, off % R
-        j = base[:, None] + torch.arange(2 * R)
-        vec = interior[:, None].expand_as(j)
-        assert ((j[vec] >= 0) & (j[vec] < n)).all()
-        win = xf[j.clamp(0, n - 1) * k + c[:, None]][:, r:r + R]
-        jj = rows + off
-        one = torch.where((jj >= 0) & (jj < n),
-                          xf[jj.clamp(0, n - 1) * k + c[:, None]],
-                          torch.zeros((), dtype=x.dtype))
-        xv = torch.where(interior[:, None], win, one)
+        if g.vector:
+            assert (rows < data.shape[1]).all()
+        else:
+            band = torch.where(rows < n, band, zero)
+        j = rows + off
+        xv = torch.where((j >= 0) & (j < n),
+                         xf[j.clamp(0, n - 1) * k + c[:, None]], zero)
         term = band * xv
         acc = term if acc is None else acc + term
     store = rows < n
@@ -167,11 +155,10 @@ def test_row_walk_equals_plain(operators, op, dtype, k):
             g = dk.spmv_geometry(n, k, npad, x.element_size(), sms)
             for xv in (x, xn):
                 want = dk.dia_spmv_plain(data, offsets, n, xv)
-                for aligned in (True, False):
-                    got = _emulate(g, data, offsets, n, xv, aligned)
-                    torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                               equal_nan=True,
-                                               msg=(name, npad, g, aligned))
+                got = _emulate(g, data, offsets, n, xv)
+                torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                           equal_nan=True,
+                                           msg=(name, npad, g))
 
 
 def test_main_path_geometry():
