@@ -14,7 +14,8 @@ On the DIA operators of both main paths (2-D Poisson 500^2 levels 0 and
   new, new, parent, so that the spread between two timings of one kernel
   shows beside the difference between them;
 - ``generic``: a build with ``-DPYAMG_DIA_SPMV_GENERIC`` (every width in
-  groups of 8 diagonals; no kernel of the operator's own width);
+  groups of 8 diagonals; no kernel of the operator's own width), in the
+  order generic, new, new, generic, and in the solves;
 - ``offsets N``: builds with ``-DPYAMG_DIA_SPMV_OFFSETS=N`` (N offsets at
   most by value in the kernel parameter; N = 1 sends every band through
   device memory): the device time, and the host's time a launch over
@@ -27,7 +28,8 @@ Each variant is held to the plain version to 0, then timed as
 made after a 256 MB read that flushes L2, and the mean of 50 calls with
 L2 warm.  Last, each path's warm solve is profiled with the new K1 and
 (with ``--parent``) with the parent's, in the order new, parent, parent,
-new, and K1's device time and launches are read from the trace.
+new, then with the build for any width (generic, new, new, generic), and
+K1's device time and launches are read from the trace.
 """
 
 import argparse
@@ -149,7 +151,8 @@ def main():
         g = dk.spmv_geometry(n, 1, data.shape[1], 4, sms)
         order = ["parent", "new", "new", "parent"] if args.parent else \
             ["new", "new"]
-        for label in order + ["generic", *(f"offsets {c}" for c in OFFSETS)]:
+        for label in order + ["generic", "new", "new", "generic",
+                              *(f"offsets {c}" for c in OFFSETS)]:
             timed(f"{name} {label} {g}", caller(label, data, offsets, n, x),
                   want)
         for t in THREADS:
@@ -188,9 +191,15 @@ def main():
             return caller("parent", data, tuple(offsets), n, xc)()
         return dk._columns(one, x)
 
+    def generic_spmv(data, offsets, n, x):
+        """The build for any width behind the wrapper (1-D x)."""
+        return caller("generic", data, tuple(offsets), n, x)()
+
     kinds = ["new", "parent", "parent", "new"] if args.parent else ["new"]
+    kinds += ["generic", "new", "new", "generic"]
     for kind in kinds:
-        dk.dia_spmv = wrapper if kind == "new" else parent_spmv
+        dk.dia_spmv = {"new": wrapper, "parent": parent_spmv,
+                       "generic": generic_spmv}[kind]
         for tag, solve in solves.items():
             solve()
             wall, busy, events, _ = cs.profiled(solve)
