@@ -80,6 +80,15 @@ SELL_64 = {"P0": ("tall", 8, 13, 2048), "R0": ("fat", 8, 152, 256),
            "R1": ("fat", 41, 839, 8), "A2": ("tall", 1, 89, 8)}
 LAYOUT_64 = [("DIA", "SELL", "SELL"), ("SELL", "SELL", "SELL"),
              ("SELL", "ELL", "ELL"), ("DIA", "NoneType", "NoneType")]
+# the JAX package's iterations on the solvers phase's paths (CPU, full
+# size; JAX_PLATFORMS=cpu PYTHONPATH=.:tests python
+# tests/jax_solver_reference.py): S1-S5 iterations, S6 (outer, inner per
+# outer); the port's must equal them within 1
+JAX_SOLVERS = {"S1": 5, "S2": 7, "S3": 10, "S4": 16, "S5": 4,
+               "S6": (2, (6, 8))}
+# the (omega, sweep) pairs the solvers phase adds to K2 and K5
+SOLVER_K2_PAIRS = ((1.2, "symmetric"), (1.2, "forward"), (1.2, "backward"))
+SOLVER_K5_PAIRS = ((1.2, "forward"), (1.2, "backward"))
 # a profiler trace that comes back without its device operations is taken
 # again, after a pause (an empty trace has come back whole after one)
 TRACE_TRIES = 5
@@ -202,14 +211,16 @@ def busy_us(intervals):
     return total
 
 
-def build_hierarchy(N, max_n, device, ds=True):
-    """The main path's setup on 2-D Poisson N^2: (A64, ml, levels and
-    operator complexity of the hierarchy before the coarse collapse)."""
+def build_hierarchy(N, max_n, device, ds=True, dtype=np.float32, **kw):
+    """The main path's setup on 2-D Poisson N^2 (``kw`` to
+    ``smoothed_aggregation_solver``): (A64, ml, levels and operator
+    complexity of the hierarchy before the coarse collapse)."""
     from pyamg_tpu_torch.gallery import poisson
     from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
     A64 = poisson((N, N))
-    ml = smoothed_aggregation_solver(A64.astype(np.float32),
-                                     aggregate=("grid", {}), max_coarse=10)
+    ml = smoothed_aggregation_solver(A64.astype(dtype),
+                                     aggregate=("grid", {}), max_coarse=10,
+                                     **kw)
     full = (len(ml.levels), ml.operator_complexity())
     ml.compress_stencils()
     if max_n:
@@ -277,14 +288,15 @@ def build_kernels():
         return {name: f.result() for name, f in futures}
 
 
-def build_sa3d(N):
-    """The 3-D Poisson N^3 path's setup (``bench_suite.py:65-80``): (A64,
-    ml) with standard smoothed aggregation, ``max_coarse=50``, stencils
-    compressed (DIA and SELL)."""
+def build_sa3d(N, **kw):
+    """The 3-D Poisson N^3 path's setup (``bench_suite.py:65-80``; ``kw``
+    to ``smoothed_aggregation_solver``): (A64, ml) with standard smoothed
+    aggregation, ``max_coarse=50``, stencils compressed (DIA and SELL)."""
     from pyamg_tpu_torch.gallery import poisson
     from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
     A64 = poisson((N, N, N))
-    ml = smoothed_aggregation_solver(A64.astype(np.float32), max_coarse=50)
+    ml = smoothed_aggregation_solver(A64.astype(np.float32), max_coarse=50,
+                                     **kw)
     return A64, ml.compress_stencils()
 
 
@@ -343,8 +355,8 @@ def profiled(fn):
     return wall_us, busy, ops, syncs
 
 
-def print_profile(tag, wall_us, busy, ops, syncs, top=12):
-    print(f"times: {tag} profiled warm solve wall {wall_us / 1e3:.3f} ms, "
+def print_profile(tag, wall_us, busy, ops, syncs, top=12, phase="times"):
+    print(f"{phase}: {tag} profiled warm solve wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms, idle share "
           f"{1 - busy / wall_us:.4f}, device ops {len(ops)}, host syncs "
           f"{syncs}")
@@ -354,8 +366,149 @@ def print_profile(tag, wall_us, busy, ops, syncs, top=12):
         by_name[name] = (c + 1, d + (t - s))
     for name, (c, d) in sorted(by_name.items(),
                                key=lambda kv: -kv[1][1])[:top]:
-        print(f"times: {tag} device {d:9.1f} us = {c:5d} x {d / c:7.2f} us  "
-              f"{name[:90]}")
+        print(f"{phase}: {tag} device {d:9.1f} us = {c:5d} x {d / c:7.2f} "
+              f"us  {name[:90]}")
+
+
+def solver_paths(dev, N2=500, N3=64):
+    """The paths of the ``solvers:`` phase: [(name, what it runs, run,
+    scipy A, b, tol, kernels it must launch, M)], ``run(residuals)``
+    returning (x, info).  The true relative residual is checked below tol,
+    except S1's: GMRES stops on the preconditioned residual, and a true
+    relative residual below 1e-6 is not what it promises (the JAX
+    package's own S1 stops at 4.7e-5), so S1's is checked through its
+    preconditioner ``M``: ||M (b - A x)|| / ||M b|| in float64.  S1-S5 on 2-D Poisson N2^2, grid SA, float64 (in
+    float32 no path reaches a true relative residual of 1e-6 at 500^2,
+    the JAX package's neither: ``tests/jax_solver_reference.py
+    --float32``); S6 on 3-D Poisson N3^3, standard SA, float32 (SELL)."""
+    import torch
+    from pyamg_tpu_torch import krylov
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    A64, s1, _ = build_hierarchy(N2, 4096, dev, ds=False, dtype=np.float64)
+    s1.to_device(dev)
+
+    def grid_sa(smoother, **kw):
+        _, ml, _ = build_hierarchy(N2, 0, dev, ds=False, dtype=np.float64,
+                                   presmoother=smoother,
+                                   postsmoother=smoother, **kw)
+        return ml.to_device(dev)
+
+    s2 = grid_sa(("sor", {"omega": 1.2, "sweep": "symmetric"}),
+                 coarse_solver="splu")
+    s3 = grid_sa(("chebyshev", {"degree": 3}), coarse_solver="cholesky")
+    s4 = grid_sa(("jacobi", {"omega": 4.0 / 3.0, "iterations": 2}))
+    S2, b = to_scipy(A64), np.random.default_rng(SEED).standard_normal(
+        A64.shape[0])
+    A3, s6 = build_sa3d(N3, presmoother=("sor", {"omega": 1.2,
+                                                 "sweep": "forward"}),
+                        postsmoother=("sor", {"omega": 1.2,
+                                              "sweep": "backward"}))
+    s6.to_device(dev)
+    S3, b3 = to_scipy(A3), np.random.default_rng(0).standard_normal(
+        A3.shape[0])
+    dia = ("dia_spmv", "dia_gs_sweep")
+    M1 = s1.aspreconditioner("W")
+
+    def s1_precond(v):
+        return M1.matvec(torch.as_tensor(v, device=dev)).cpu().numpy()
+
+    def s6_run(res):
+        it = {}
+        x = s6.solve_refined(b3, A_fine=S3, tol=1e-10, accel="gmres",
+                             cycle="W", residuals=res, iterations_out=it)
+        return x, (it["outer"], tuple(it["inner"]))
+
+    return [
+        ("S1", "GMRES around a W-cycle, symmetric GS, dense coarse tail",
+         lambda res: s1.solve(b, tol=1e-6, accel="gmres", cycle="W",
+                              residuals=res, return_info=True),
+         S2, b, 1e-6, dia, s1_precond),
+        ("S2", "FGMRES around an F-cycle, SOR omega 1.2, LU coarse solve",
+         lambda res: s2.solve(b, tol=1e-6, accel="fgmres", cycle="F",
+                              residuals=res, return_info=True),
+         S2, b, 1e-6, dia, None),
+        ("S3", "CG around a V-cycle, Chebyshev degree 3, Cholesky coarse "
+         "solve", lambda res: s3.solve(b, tol=1e-6, accel="cg",
+                                       residuals=res, return_info=True),
+         S2, b, 1e-6, ("dia_spmv",), None),
+        ("S4", "standalone AMLI cycling, Jacobi omega 4/3 twice",
+         lambda res: s4.solve(b, tol=1e-6, cycle="AMLI", maxiter=60,
+                              residuals=res, return_info=True),
+         S2, b, 1e-6, ("dia_spmv",), None),
+        ("S5", "krylov.bicgstab preconditioned by S1's V-cycle",
+         lambda res: krylov.bicgstab(s1.levels[0].A, b, tol=1e-6,
+                                     M=s1.aspreconditioner("V"),
+                                     residuals=res),
+         S2, b, 1e-6, dia, None),
+        ("S6", "solve_refined GMRES around a W-cycle, SOR omega 1.2 forward "
+         "and backward", s6_run, S3, b3, 1e-10,
+         dia + ("sell_spmv", "sell_gs_sweep"), None),
+    ]
+
+
+def solvers_phase(dev, paths, jax_counts, reps=5):
+    """Drive each path once cold with the launch counts set to 0 just
+    before it and read just after, then ``reps`` warm solves and one
+    profiled; check the iterations against the JAX package's within 1,
+    the true relative residual below tol, the kernels the path runs and
+    no CG warning.  Returns {name: launches per kernel}."""
+    import warnings
+    import torch
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    kernels = dk.KERNELS + sk.KERNELS
+    out = {}
+    for name, what, run, S, b, tol, must, M in paths:
+        dk.reset_launch_counts()
+        sk.reset_launch_counts()
+        res = []
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            x, info = run(res)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        per_op = {k.__name__: dict(getattr(k, "by_op", None) or k.by_plan)
+                  for k in kernels if k.launches}
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+        r = b - S @ x.astype(np.float64)
+        relres = float(np.linalg.norm(r) / np.linalg.norm(b))
+        gated = relres if M is None else \
+            float(np.linalg.norm(M(r)) / np.linalg.norm(M(b)))
+        its = info if name == "S6" else len(res) - 1
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run([])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"solvers: {name} {what}: iterations {its} (JAX package "
+              f"{jax_counts[name]}), info {info}, true_relres {relres:.3e}"
+              + ("" if M is None else f", preconditioned {gated:.3e}") +
+              f" (tol {tol:g}), warnings {[str(w.message)[:60] for w in warned]}"
+              f", cold {cold:.3f} s, warm median of {reps} "
+              f"{statistics.median(walls) * 1e3:.3f} ms (all "
+              f"{[round(w * 1e3, 3) for w in walls]}), launches per solve "
+              f"{launches}, per operator {per_op}")
+        print_profile(name, *profiled(lambda: run([])), phase="solvers")
+        want = jax_counts[name]
+        if name == "S6":
+            check(its[0] == want[0] and len(its[1]) == len(want[1]) and
+                  all(abs(a - c) <= 1 for a, c in zip(its[1], want[1])),
+                  f"{name}: iterations {its} differ from the JAX package's "
+                  f"{want} by more than 1")
+        else:
+            check(abs(its - want) <= 1, f"{name}: {its} iterations, the JAX "
+                                        f"package {want}")
+        check(x.shape == b.shape and np.isfinite(x).all() and gated < tol,
+              f"{name}: true relative residual {gated:.3e} not below {tol}")
+        check(all(launches[k] > 0 for k in must) and
+              all(v == 0 for k, v in launches.items() if k not in must),
+              f"{name}: launches {launches}, expected exactly {must}")
+        check(name != "S3" or not warned, f"{name} raised a warning")
+        out[name] = launches
+    return out
 
 
 def main():
@@ -544,6 +697,31 @@ def main():
     for name, op in k2_ops.items():
         kernel_inputs[f"K2 {name}"] = k2_case(name, *op)
 
+    # the (omega, sweep) pairs of the solvers phase: SOR symmetric with
+    # omega 1.2 on the 500^2 levels (S2, float64), forward and backward on
+    # 64^3 A0 (S6, float32); each pair on each operator in both dtypes
+    for name in ("500^2 level 0", "500^2 level 1", "64^3 A0"):
+        D, colors, nc, Dinv = k2_ops[name]
+        n = D.shape[0]
+        col = torch.as_tensor(colors, device=dev)
+        for dtype in (torch.float32, torch.float64):
+            data = torch.as_tensor(D.data, device=dev).to(dtype)
+            Di = torch.as_tensor(Dinv, device=dev).to(dtype)
+            x = torch.as_tensor(rng.standard_normal(n), device=dev).to(dtype)
+            b = torch.as_tensor(rng.standard_normal(n), device=dev).to(dtype)
+            for omega, sweep in SOLVER_K2_PAIRS:
+                order = gs_order(nc, sweep, 1, omega)
+                got = dk.dia_gs_sweep(data, D.offsets, n, x, b, Di, col,
+                                      order, omega)
+                want = dk.dia_gs_sweep_plain(data, D.offsets, n, x, b, Di,
+                                             col, order, omega)
+                torch.cuda.synchronize()
+                err, _ = rel_err(got, want)
+                print(f"kernels: K2 {name} {str(dtype)[6:]} omega={omega} "
+                      f"sweep={sweep} order={order} max_abs_err={err:.3e}")
+                check(err == 0, f"K2 {name} {dtype} omega={omega} {sweep} "
+                                f"disagrees with its plain version")
+
     def random_band(n, offsets, scale):
         """(DIA, colors, 4, Dinv): random entries times ``scale`` on
         ``offsets``, 4 on the main diagonal, 4 random colors."""
@@ -674,6 +852,25 @@ def main():
         S, _ = sell_ops[name]
         Dinv = ml_s.levels[int(name[1])].pre[2]["Dinv"]
         kernel_inputs[f"K5 {name}"] = k5_case(name, S, Dinv, True)
+
+    # the (omega, sweep) pairs of the solvers phase (S6: SOR forward before
+    # and backward after, omega 1.2) on A1 and A2, to 0
+    for name in ("A1", "A2"):
+        S, _ = sell_ops[name]
+        Dinv = ml_s.levels[int(name[1])].pre[2]["Dinv"]
+        x = torch.as_tensor(rng.standard_normal(S.shape[0]),
+                            device=dev).float()
+        b = torch.as_tensor(rng.standard_normal(S.shape[0]),
+                            device=dev).float()
+        for omega, sweep in SOLVER_K5_PAIRS:
+            got = sk.sell_gs_sweep(S, x, b, Dinv, omega, sweep)
+            want = sk.sell_gs_sweep_plain(S, x, b, Dinv, omega, sweep)
+            torch.cuda.synchronize()
+            err, _ = rel_err(got, want)
+            print(f"kernels: K5 {name} {sweep} omega={omega} "
+                  f"max_abs_err={err:.3e}")
+            check(err == 0, f"K5 {name} {sweep} omega={omega} disagrees "
+                            f"with its plain version")
 
     # K5 where x does not fit in shared memory, off the main path
     k5_case("1800^2 (off the main path)", big_sd, 1.0 / big_sd.diag, False)
@@ -1020,6 +1217,15 @@ def main():
             None, S.nnz * 8 + 4 * n * 4, 2 * S.nnz + 3 * n,
             source=sell_src, plain_reps=2, tag=tag))
         slot_model(S, 4 * n * 4, tag)
+
+    # -- 6. solvers: the rest of the solve phase -----------------------------
+    t0 = time.perf_counter()
+    paths = solver_paths(dev)
+    print(f"solvers: setup+compress+place of the six paths "
+          f"{time.perf_counter() - t0:.2f} s")
+    solver_launches = solvers_phase(dev, paths, JAX_SOLVERS)
+    print(f"solvers: launches per solve {solver_launches}")
+    del paths
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,14 +8,42 @@ without the port's setup phase.  ``spec``::
 
     {"levels": [                      # finest first; the last is coarsest
         {"A": <operator>, "P": <operator>, "R": <operator>,
-         "pre":  {"kind": "gauss_seidel", "opts": {"iterations", "sweep",
-                  "ncolors", "omega"}, "Dinv": (n,),
-                  "colors": (n,) int32, "order": [color, ...]},
-         "post": {... as "pre"}},
+         "pre":  <smoother>, "post": <smoother>},
         ...,
         {"A": <operator>}],
-     "coarse_op": (nc, nc),           # dense inverse of the coarsest A
+     "coarse": <coarse solver>,       # or "coarse_op": (nc, nc), a pinv
      "ds": {"kind": "dia", "data_hi", "data_lo", "offsets", "n"}}  # optional
+
+A smoother is ``{"kind", "opts", <params>}``: the descriptor
+``(kind, sopts, params)`` of ``relaxation/smoothing.py`` with its static
+options under ``"opts"`` and its arrays and scalars beside them:
+
+    gauss_seidel     opts {iterations, sweep, ncolors, omega}; Dinv (n,),
+                     colors (n,) int32, order [color, ...]
+    jacobi           opts {iterations}; omega, Dinv
+    richardson       opts {iterations}; omega
+    polynomial       opts {iterations, coefficients} (Chebyshev too)
+    jacobi_ne        opts {iterations}; omega
+    gauss_seidel_ne  opts {iterations, sweep, ncolors}; colors, omega
+    gauss_seidel_nr  as gauss_seidel_ne
+    cf_jacobi        opts {iterations, f_iterations, c_iterations};
+    fc_jacobi        Cmask, Fmask (n,) bool, omega, Dinv
+    krylov_cg, krylov_gmres  opts {maxiter}
+    krylov_cgne, krylov_cgnr opts {maxiter}; AH <operator>
+    none             {}
+
+The normal-equation kinds get their A^H and row or column norms from the
+level's A here (``relaxation.ne_params``) when the producer does not give
+``AH`` and ``Dinv``.  A coarse solver is ``{"kind", <params>}``:
+
+    pinv, pinv2      op (nc, nc)
+    lu, splu         lu (nc, nc), piv (nc,): scipy's ``lu_factor``
+                     (0-based row interchanges, made a row order here)
+    cholesky         c (nc, nc) of ``cho_factor`` (either triangle may
+                     hold leftovers), lower bool
+    jacobi, gauss_seidel, block_jacobi, block_gauss_seidel, none
+                     smoother <smoother>
+    cg, gmres        maxiter
 
 An operator is one of
 
@@ -40,8 +68,11 @@ import numpy as np
 
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil
 from pyamg_tpu_torch.sparse.sell import SELL
-from pyamg_tpu_torch.multilevel import CoarseSolver, Level, MultilevelSolver
-from pyamg_tpu_torch.relaxation.relaxation import gs_order
+from pyamg_tpu_torch.multilevel import (
+    RELAXATION_SOLVERS, CoarseSolver, Level, MultilevelSolver,
+    cholesky_triangle, row_permutation)
+from pyamg_tpu_torch.relaxation.relaxation import gs_order, ne_params
+from pyamg_tpu_torch.relaxation.smoothing import _is_symmetric_pair
 
 
 def _shape(d):
@@ -71,20 +102,53 @@ def _operator(d):
                _shape(d))
 
 
+_NE_DINV = {"jacobi_ne": "Dinv_rows", "gauss_seidel_ne": "Dinv_rows",
+            "gauss_seidel_nr": "Dinv_cols"}
+
+
 def _smoother(d, A):
-    if d["kind"] != "gauss_seidel":
-        raise NotImplementedError(f"smoother {d['kind']!r} is not ported yet")
-    opts = dict(d["opts"])
-    params = {"Dinv": np.asarray(d["Dinv"])}
-    if "colors" in d:
-        params["colors"] = np.asarray(d["colors"], np.int32)
-    if not isinstance(A, SELL):
+    kind = d["kind"]
+    opts = dict(d.get("opts", {}))
+    params = {k: (_operator(v) if k == "AH" else
+                  v if np.isscalar(v) or callable(v) else np.asarray(v))
+              for k, v in d.items() if k not in ("kind", "opts", "order")}
+    if "colors" in params:
+        params["colors"] = params["colors"].astype(np.int32)
+    if kind in _NE_DINV and not {"AH", "Dinv"} <= params.keys():
+        p = ne_params(A)
+        params.update(AH=p["AH"], Dinv=p[_NE_DINV[kind]])
+    if kind == "gauss_seidel" and not isinstance(A, SELL):
         order = gs_order(opts["ncolors"], opts["sweep"], opts["iterations"],
                          opts["omega"])
         if list(order) != [int(c) for c in d["order"]]:
             raise ValueError(f"color order {list(d['order'])} differs from "
                              f"the port's {order}")
-    return ("gauss_seidel", opts, params)
+    return (kind, opts, params)
+
+
+def _coarse_solver(d, Ac):
+    kind = d["kind"]
+    cs = CoarseSolver(kind)
+    if callable(kind):
+        return cs
+    if kind in ("pinv", "pinv2"):
+        cs.params = {"op": np.asarray(d["op"])}
+    elif kind in ("lu", "splu"):
+        cs.params = {"lu": np.asarray(d["lu"]),
+                     "perm": row_permutation(d["piv"])}
+    elif kind == "cholesky":
+        cs.static = {"lower": bool(d["lower"])}
+        cs.params = {"c": cholesky_triangle(np.asarray(d["c"]),
+                                            d["lower"])}
+    elif kind in RELAXATION_SOLVERS:
+        skind, sopts, sparams = _smoother(d["smoother"], Ac)
+        cs.static = {"smoother": (skind, sopts)}
+        cs.params = {"smoother": sparams}
+    elif kind in ("cg", "gmres"):
+        cs.static = {"maxiter": int(d["maxiter"])}
+    else:
+        raise ValueError(f"unknown coarse solver {kind!r}")
+    return cs
 
 
 def hierarchy_from_arrays(spec, device="cuda") -> MultilevelSolver:
@@ -97,9 +161,10 @@ def hierarchy_from_arrays(spec, device="cuda") -> MultilevelSolver:
             lvl.pre = _smoother(d["pre"], lvl.A)
             lvl.post = _smoother(d["post"], lvl.A)
         levels.append(lvl)
-    cs = CoarseSolver("pinv")
-    cs.params = {"op": np.asarray(spec["coarse_op"])}
-    ml = MultilevelSolver(levels, coarse_solver=cs)
+    coarse = spec.get("coarse") or {"kind": "pinv", "op": spec["coarse_op"]}
+    ml = MultilevelSolver(levels, _coarse_solver(coarse, levels[-1].A))
+    ml.symmetric_smoothing = all(_is_symmetric_pair(l.pre, l.post)
+                                 for l in levels[:-1])
     if "ds" in spec:
         ml._ds_op = dict(spec["ds"])
         ml._ds_op["offsets"] = tuple(int(o) for o in ml._ds_op["offsets"])

@@ -13,9 +13,11 @@ the card.  Two solves run there:
 * ``solve_refined_device``: a double-single outer defect correction on the
   device around float32 CG.
 
-``solve`` itself cycles standalone or as the preconditioner of CG.  The
-cycle and the loops are Python over tensor ops; the host reads one
-convergence flag per iteration.
+``solve`` itself cycles standalone (V, W, F or AMLI cycles) or as the
+preconditioner of a Krylov method (CG, GMRES, FGMRES or any method of
+``krylov``).  The cycle, the smoothers and the coarse solvers read
+nothing on the host; the loops around them are Python over tensor ops,
+and the host reads one convergence flag per iteration.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from pyamg_tpu_torch._device import as_tensor, resolve
-from pyamg_tpu_torch.krylov.common import norm
+from pyamg_tpu_torch.krylov.common import finalize, norm
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil, to_scipy
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec
@@ -59,8 +61,22 @@ def _cast(v, dtype):
     return v
 
 
+def _put(v, device):
+    """An operator, an array or a dict of them on ``device``; anything
+    else (Python scalars, callables) as it is."""
+    if isinstance(v, (DIA, ELL, PhaseStencil, SELL)):
+        return v.to(device)
+    if isinstance(v, (np.ndarray, torch.Tensor)):
+        return as_tensor(v, device)
+    if isinstance(v, dict):
+        return {k: _put(a, device) for k, a in v.items()}
+    return v
+
+
 class Level:
-    """One grid level: A (and P/R above the coarsest) and smoothers."""
+    """One grid level: A (and P/R above the coarsest) and smoothers;
+    ``smoother_specs`` keeps the user's (pre, post) specs that built
+    them."""
 
     def __init__(self, A=None, P=None, R=None):
         self.A = A
@@ -68,66 +84,253 @@ class Level:
         self.R = R
         self.pre = ("none", {}, {})
         self.post = ("none", {}, {})
+        self.smoother_specs = None
+
+
+RELAXATION_SOLVERS = ("jacobi", "gauss_seidel", "block_jacobi",
+                      "block_gauss_seidel", "none")
 
 
 class CoarseSolver:
-    """Coarsest-level solve by a precomputed dense (pseudo-)inverse
-    ``params['op']``: the ``'pinv'`` mode of the reference."""
+    """Coarsest-level solve, set up once on the host by ``setup(A)`` and
+    called as ``(A, b)``.  Kinds: ``pinv``/``pinv2`` (a dense
+    pseudo-inverse), ``lu``/``splu`` (LU factors), ``cholesky``,
+    ``none`` (zero), a relaxation (``jacobi``, ``gauss_seidel`` and
+    their block names on a scalar operator; 10 iterations from zero by
+    default), ``cg``/``gmres`` (``maxiter`` fixed steps from zero, 30 by
+    default) or a callable ``fn(A, b)``.  ``params`` holds the arrays
+    ``to_device`` moves; ``static`` the Python values the call branches
+    on.  The factor-solves are library calls (triangular solves, which read
+    nothing on the host): these systems have at most a few thousand rows,
+    and no TPU kernel computes them."""
 
-    def __init__(self, kind="pinv"):
-        if kind != "pinv":
-            raise NotImplementedError(
-                f"coarse solver {kind!r} is not ported yet (only 'pinv')")
+    def __init__(self, kind="pinv", opts=None):
+        if isinstance(kind, tuple):
+            kind, opts = kind
+        self.kind = kind if kind is not None else "pinv"
+        self.opts = dict(opts or {})
         self.params = {}
+        self.static = {}
 
     def setup(self, A):
-        self.params = {"op": np.linalg.pinv(to_scipy(A).toarray())}
+        kind = self.kind
+        if callable(kind):
+            self.params = {}
+            return
+        if kind in ("pinv", "pinv2"):
+            self.params = {"op": np.linalg.pinv(to_scipy(A).toarray())}
+        elif kind in ("lu", "splu"):
+            import scipy.linalg
+            lu, piv = scipy.linalg.lu_factor(to_scipy(A).toarray())
+            self.params = {"lu": lu, "perm": row_permutation(piv)}
+        elif kind == "cholesky":
+            import scipy.linalg
+            c, lower = scipy.linalg.cho_factor(to_scipy(A).toarray())
+            self.static = {"lower": bool(lower)}
+            self.params = {"c": cholesky_triangle(c, lower)}
+        elif kind in RELAXATION_SOLVERS:
+            from pyamg_tpu_torch.relaxation.smoothing import make_smoother
+            opts = dict(self.opts)
+            it = opts.pop("iterations", 10)
+            skind, sopts, sparams = make_smoother(
+                None, A, (kind, {"iterations": it, **opts}))
+            self.static = {"smoother": (skind, sopts)}
+            self.params = {"smoother": sparams}
+        elif kind in ("cg", "gmres"):
+            self.static = {"maxiter": int(self.opts.get("maxiter", 30))}
+            self.params = {}
+        elif kind == "schwarz":
+            raise NotImplementedError("a Schwarz coarse solve is not "
+                                      "ported yet")
+        else:
+            raise ValueError(f"unknown coarse solver {kind!r}")
 
-    def __call__(self, b):
-        return self.params["op"] @ b
+    def __call__(self, A, b):
+        kind = self.kind
+        if callable(kind):
+            return kind(A, b)
+        if kind in ("pinv", "pinv2"):
+            return self.params["op"] @ b
+        if kind in ("lu", "splu", "cholesky"):
+            # two triangular solves: torch.linalg.lu_solve and
+            # cholesky_solve check their input on the host
+            B = b[:, None] if b.ndim == 1 else b
+            if kind == "cholesky":
+                c = self.params["c"]
+                lower = c if self.static["lower"] else c.mH
+                y = torch.linalg.solve_triangular(lower, B, upper=False)
+                y = torch.linalg.solve_triangular(lower.mH, y, upper=True)
+            else:
+                lu = self.params["lu"]
+                y = torch.linalg.solve_triangular(
+                    lu, B[self.params["perm"]], upper=False,
+                    unitriangular=True)
+                y = torch.linalg.solve_triangular(lu, y, upper=True)
+            return y[:, 0] if b.ndim == 1 else y
+        if kind in RELAXATION_SOLVERS:
+            k, s = self.static["smoother"]
+            return apply_smoother(k, s, self.params["smoother"], A,
+                                  torch.zeros_like(b), b)
+        from pyamg_tpu_torch.krylov import inner
+        if kind == "cg":
+            return inner.inner_cg(A, torch.zeros_like(b), b,
+                                  self.static["maxiter"])
+        if kind == "gmres":
+            return inner.inner_gmres(A, torch.zeros_like(b), b,
+                                     self.static["maxiter"])
+        raise ValueError(f"unknown coarse solver {kind!r}")
+
+
+def row_permutation(piv):
+    """The row order of the factors, ``A[perm] = L U``, from the 0-based
+    row interchanges ``piv`` of scipy's ``lu_factor`` (row i swapped with
+    row piv[i], for i in order)."""
+    perm = np.arange(len(piv))
+    for i, p in enumerate(np.asarray(piv)):
+        perm[i], perm[p] = perm[p], perm[i]
+    return perm
+
+
+def cholesky_triangle(c, lower):
+    """The factor's triangle of ``cho_factor``'s ``c``, whose other
+    triangle scipy leaves as it found it."""
+    return np.tril(c) if lower else np.triu(c)
+
+
+def coarse_grid_solver(solver):
+    """A ``CoarseSolver`` for ``solver`` (a kind, ``(kind, {opts})`` or a
+    callable); ``.setup(A)``, then call it as ``(A, b)``."""
+    return CoarseSolver(solver)
 
 
 class MultilevelSolver:
     """Multigrid hierarchy.  ``coarse_solver`` is a kind (set up here
-    from the coarsest A) or a ready ``CoarseSolver``."""
+    from the coarsest A) or a ready ``CoarseSolver``.
+    ``symmetric_smoothing`` says whether every level's (pre, post) pair
+    makes a symmetric cycle; ``change_smoothers`` sets it."""
 
     def __init__(self, levels, coarse_solver="pinv"):
         self.levels = levels
         if not isinstance(coarse_solver, CoarseSolver):
-            coarse_solver = CoarseSolver(coarse_solver)
+            coarse_solver = coarse_grid_solver(coarse_solver)
             coarse_solver.setup(levels[-1].A)
         self.coarse_solver = coarse_solver
+        self.symmetric_smoothing = False
         self.device = None
         self._ds_op = None
 
+    # -- complexity ----------------------------------------------------------
     def operator_complexity(self):
         return sum(l.A.nnz for l in self.levels) / self.levels[0].A.nnz
 
+    def grid_complexity(self):
+        return sum(l.A.shape[0] for l in self.levels) / \
+            self.levels[0].A.shape[0]
+
+    def cycle_complexity(self, cycle="V"):
+        """Work of one (1,1) cycle in units of the fine level's non-zeros:
+        each visit of a level costs 2 nnz (one smoothing each side), the
+        coarsest solve its nnz; AMLI counts as W."""
+        cycle = str(cycle).upper()
+        nnz = [l.A.nnz for l in self.levels]
+        nlev = len(nnz)
+
+        def work(level, kind):
+            if nlev == 1:
+                return nnz[0]
+            if level == nlev - 2:
+                return 2 * nnz[level] + nnz[level + 1]
+            if kind == "V":
+                below = work(level + 1, "V")
+            elif kind == "W":
+                below = 2 * work(level + 1, "W")
+            else:
+                below = work(level + 1, "F") + work(level + 1, "V")
+            return 2 * nnz[level] + below
+
+        if cycle not in ("V", "W", "F", "AMLI"):
+            raise TypeError(f"unrecognized cycle type {cycle!r}")
+        return float(work(0, "W" if cycle == "AMLI" else cycle)) / \
+            float(nnz[0])
+
+    def setup_timings(self):
+        """Setup wall times per phase, summed over the levels (seconds);
+        empty where the constructor recorded none."""
+        out = {}
+        for l in self.levels:
+            for k, v in getattr(l, "_setup_timings", {}).items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    def __repr__(self):
+        lines = ["MultilevelSolver",
+                 f"Number of Levels:     {len(self.levels)}",
+                 f"Operator Complexity: {self.operator_complexity():6.3f}",
+                 f"Grid Complexity:     {self.grid_complexity():6.3f}",
+                 "  level   unknowns     nonzeros"]
+        total = sum(l.A.nnz for l in self.levels)
+        for i, l in enumerate(self.levels):
+            lines.append(f"{i:6d} {l.A.shape[0]:10d} {l.A.nnz:12d} "
+                         f"[{100.0 * l.A.nnz / total:5.2f}%]")
+        return "\n".join(lines)
+
     # -- cycle ---------------------------------------------------------------
-    def _make_cycle(self, cycle="V"):
-        """cycle(x, b): one multigrid cycle on the current levels."""
-        if str(cycle).upper() != "V":
-            raise NotImplementedError(
-                f"cycle {cycle!r} is not ported yet (only 'V')")
+    def _make_cycle(self, cycle="V", cycles_per_level=1):
+        """cycle(x, b): one multigrid cycle on the current levels.  V
+        recurses once; W twice; F once as F, then ``cycles_per_level``
+        times as V; AMLI makes two A-orthogonalised corrections from
+        cycles of its own.  No host read: the recursion is over Python
+        integers and every scalar stays on the device."""
+        cycle = str(cycle).upper()
+        if cycle not in ("V", "W", "F", "AMLI"):
+            raise TypeError(f"unrecognized cycle type {cycle!r}")
         levels = self.levels
         nlev = len(levels)
         csolve = self.coarse_solver
 
-        def go(lvl, x, b):
+        def go(lvl, x, b, kind):
             L = levels[lvl]
             x = apply_smoother(*L.pre, L.A, x, b)
             bc = matvec(L.R, b - matvec(L.A, x))
+            xc = torch.zeros_like(bc)
             if lvl == nlev - 2:
-                xc = csolve(bc)
+                xc = csolve(levels[-1].A, bc)
+            elif kind == "V":
+                xc = go(lvl + 1, xc, bc, "V")
+            elif kind == "W":
+                xc = go(lvl + 1, xc, bc, "W")
+                xc = go(lvl + 1, xc, bc, "W")
+            elif kind == "F":
+                xc = go(lvl + 1, xc, bc, "F")
+                for _ in range(cycles_per_level):
+                    xc = go(lvl + 1, xc, bc, "V")
             else:
-                xc = go(lvl + 1, torch.zeros_like(bc), bc)
+                xc = amli(lvl, xc, bc)
             x = x + matvec(L.P, xc)
             return apply_smoother(*L.post, L.A, x, b)
 
+        def amli(lvl, xc, bc):
+            Ac = levels[lvl + 1].A
+            ps, bcur = [], bc
+            for _ in range(2):
+                p = go(lvl + 1, torch.zeros_like(bc), bcur, "AMLI")
+                for pj in ps:
+                    beta = torch.vdot(pj, matvec(Ac, p)) / \
+                        torch.vdot(pj, matvec(Ac, pj))
+                    p = p - beta * pj
+                Ap = matvec(Ac, p)
+                denom = torch.vdot(p, Ap)
+                alpha = torch.vdot(p, bcur) / torch.where(denom == 0, 1,
+                                                          denom)
+                xc = xc + alpha * p
+                bcur = bcur - alpha * Ap
+                ps.append(p)
+            return xc
+
         def cyc(x, b):
             if nlev == 1:
-                return csolve(b)
-            return go(0, x, b)
+                return csolve(levels[0].A, b)
+            return go(0, x, b, cycle)
 
         return cyc
 
@@ -210,25 +413,15 @@ class MultilevelSolver:
         """Move every level's operators and smoother arrays, the coarse
         inverse and the DS operator onto ``device``; return self."""
         device = resolve(device)
-
-        def put(v):
-            if isinstance(v, (DIA, ELL, PhaseStencil, SELL)):
-                return v.to(device)
-            if isinstance(v, (np.ndarray, torch.Tensor)):
-                return as_tensor(v, device)
-            return v
-
         for lvl in self.levels:
             for attr in ("A", "P", "R"):
-                setattr(lvl, attr, put(getattr(lvl, attr)))
+                setattr(lvl, attr, _put(getattr(lvl, attr), device))
             for attr in ("pre", "post"):
                 kind, sopts, params = getattr(lvl, attr)
-                setattr(lvl, attr, (kind, sopts,
-                                    {k: put(v) for k, v in params.items()}))
-        self.coarse_solver.params = {
-            k: put(v) for k, v in self.coarse_solver.params.items()}
+                setattr(lvl, attr, (kind, sopts, _put(params, device)))
+        self.coarse_solver.params = _put(self.coarse_solver.params, device)
         if self._ds_op is not None:
-            self._ds_op = {k: put(v) for k, v in self._ds_op.items()}
+            self._ds_op = _put(self._ds_op, device)
         self.device = device
         return self
 
@@ -296,7 +489,10 @@ class MultilevelSolver:
 
     def aspreconditioner(self, cycle="V"):
         """One ``cycle`` from a zero guess, as a linear operator with
-        ``shape``, ``dtype``, ``matvec`` and ``@``."""
+        ``shape``, ``dtype``, ``matvec`` and ``@``.  A hierarchy not yet
+        placed moves to the card first."""
+        if self.device is None:
+            self.to_device()
         cyc = self._make_cycle(cycle)
         A0 = self.levels[0].A
 
@@ -313,18 +509,35 @@ class MultilevelSolver:
 
         return _Preconditioner()
 
-    def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
-              accel=None, callback=None, residuals=None, return_info=False):
-        """Solve A x = b in the hierarchy's dtype on its device, by
-        standalone cycling or, with ``accel="cg"``, by CG preconditioned by
-        one cycle.  Stops once ``||b - A x|| < tol * ||b||`` or after
-        ``maxiter`` cycles / iterations.  A hierarchy not yet placed moves
-        to the card first.  Returns x as a tensor (and ``info``, 0 on
-        convergence, else the iteration count, with ``return_info``).
+    def psolve(self, b):
+        """One V-cycle from zero on b, on the hierarchy's device."""
+        M = self.aspreconditioner()
+        return M.matvec(as_tensor(b, self.device, M.dtype).reshape(-1))
 
-        ``callback(x)`` is called after every cycle or CG iteration;
-        ``residuals`` is filled with the residual norms, the initial one
-        first."""
+    def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
+              accel=None, callback=None, residuals=None, return_info=False,
+              cycles_per_level=1):
+        """Solve A x = b in the hierarchy's dtype on its device, by
+        standalone cycling or by a Krylov method preconditioned by one
+        ``cycle``.  Stops once ``||b - A x|| < tol * ||b||`` (for GMRES,
+        the preconditioned residual) or after ``maxiter`` cycles or
+        iterations.  A hierarchy not yet placed moves to the card first.
+        Returns x as a tensor (and ``info``, 0 on convergence, else the
+        iteration count, with ``return_info``).
+
+        ``accel``: None (standalone cycling), ``"cg"`` (``cg_loop``; warns
+        when ``symmetric_smoothing`` is False, as CG needs a symmetric
+        preconditioner), ``"gmres"``/``"fgmres"`` (``gmres_loop`` with
+        classical Gram-Schmidt twice, restart ``min(n, maxiter)``, one
+        cycle), the name of another method of ``krylov`` or a callable
+        with its interface.  ``cycles_per_level`` (F-cycles' V-cycles per
+        level) reaches only standalone cycling: the accelerated solves
+        build their cycle with the default, as the reference does.
+
+        ``callback(x)`` is called after every cycle or iteration (every
+        GMRES cycle); ``residuals`` is filled with the residual norms, the
+        initial one first.  Standalone cycling returns ``info`` 0 when it
+        converges on the last allowed cycle."""
         from pyamg_tpu_torch.krylov.methods import cg_loop
         if self.device is None:
             self.to_device()
@@ -338,17 +551,36 @@ class MultilevelSolver:
             return matvec(A0, v)
 
         if accel is not None:
-            if accel != "cg":
-                raise NotImplementedError(
-                    f"accel={accel!r} is not ported yet (only 'cg')")
-            x, info, resbuf, nres = cg_loop(
-                mv, self.aspreconditioner(cycle).matvec, x, b, tol, "rr",
-                maxiter, callback=callback)
-            if residuals is not None:
-                residuals[:] = resbuf[:nres].tolist()
-            return (x, int(info)) if return_info else x
+            if accel == "cg" and not self.symmetric_smoothing:
+                warnings.warn(
+                    "Incompatible non-symmetric multigrid preconditioner "
+                    "detected, due to presmoother/postsmoother combination. "
+                    "CG requires SPD preconditioner, not just SPD matrix.")
+            if accel in ("cg", "gmres", "fgmres"):
+                Mv = self.aspreconditioner(cycle).matvec
+                if accel == "cg":
+                    x, info, resbuf, nres = cg_loop(
+                        mv, Mv, x, b, tol, "rr", maxiter, callback=callback)
+                else:
+                    from pyamg_tpu_torch.krylov.gmres import gmres_loop
+                    x, info, resbuf, nres = gmres_loop(
+                        mv, Mv, x, b, tol, min(b.shape[0], int(maxiter)), 1,
+                        flexible=accel == "fgmres", callback=callback)
+                finalize(residuals, resbuf, nres)
+                if return_info:
+                    info = int(info)
+            else:
+                if isinstance(accel, str):
+                    from pyamg_tpu_torch import krylov
+                    if accel not in krylov.__all__:
+                        raise ValueError(f"unknown accel {accel!r}")
+                    accel = getattr(krylov, accel)
+                x, info = accel(A0, b, x0=x, tol=tol, maxiter=maxiter,
+                                M=self.aspreconditioner(cycle),
+                                callback=callback, residuals=residuals)
+            return (x, info) if return_info else x
 
-        cyc = self._make_cycle(cycle)
+        cyc = self._make_cycle(cycle, cycles_per_level)
         normb = norm(b)
         rtol = tol * torch.where(normb == 0, 1.0, normb)
         nr = norm(b - mv(x))
@@ -362,7 +594,7 @@ class MultilevelSolver:
             hist.append(nr)
             if callback is not None:
                 callback(x)
-            done = bool(nr < rtol)
+            done = bool(nr < rtol)         # the one host read of the cycle
         if residuals is not None:
             residuals[:] = torch.stack(hist).tolist()
         return (x, 0 if done else it) if return_info else x
@@ -447,7 +679,47 @@ class MultilevelSolver:
             twin.pre = lvl.pre[:2] + (_cast(lvl.pre[2], dtype),)
             twin.post = lvl.post[:2] + (_cast(lvl.post[2], dtype),)
             levels.append(twin)
-        cs = CoarseSolver("pinv")
-        cs.params = _cast(self.coarse_solver.params, dtype)
+        old = self.coarse_solver
+        cs = CoarseSolver(old.kind, old.opts)
+        cs.static = dict(old.static)
+        cs.params = _cast(old.params, dtype)
         new = MultilevelSolver(levels, coarse_solver=cs)
+        new.symmetric_smoothing = self.symmetric_smoothing
         return new if self.device is None else new.to_device(self.device)
+
+    def change_solve_matrix(self, A):
+        """Put the host operator A (an ELL or scipy matrix) in place of
+        the fine level's, compressed as the old one was (DIA or SELL where
+        it was), and rebuild the fine level's smoothers from the specs
+        ``change_smoothers`` kept.  A rebuild that fails raises; the
+        float64 twin and the double-single operator of the old matrix are
+        dropped."""
+        from pyamg_tpu_torch.sparse.matrix import asarray_or_ell, dia_from_ell
+        from pyamg_tpu_torch.sparse.sell import sell_from_ell
+        from pyamg_tpu_torch.relaxation.smoothing import make_smoother
+        lvl = self.levels[0]
+        if lvl.smoother_specs is None:
+            raise ValueError("the fine level's smoothers were not set by "
+                             "change_smoothers, so there is no spec to "
+                             "rebuild them from")
+        A = asarray_or_ell(A)
+        if A.shape != lvl.A.shape:
+            raise ValueError(f"A has shape {A.shape}, the fine level "
+                             f"{lvl.A.shape}")
+        pre, post = (make_smoother(lvl, A, spec)
+                     for spec in lvl.smoother_specs)
+        op = A
+        if isinstance(lvl.A, DIA):
+            op = dia_from_ell(A) or A
+        elif isinstance(lvl.A, SELL):
+            op = sell_from_ell(A) or A
+        if op is not A:
+            lvl.A_ell = A
+        if self.device is not None:
+            op = _put(op, self.device)
+            pre, post = (sm[:2] + (_put(sm[2], self.device),)
+                         for sm in (pre, post))
+        lvl.A, lvl.pre, lvl.post = op, pre, post
+        self._ds_op = None
+        self._f64_twin = None
+        return self

@@ -56,9 +56,14 @@ def matvec(A, x):
 
 
 def extract_diagonal(A):
-    """diag(A) as a dense vector of a DIA, a square SELL or a host ELL."""
+    """diag(A) as a dense vector of a DIA, a square SELL or an ELL."""
     if isinstance(A, (DIA, SELL)):
         return A.diagonal()
+    if isinstance(A.cols, torch.Tensor):
+        rows = torch.arange(A.shape[0], device=A.cols.device)[:, None]
+        slots = torch.arange(A.width, device=A.cols.device)[None, :]
+        hit = (A.cols == rows) & (slots < A.row_nnz[:, None])
+        return torch.sum(torch.where(hit, A.vals, 0), dim=1)
     hit = (A.cols == np.arange(A.shape[0], dtype=np.int32)[:, None]) & \
         A.valid_mask()
     return np.sum(np.where(hit, A.vals, 0), axis=1)

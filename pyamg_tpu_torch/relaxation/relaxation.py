@@ -1,14 +1,25 @@
-"""Multicolor Gauss-Seidel (counterpart of ``make_coloring`` and
-``gauss_seidel`` in ``pyamg_tpu/relaxation/relaxation.py``).
+"""Relaxation sweeps (counterpart of ``pyamg_tpu/relaxation/relaxation.py``
+without the block (BELL) smoothers and Schwarz).
 
-Nodes are grouped into independent sets by a graph coloring at setup,
-and each color is updated at once: exact Gauss-Seidel with respect to
-the colored ordering.  Host (numpy) operands are the setup phase
-(candidate improvement); tensor operands are the solve phase, where a
-DIA operator takes kernel K2 (``ops/dia_kernels.dia_gs_sweep``).  A SELL
-operator takes the hybrid sweep K5 (``ops/sell_kernels.sell_gs_sweep``)
-instead: 1024-row tiles in order, Gauss-Seidel across tiles and Jacobi
-within one; it ignores the colors.
+* Jacobi family: ``jacobi``, ``jacobi_indexed``, ``cf_jacobi``,
+  ``fc_jacobi``; each iteration is one product ``A x`` (K1 on a DIA, K3
+  on a SELL) and vector updates.
+* Multicolor Gauss-Seidel / SOR: nodes are grouped into independent sets
+  by a graph coloring at setup, and each color is updated at once: exact
+  Gauss-Seidel with respect to the colored ordering.  On a DIA operator
+  a sweep is kernel K2 (``ops/dia_kernels.dia_gs_sweep``) with its
+  ``omega``; a SELL operator takes the hybrid sweep K5
+  (``ops/sell_kernels.sell_gs_sweep``) instead: 1024-row tiles in order,
+  Gauss-Seidel across tiles and Jacobi within one; it ignores the colors.
+* ``polynomial`` and ``chebyshev``: Horner steps over products.
+* Normal-equation smoothers ``jacobi_ne``, ``gauss_seidel_ne``,
+  ``gauss_seidel_nr``: products with A and with A^H (an ELL built at
+  setup, ``ne_params``).
+
+Host (numpy) operands are the setup phase (candidate improvement);
+tensor operands are the solve phase.  No function here reads a tensor
+on the host: loop bounds are Python integers and every scalar stays on
+the device.
 """
 
 from __future__ import annotations
@@ -16,10 +27,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyamg_tpu_torch.sparse.matrix import DIA, ELL
-from pyamg_tpu_torch.sparse.sell import SELL
+from pyamg_tpu_torch.sparse.matrix import DIA, ELL, from_scipy, to_scipy
+from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
 from pyamg_tpu_torch.ops.spmv import extract_diagonal, matvec
 from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
+
+
+def _bcast(v, x):
+    """A per-node vector broadcast over the columns of a 2-D x."""
+    return v[:, None] if x.ndim == 2 else v
+
+
+def _host(*vs):
+    """Whether every operand is a host (numpy) array."""
+    return not any(isinstance(v, torch.Tensor) for v in vs)
+
+
+def _where(host):
+    return np.where if host else torch.where
 
 
 def dinv_vec(A):
@@ -29,6 +54,72 @@ def dinv_vec(A):
         return torch.where(d != 0, 1.0 / torch.where(d == 0, 1, d), 0.0)
     return np.where(d != 0, 1.0 / np.where(d == 0, 1, d), 0.0)
 
+
+# -- Jacobi family -------------------------------------------------------------
+
+def jacobi(A, x, b, iterations=1, omega=1.0, Dinv=None):
+    """Damped Jacobi: x <- x + omega * D^-1 (b - A x), ``iterations``
+    times."""
+    Dinv = dinv_vec(A) if Dinv is None else Dinv
+    if _host(x, b, Dinv):
+        x, b, Dinv = np.asarray(x), np.asarray(b), np.asarray(Dinv)
+    Dinv = _bcast(Dinv, x)
+    for _ in range(iterations):
+        x = x + omega * Dinv * (b - matvec(A, x))
+    return x
+
+
+def _index_mask(indices, n, like):
+    """A bool (n,) mask of ``indices`` (a bool mask or an index array),
+    as a numpy array or on ``like``'s device."""
+    if isinstance(like, torch.Tensor):
+        idx = torch.as_tensor(indices, device=like.device)
+        if idx.dtype == torch.bool:
+            return idx
+        return torch.zeros(n, dtype=torch.bool, device=like.device) \
+            .index_fill_(0, idx.long(), True)
+    idx = np.asarray(indices)
+    if idx.dtype == bool:
+        return idx
+    mask = np.zeros(n, bool)
+    mask[idx] = True
+    return mask
+
+
+def jacobi_indexed(A, x, b, indices, iterations=1, omega=1.0, Dinv=None):
+    """Jacobi on the rows of ``indices`` (an index array or a bool mask of
+    length n); the other rows keep their values."""
+    host = _host(x, b)
+    Dinv = dinv_vec(A) if Dinv is None else Dinv
+    if host:
+        x, b, Dinv = np.asarray(x), np.asarray(b), np.asarray(Dinv)
+    mask = _bcast(_index_mask(indices, A.shape[0], x), x)
+    Dinv = _bcast(Dinv, x)
+    where = _where(host)
+    for _ in range(iterations):
+        x = where(mask, x + omega * Dinv * (b - matvec(A, x)), x)
+    return x
+
+
+def cf_jacobi(A, x, b, Cpts, Fpts, iterations=1, f_iterations=1,
+              c_iterations=1, omega=1.0, Dinv=None):
+    """CF-Jacobi: relax the C points, then the F points."""
+    for _ in range(iterations):
+        x = jacobi_indexed(A, x, b, Cpts, c_iterations, omega, Dinv)
+        x = jacobi_indexed(A, x, b, Fpts, f_iterations, omega, Dinv)
+    return x
+
+
+def fc_jacobi(A, x, b, Cpts, Fpts, iterations=1, f_iterations=1,
+              c_iterations=1, omega=1.0, Dinv=None):
+    """FC-Jacobi: relax the F points, then the C points."""
+    for _ in range(iterations):
+        x = jacobi_indexed(A, x, b, Fpts, f_iterations, omega, Dinv)
+        x = jacobi_indexed(A, x, b, Cpts, c_iterations, omega, Dinv)
+    return x
+
+
+# -- multicolor Gauss-Seidel / SOR ---------------------------------------------
 
 def make_coloring(A: ELL):
     """(colors int32 (n,), ncolors) of the graph of a host ELL: the
@@ -81,18 +172,167 @@ def gauss_seidel(A, x, b, iterations=1, sweep="forward", colors=None,
         colors, ncolors = make_coloring(A)
     order = gs_order(ncolors, sweep, iterations, omega)
     Dinv = dinv_vec(A) if Dinv is None else Dinv
+    return _color_passes(A, x, b, Dinv, colors, order, omega)
+
+
+def _color_passes(A, x, b, Dinv, colors, order, omega):
+    """The color passes ``order``: K2 on a DIA tensor, else a loop of
+    products and masked updates."""
     if isinstance(A, DIA) and isinstance(x, torch.Tensor):
         return dia_kernels.dia_gs_sweep(A.data, A.offsets, A.shape[0], x, b,
                                         Dinv, colors, order, omega)
-    if isinstance(x, torch.Tensor):
-        where = torch.where
-    else:
+    host = _host(x)
+    if host:
         x, b = np.asarray(x), np.asarray(b)
         Dinv, colors = np.asarray(Dinv), np.asarray(colors)
-        where = np.where
-    Dinvb = Dinv[:, None] if x.ndim == 2 else Dinv
+    where = _where(host)
+    Dinvb = _bcast(Dinv, x)
     for c in order:
         upd = x + omega * Dinvb * (b - matvec(A, x))
-        m = colors == c
-        x = where(m[:, None] if x.ndim == 2 else m, upd, x)
+        x = where(_bcast(colors == c, x), upd, x)
+    return x
+
+
+def sor(A, x, b, omega, iterations=1, sweep="forward", colors=None,
+        ncolors=None, Dinv=None):
+    """SOR: multicolor Gauss-Seidel weighted by ``omega``."""
+    return gauss_seidel(A, x, b, iterations=iterations, sweep=sweep,
+                        colors=colors, ncolors=ncolors, Dinv=Dinv,
+                        omega=omega)
+
+
+def gauss_seidel_indexed(A, x, b, indices, iterations=1, sweep="forward",
+                         colors=None, ncolors=None, Dinv=None):
+    """Multicolor Gauss-Seidel on the rows of ``indices`` (an index array
+    or a bool mask): the colors in order (reversed for 'backward'; any
+    other sweep runs forward, as the reference does), ``iterations``
+    times, no pass dropped.  On a DIA tensor the rows outside
+    ``indices`` get color -1, which no pass updates, and the sweep is
+    K2."""
+    if colors is None:
+        colors, ncolors = make_coloring(A)
+    order = list(range(int(ncolors)))
+    if sweep == "backward":
+        order = order[::-1]
+    Dinv = dinv_vec(A) if Dinv is None else Dinv
+    if isinstance(x, torch.Tensor):
+        colors = torch.as_tensor(colors, device=x.device)
+    mask = _index_mask(indices, A.shape[0], colors)
+    colors = _where(_host(colors))(mask, colors, -1)
+    return _color_passes(A, x, b, Dinv, colors, order * int(iterations), 1.0)
+
+
+# -- polynomial smoothers ------------------------------------------------------
+
+def polynomial(A, x, b, coefficients, iterations=1):
+    """x <- x + p(A) (b - A x), p's ``coefficients`` highest degree first,
+    by Horner's rule."""
+    coefficients = [float(c) for c in np.asarray(coefficients)]
+    for _ in range(iterations):
+        residual = b - matvec(A, x)
+        h = coefficients[0] * residual
+        for c in coefficients[1:]:
+            h = c * residual + matvec(A, h)
+        x = x + h
+    return x
+
+
+def chebyshev(A, x, b, rho=None, lower_fraction=1.0 / 30.0, degree=3,
+              iterations=1, coefficients=None):
+    """Chebyshev smoothing over [rho * lower_fraction, 1.1 rho]; ``rho``
+    (host operators only) defaults to an estimate of the spectral radius
+    of A."""
+    if coefficients is None:
+        from pyamg_tpu_torch.util.linalg import approximate_spectral_radius
+        from pyamg_tpu_torch.relaxation.chebyshev import (
+            chebyshev_polynomial_coefficients)
+        if rho is None:
+            rho = approximate_spectral_radius(A)
+        coefficients = -chebyshev_polynomial_coefficients(
+            rho * lower_fraction, 1.1 * rho, degree)[:-1]
+    return polynomial(A, x, b, coefficients, iterations)
+
+
+# -- normal-equation smoothers -------------------------------------------------
+
+def _host_scipy(A):
+    """A host operator (ELL, DIA or SELL) as scipy CSR."""
+    return sell_to_scipy(A) if isinstance(A, SELL) else to_scipy(A)
+
+
+def _inv_or_zero(v):
+    return np.where(v != 0, 1.0 / np.where(v == 0, 1, v), 0.0).astype(v.dtype)
+
+
+def ne_params(A):
+    """What the normal-equation smoothers need of a host operator A:
+    ``AH``, the host ELL of A^H, and the inverse squared norms of A's
+    rows (``Dinv_rows``, of A A^H's diagonal) and columns (``Dinv_cols``,
+    of A^H A's), 0 where a norm is 0."""
+    S = _host_scipy(A).tocsr()
+    sq = np.abs(S.data) ** 2
+    rows = np.bincount(np.repeat(np.arange(S.shape[0]), np.diff(S.indptr)),
+                       weights=sq, minlength=S.shape[0])
+    cols = np.bincount(S.indices, weights=sq, minlength=S.shape[1])
+    dt = np.abs(S.data[:0]).dtype
+    return {"AH": from_scipy(S.conj().T.tocsr()),
+            "Dinv_rows": _inv_or_zero(rows.astype(dt)),
+            "Dinv_cols": _inv_or_zero(cols.astype(dt))}
+
+
+def _ne(A, AH, Dinv, key):
+    if AH is None or Dinv is None:
+        p = ne_params(A)
+        AH = p["AH"] if AH is None else AH
+        Dinv = p[key] if Dinv is None else Dinv
+    return AH, Dinv
+
+
+def jacobi_ne(A, x, b, iterations=1, omega=1.0, AH=None, Dinv=None):
+    """Jacobi on the normal equations A A^H y = b, x = A^H y:
+    x <- x + omega * A^H D^-1 (b - A x), D = diag(A A^H) (the squared row
+    norms).  ``AH`` and ``Dinv`` default to ``ne_params(A)``'s."""
+    AH, Dinv = _ne(A, AH, Dinv, "Dinv_rows")
+    for _ in range(iterations):
+        x = x + omega * matvec(AH, Dinv * (b - matvec(A, x)))
+    return x
+
+
+def gauss_seidel_ne(A, x, b, iterations=1, sweep="forward", omega=1.0,
+                    colors=None, ncolors=None, AH=None, Dinv=None):
+    """Multicolor Kaczmarz (Gauss-Seidel on A A^H y = b): per color c of
+    A's rows, x += A^H (omega D^-1 (b - A x) on the rows of c)."""
+    if colors is None:
+        colors, ncolors = make_coloring(A)
+    AH, Dinv = _ne(A, AH, Dinv, "Dinv_rows")
+    order = list(range(int(ncolors)))
+    if sweep == "backward":
+        order = order[::-1]
+    where = _where(_host(x))
+    for _ in range(iterations):
+        for c in order:
+            r = b - matvec(A, x)
+            x = x + matvec(AH, where(colors == c, omega * Dinv * r, 0.0))
+    return x
+
+
+def gauss_seidel_nr(A, x, b, iterations=1, sweep="forward", omega=1.0,
+                    colors=None, ncolors=None, AH=None, Dinv=None):
+    """Multicolor Gauss-Seidel on A^H A x = A^H b: per color c,
+    x += omega D^-1 A^H (b - A x) on the unknowns of c, D = diag(A^H A)
+    (the squared column norms).  With fewer colors than unknowns (a
+    rectangular A) every unknown is updated, as in the reference."""
+    if colors is None:
+        colors, ncolors = make_coloring(A)
+    AH, Dinv = _ne(A, AH, Dinv, "Dinv_cols")
+    m = A.shape[1]
+    order = list(range(int(ncolors)))
+    if sweep == "backward":
+        order = order[::-1]
+    where = _where(_host(x))
+    for _ in range(iterations):
+        for c in order:
+            g = matvec(AH, b - matvec(A, x))
+            on = colors[:m] == c if colors.shape[0] >= m else True
+            x = x + where(on, omega * Dinv * g, 0.0)
     return x
