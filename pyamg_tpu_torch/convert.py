@@ -11,7 +11,7 @@ without the port's setup phase.  ``spec``::
          "pre":  <smoother>, "post": <smoother>},
         ...,
         {"A": <operator>}],
-     "coarse": <coarse solver>,       # or "coarse_op": (nc, nc), a pinv
+     "coarse": <coarse solver>,
      "ds": {"kind": "dia", "data_hi", "data_lo", "offsets", "n"}}  # optional
 
 A smoother is ``{"kind", "opts", <params>}``: the descriptor
@@ -34,13 +34,12 @@ options under ``"opts"`` and its arrays and scalars beside them:
 
 The normal-equation kinds get their A^H and row or column norms from the
 level's A here (``relaxation.ne_params``) when the producer does not give
-``AH`` and ``Dinv``.  A coarse solver is ``{"kind", <params>}``:
+``AH`` and ``Dinv``.  A coarse solver is ``{"kind", <factors>}``, the
+factors of ``CoarseSolver.from_factors``:
 
     pinv, pinv2      op (nc, nc)
     lu, splu         lu (nc, nc), piv (nc,): scipy's ``lu_factor``
-                     (0-based row interchanges, made a row order here)
-    cholesky         c (nc, nc) of ``cho_factor`` (either triangle may
-                     hold leftovers), lower bool
+    cholesky         c (nc, nc), lower: scipy's ``cho_factor``
     jacobi, gauss_seidel, block_jacobi, block_gauss_seidel, none
                      smoother <smoother>
     cg, gmres        maxiter
@@ -68,11 +67,9 @@ import numpy as np
 
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil
 from pyamg_tpu_torch.sparse.sell import SELL
-from pyamg_tpu_torch.multilevel import (
-    RELAXATION_SOLVERS, CoarseSolver, Level, MultilevelSolver,
-    cholesky_triangle, row_permutation)
+from pyamg_tpu_torch.multilevel import CoarseSolver, Level, MultilevelSolver
 from pyamg_tpu_torch.relaxation.relaxation import gs_order, ne_params
-from pyamg_tpu_torch.relaxation.smoothing import _is_symmetric_pair
+from pyamg_tpu_torch.relaxation.smoothing import smoothing_is_symmetric
 
 
 def _shape(d):
@@ -127,28 +124,10 @@ def _smoother(d, A):
 
 
 def _coarse_solver(d, Ac):
-    kind = d["kind"]
-    cs = CoarseSolver(kind)
-    if callable(kind):
-        return cs
-    if kind in ("pinv", "pinv2"):
-        cs.params = {"op": np.asarray(d["op"])}
-    elif kind in ("lu", "splu"):
-        cs.params = {"lu": np.asarray(d["lu"]),
-                     "perm": row_permutation(d["piv"])}
-    elif kind == "cholesky":
-        cs.static = {"lower": bool(d["lower"])}
-        cs.params = {"c": cholesky_triangle(np.asarray(d["c"]),
-                                            d["lower"])}
-    elif kind in RELAXATION_SOLVERS:
-        skind, sopts, sparams = _smoother(d["smoother"], Ac)
-        cs.static = {"smoother": (skind, sopts)}
-        cs.params = {"smoother": sparams}
-    elif kind in ("cg", "gmres"):
-        cs.static = {"maxiter": int(d["maxiter"])}
-    else:
-        raise ValueError(f"unknown coarse solver {kind!r}")
-    return cs
+    factors = {k: v for k, v in d.items() if k != "kind"}
+    if "smoother" in factors:
+        factors["smoother"] = _smoother(factors["smoother"], Ac)
+    return CoarseSolver.from_factors(d["kind"], factors)
 
 
 def hierarchy_from_arrays(spec, device="cuda") -> MultilevelSolver:
@@ -161,10 +140,9 @@ def hierarchy_from_arrays(spec, device="cuda") -> MultilevelSolver:
             lvl.pre = _smoother(d["pre"], lvl.A)
             lvl.post = _smoother(d["post"], lvl.A)
         levels.append(lvl)
-    coarse = spec.get("coarse") or {"kind": "pinv", "op": spec["coarse_op"]}
-    ml = MultilevelSolver(levels, _coarse_solver(coarse, levels[-1].A))
-    ml.symmetric_smoothing = all(_is_symmetric_pair(l.pre, l.post)
-                                 for l in levels[:-1])
+    ml = MultilevelSolver(levels, _coarse_solver(spec["coarse"],
+                                                 levels[-1].A))
+    ml.symmetric_smoothing = smoothing_is_symmetric(levels)
     if "ds" in spec:
         ml._ds_op = dict(spec["ds"])
         ml._ds_op["offsets"] = tuple(int(o) for o in ml._ds_op["offsets"])

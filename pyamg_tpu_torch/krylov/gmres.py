@@ -18,6 +18,8 @@ tolerance) and once for the final ``info``.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from pyamg_tpu_torch.krylov.common import (as_precond, finalize, norm,
@@ -58,6 +60,25 @@ def _rotate(col, G, j):
         col[i + 1] = -_conj(s) * hi + c * hi1
 
 
+def _rotate_and_estimate(col, w, j):
+    """Rotate the Hessenberg column ``col`` (length R + 1) by the earlier
+    rotations, make the j-th one zeroing ``col[j + 1]``, carry it into the
+    least-squares right-hand side and record the new residual estimate:
+    (estimate, the rotated ``col[j]``)."""
+    G, g = w.G, w.g
+    _rotate(col, G, j)
+    c, s, rr = _givens(col[j], col[j + 1])
+    col[j], col[j + 1] = rr, 0.0
+    G[j, 0], G[j, 1] = c, s
+    gj = g[j].clone()
+    g[j] = c * gj
+    g[j + 1] = -_conj(s) * gj
+    w.H[:, j] = col[:w.H.shape[0]]
+    normr = torch.abs(g[j + 1])
+    w.cycres[j] = normr
+    return normr, rr
+
+
 class _Work:
     """The buffers of one GMRES call: the basis (and the preconditioned
     directions for FGMRES), the Hessenberg matrix, the rotations, the
@@ -78,17 +99,18 @@ class _Work:
             t.zero_()
 
 
-def _cycle(mv, Mv, b, x, R, rtol, flexible, orthog, w, check_start):
-    """One restart cycle: (x, |estimate|, steps, converged)."""
+def _cycle(mv, Mv, b, R, w, flexible, orthog, x, rtol, check_start):
+    """One restart cycle from x: (x, steps, converged), the estimates in
+    ``w.cycres``."""
     r0 = b - mv(x)
     r = r0 if flexible else Mv(r0)
     beta = norm(r)
     w.reset()
-    V, Z, H, G, g = w.V, w.Z, w.H, w.G, w.g
+    V, Z, H, g = w.V, w.Z, w.H, w.g
     V[0] = torch.where(beta > 0, r / torch.where(beta == 0, 1, beta), 0.0)
     g[0] = beta
     if check_start and bool(beta < rtol):
-        return x, beta, 0, True
+        return x, 0, True
     stall = torch.zeros((), dtype=torch.int32, device=b.device)
     j, conv = 0, False
     while j < R:
@@ -114,16 +136,7 @@ def _cycle(mv, Mv, b, x, R, rtol, flexible, orthog, w, check_start):
         col[j + 1] = unorm
         V[j + 1] = torch.where(unorm > TINY,
                                u / torch.where(unorm == 0, 1, unorm), 0.0)
-        _rotate(col, G, j)
-        c, s, rr = _givens(col[j], col[j + 1])
-        col[j], col[j + 1] = rr, 0.0
-        G[j, 0], G[j, 1] = c, s
-        gj = g[j].clone()
-        g[j] = c * gj
-        g[j + 1] = -_conj(s) * gj
-        H[:, j] = col
-        normr = torch.abs(g[j + 1])
-        w.cycres[j] = normr
+        normr, _ = _rotate_and_estimate(col, w, j)
         # the estimate does not rise: no real drop over 4 steps is the
         # rounding floor
         prev = w.cycres[j - 1] if j > 0 else beta
@@ -134,7 +147,31 @@ def _cycle(mv, Mv, b, x, R, rtol, flexible, orthog, w, check_start):
         if done:
             break
     y = torch.linalg.solve_triangular(H[:j, :j], g[:j, None], upper=True)
-    return x + Z[:j].T @ y[:, 0], torch.abs(g[j]), j, conv
+    return x + Z[:j].T @ y[:, 0], j, conv
+
+
+def _restarted(cycle, w, mv, pres, x, b, tol, R, max_outer, callback):
+    """The restart loop around ``cycle(x, rtol, check_start)`` (one
+    restart cycle on the work ``w``); ``pres`` maps a residual to the
+    one the tolerance is on.  Returns ``(x, info, resbuf, nres)``."""
+    normMb = norm(pres(b))
+    rtol = tol * torch.where(normMb == 0, 1.0, normMb)
+    npr0 = norm(pres(b - mv(x)))
+    resbuf = torch.zeros((max_outer * R + 1,), dtype=real_dtype(b.dtype),
+                         device=b.device)
+    resbuf[0] = npr0
+    it, nres, outer = 0, 1, 0
+    done = bool(npr0 < rtol)
+    while not done and outer < max_outer:
+        x, j, conv = cycle(x, rtol, outer > 0)
+        resbuf[nres:nres + j] = w.cycres[:j]
+        it, nres, outer = it + j, nres + j, outer + 1
+        if callback is not None:
+            callback(x)
+        done = conv or j == 0
+    final = norm(pres(b - mv(x)))
+    info = torch.where(final < rtol, 0, it).to(torch.int32)
+    return x, info, resbuf, nres
 
 
 def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
@@ -147,27 +184,10 @@ def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
     ``callback(x)`` is called after every cycle."""
     if orthog not in ("cgs2", "mgs"):
         raise ValueError(f"unknown orthog {orthog!r}")
-    rdt = real_dtype(b.dtype)
-    pres = (lambda r: r) if flexible else Mv
-    normMb = norm(pres(b))
-    rtol = tol * torch.where(normMb == 0, 1.0, normMb)
-    npr0 = norm(pres(b - mv(x)))
-    resbuf = torch.zeros((max_outer * R + 1,), dtype=rdt, device=b.device)
-    resbuf[0] = npr0
     w = _Work(R, b, flexible)
-    it, nres, outer = 0, 1, 0
-    done = bool(npr0 < rtol)
-    while not done and outer < max_outer:
-        x, _, j, conv = _cycle(mv, Mv, b, x, R, rtol, flexible, orthog, w,
-                               outer > 0)
-        resbuf[nres:nres + j] = w.cycres[:j]
-        it, nres, outer = it + j, nres + j, outer + 1
-        if callback is not None:
-            callback(x)
-        done = conv or j == 0
-    final = norm(pres(b - mv(x)))
-    info = torch.where(final < rtol, 0, it).to(torch.int32)
-    return x, info, resbuf, nres
+    return _restarted(partial(_cycle, mv, Mv, b, R, w, flexible, orthog), w,
+                      mv, (lambda r: r) if flexible else Mv, x, b, tol, R,
+                      max_outer, callback)
 
 
 def _msign(v):
@@ -183,11 +203,12 @@ def _reflect(v, W, ks):
     return v
 
 
-def _householder_cycle(mv, Mv, b, x, R, rtol, w, check_start):
-    """One restart cycle of Householder GMRES: the basis held as a chain
-    of reflectors, the update mapped back by Horner's scheme."""
+def _householder_cycle(mv, Mv, b, R, w, x, rtol, check_start):
+    """One restart cycle of Householder GMRES (the contract of
+    ``_cycle``): the basis held as a chain of reflectors, the update
+    mapped back by Horner's scheme."""
     n = b.shape[0]
-    W, H, G, g = w.V, w.H, w.G, w.g
+    W, H, g = w.V, w.H, w.g
     w.reset()
     r = Mv(b - mv(x))
     normr0 = norm(r)
@@ -198,7 +219,7 @@ def _householder_cycle(mv, Mv, b, x, R, rtol, w, check_start):
     W[0] = torch.where(w0n > TINY, w0 / torch.where(w0n == 0, 1, w0n), 0.0)
     g[0] = -beta
     if check_start and bool(normr0 < rtol):
-        return x, normr0, 0, True
+        return x, 0, True
     j, conv = 0, False
     while j < R:
         v = (-2.0 * _conj(W[j][j])) * W[j]
@@ -215,23 +236,12 @@ def _householder_cycle(mv, Mv, b, x, R, rtol, w, check_start):
         un = norm(u)
         W[j + 1] = torch.where(un > TINY, u / torch.where(un == 0, 1, un),
                                0.0)
+        # the column: v[:j + 1], then -alpha (0 past the last row)
+        col = torch.zeros((R + 1,), dtype=b.dtype, device=b.device)
+        col[:j + 1] = v[:j + 1]
         if j + 1 < n:
-            v[j + 1] = -alpha
-            v[j + 2:] = 0.0
-        _rotate(v, G, j)
-        vj1 = v[j + 1] if j + 1 < n else torch.zeros((), dtype=v.dtype,
-                                                     device=v.device)
-        c, s, rr = _givens(v[j], vj1)
-        v[j] = rr
-        if j + 1 < n:
-            v[j + 1] = 0.0
-        G[j, 0], G[j, 1] = c, s
-        gj = g[j].clone()
-        g[j] = c * gj
-        g[j + 1] = -_conj(s) * gj
-        H[:, j] = v[:R]
-        normr = torch.abs(g[j + 1])
-        w.cycres[j] = normr
+            col[j + 1] = -alpha
+        normr, rr = _rotate_and_estimate(col, w, j)
         hit = normr < rtol
         j += 1
         conv, done = _read_flags(
@@ -246,30 +256,14 @@ def _householder_cycle(mv, Mv, b, x, R, rtol, w, check_start):
     for k in range(j - 1, -1, -1):
         u[k] += y[k]
         u = u - 2.0 * torch.vdot(W[k], u) * W[k]
-    return x + u, torch.abs(g[j]), j, conv
+    return x + u, j, conv
 
 
 def householder_loop(mv, Mv, x, b, tol, R, max_outer, callback=None):
     """Restarted Householder GMRES: the contract of ``gmres_loop``."""
-    rdt = real_dtype(b.dtype)
-    normMb = norm(Mv(b))
-    rtol = tol * torch.where(normMb == 0, 1.0, normMb)
-    npr0 = norm(Mv(b - mv(x)))
-    resbuf = torch.zeros((max_outer * R + 1,), dtype=rdt, device=b.device)
-    resbuf[0] = npr0
     w = _Work(R, b, False, householder=True)
-    it, nres, outer = 0, 1, 0
-    done = bool(npr0 < rtol)
-    while not done and outer < max_outer:
-        x, _, j, conv = _householder_cycle(mv, Mv, b, x, R, rtol, w,
-                                           outer > 0)
-        resbuf[nres:nres + j] = w.cycres[:j]
-        it, nres, outer = it + j, nres + j, outer + 1
-        if callback is not None:
-            callback(x)
-        done = conv or j == 0
-    info = torch.where(norm(Mv(b - mv(x))) < rtol, 0, it).to(torch.int32)
-    return x, info, resbuf, nres
+    return _restarted(partial(_householder_cycle, mv, Mv, b, R, w), w, mv,
+                      Mv, x, b, tol, R, max_outer, callback)
 
 
 def _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback, residuals,

@@ -112,36 +112,68 @@ class CoarseSolver:
         self.params = {}
         self.static = {}
 
+    @classmethod
+    def from_factors(cls, kind, factors, opts=None):
+        """A solver of ``kind`` from the host factors that ``factor``
+        returns (or a producer hands over): ``op`` for pinv, ``lu`` and
+        scipy's ``piv`` for LU, ``c`` and ``lower`` of ``cho_factor``, a
+        smoother descriptor ``smoother`` for the relaxation kinds,
+        ``maxiter`` for cg/gmres, nothing for a callable."""
+        cs = cls(kind, opts)
+        cs._take(factors)
+        return cs
+
     def setup(self, A):
+        self._take(self.factor(A))
+
+    def factor(self, A):
+        """The host factors of the coarsest operator A for this kind."""
         kind = self.kind
         if callable(kind):
-            self.params = {}
-            return
+            return {}
         if kind in ("pinv", "pinv2"):
-            self.params = {"op": np.linalg.pinv(to_scipy(A).toarray())}
-        elif kind in ("lu", "splu"):
+            return {"op": np.linalg.pinv(to_scipy(A).toarray())}
+        if kind in ("lu", "splu"):
             import scipy.linalg
             lu, piv = scipy.linalg.lu_factor(to_scipy(A).toarray())
-            self.params = {"lu": lu, "perm": row_permutation(piv)}
-        elif kind == "cholesky":
+            return {"lu": lu, "piv": piv}
+        if kind == "cholesky":
             import scipy.linalg
             c, lower = scipy.linalg.cho_factor(to_scipy(A).toarray())
-            self.static = {"lower": bool(lower)}
-            self.params = {"c": cholesky_triangle(c, lower)}
-        elif kind in RELAXATION_SOLVERS:
+            return {"c": c, "lower": lower}
+        if kind in RELAXATION_SOLVERS:
             from pyamg_tpu_torch.relaxation.smoothing import make_smoother
             opts = dict(self.opts)
             it = opts.pop("iterations", 10)
-            skind, sopts, sparams = make_smoother(
-                None, A, (kind, {"iterations": it, **opts}))
+            return {"smoother": make_smoother(
+                None, A, (kind, {"iterations": it, **opts}))}
+        if kind in ("cg", "gmres"):
+            return {"maxiter": int(self.opts.get("maxiter", 30))}
+        if kind == "schwarz":
+            raise NotImplementedError("a Schwarz coarse solve is not "
+                                      "ported yet")
+        raise ValueError(f"unknown coarse solver {kind!r}")
+
+    def _take(self, f):
+        """Lay the factors out as the call reads them: ``params`` (arrays
+        that ``to_device`` moves) and ``static`` (Python values)."""
+        kind = self.kind
+        self.params, self.static = {}, {}
+        if callable(kind):
+            return
+        if kind in ("pinv", "pinv2"):
+            self.params = {"op": f["op"]}
+        elif kind in ("lu", "splu"):
+            self.params = {"lu": f["lu"], "perm": row_permutation(f["piv"])}
+        elif kind == "cholesky":
+            self.static = {"lower": bool(f["lower"])}
+            self.params = {"c": cholesky_triangle(f["c"], f["lower"])}
+        elif kind in RELAXATION_SOLVERS:
+            skind, sopts, sparams = f["smoother"]
             self.static = {"smoother": (skind, sopts)}
             self.params = {"smoother": sparams}
         elif kind in ("cg", "gmres"):
-            self.static = {"maxiter": int(self.opts.get("maxiter", 30))}
-            self.params = {}
-        elif kind == "schwarz":
-            raise NotImplementedError("a Schwarz coarse solve is not "
-                                      "ported yet")
+            self.static = {"maxiter": int(f["maxiter"])}
         else:
             raise ValueError(f"unknown coarse solver {kind!r}")
 
@@ -194,6 +226,7 @@ def row_permutation(piv):
 def cholesky_triangle(c, lower):
     """The factor's triangle of ``cho_factor``'s ``c``, whose other
     triangle scipy leaves as it found it."""
+    c = np.asarray(c)
     return np.tril(c) if lower else np.triu(c)
 
 
@@ -393,9 +426,7 @@ class MultilevelSolver:
         self._collapsed_levels = self.levels[k:]
         self.levels = self.levels[:k + 1]
         self.levels[k] = Level(Ak)
-        cs = CoarseSolver("pinv")
-        cs.params = {"op": op}
-        self.coarse_solver = cs
+        self.coarse_solver = CoarseSolver.from_factors("pinv", {"op": op})
         return self
 
     def enable_ds_refinement(self, A_fine64=None, device="cuda"):

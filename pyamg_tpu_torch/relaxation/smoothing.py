@@ -271,6 +271,12 @@ def _is_symmetric_pair(pre, post):
     return False
 
 
+def smoothing_is_symmetric(levels):
+    """Whether every level but the coarsest has a symmetric (pre, post)
+    pair: the value of ``MultilevelSolver.symmetric_smoothing``."""
+    return all(_is_symmetric_pair(l.pre, l.post) for l in levels[:-1])
+
+
 def change_smoothers(ml, presmoother, postsmoother):
     """Attach smoother descriptors to every level but the coarsest, keep
     each level's specs in ``smoother_specs``, and set
@@ -289,8 +295,7 @@ def change_smoothers(ml, presmoother, postsmoother):
         lvl.pre = make_smoother(lvl, lvl.A, pre)
         lvl.post = make_smoother(lvl, lvl.A, post)
         lvl.smoother_specs = (pre, post)
-    ml.symmetric_smoothing = all(_is_symmetric_pair(l.pre, l.post)
-                                 for l in ml.levels[:-1])
+    ml.symmetric_smoothing = smoothing_is_symmetric(ml.levels)
 
 
 def apply_smoother(kind, sopts, params, A, x, b):

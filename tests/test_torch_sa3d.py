@@ -197,7 +197,8 @@ def _spec(ml, orders):
                      post=smoother(lvl.post, post))
         levels.append(d)
     return {"levels": levels,
-            "coarse_op": np.asarray(ml.coarse_solver.params["op"])}
+            "coarse": {"kind": "pinv",
+                       "op": np.asarray(ml.coarse_solver.params["op"])}}
 
 
 @pytest.fixture(scope="module")

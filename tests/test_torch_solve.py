@@ -209,7 +209,8 @@ def _spec(ml, orders):
                      post=smoother(lvl.post, orders[i][1]))
         levels.append(d)
     return {"levels": levels,
-            "coarse_op": np.asarray(ml.coarse_solver.params["op"]),
+            "coarse": {"kind": "pinv",
+                       "op": np.asarray(ml.coarse_solver.params["op"])},
             "ds": {k: (np.asarray(v) if hasattr(v, "shape") else v)
                    for k, v in ml._ds_op.items()}}
 
