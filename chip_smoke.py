@@ -53,6 +53,20 @@ Phases, each printed on its own lines:
    input read once and each output written once: for a SELL operator its
    stored non-zeros (value and column), not the padded slots of its plan.
 
+6. solvers: S1-S6, the rest of the solve phase, against the JAX
+   package's iteration counts (``solver_paths``, ``solvers_phase``);
+7. classical: Ruge-Stuben on 2-D Poisson 500^2 and AIR-preconditioned
+   GMRES on 2-D advection 256^2, built as ``bench_suite.py`` builds them:
+   setup time by key, levels, operator complexity, layouts and SELL plans
+   against the JAX package's (JAX_CLASSICAL); K1 on every DIA level the
+   cycle multiplies by, K2 (each level's own sweep) on RS's DIA levels, K3
+   on every SELL operator (and on inf/NaN at RS P0, R0 and AIR R0) and K5
+   forward and backward on RS A3 and A4, each to 0 against its plain
+   version; each solve driven with the counts reset around it (iterations
+   within 1 of the JAX package's, true relative residual below 1e-10, the
+   kernels launched per operator), warm and profiled; small solves on the
+   card against the CPU; and time rows for the busiest new operators.
+
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
 non-zero before printing a result.
@@ -90,6 +104,49 @@ JAX_SOLVERS = {"S1": 5, "S2": 7, "S3": 10, "S4": 16, "S5": 4,
 # stops on the preconditioned residual, so S1's true one is held to twice
 # the JAX package's, not to tol
 JAX_S1_TRUE_RELRES = 4.6727206771483163e-05
+# the JAX package's classical paths (JAX_PLATFORMS=cpu PYTHONPATH=.:tests
+# python tests/jax_classical_reference.py; CPU, SELL kernels in interpret
+# mode): rows of the levels, operator complexity, each level's (A, P, R)
+# layout, the diagonals of each DIA level, each SELL operator's (kind, t,
+# passes, Sy), outer and inner iterations and the true relative residual.
+# The port's hierarchy must equal it, its inner iterations within 1
+JAX_CLASSICAL = {
+    "RS": {"rows": [250000, 125000, 31371, 7874, 1985, 509, 120, 29, 8],
+           "operator_complexity": 2.19875,
+           "layouts": [("DIA", "SELL", "SELL")] * 3 +
+           [("SELL", "SELL", "SELL")] * 2 + [("DIA", "SELL", "SELL")] * 3 +
+           [("DIA", "NoneType", "NoneType")],
+           "dia": {"A0": 5, "A1": 11, "A2": 23, "A5": 25, "A6": 29,
+                   "A7": 25, "A8": 11},
+           "plans": {"P0": ("tall", 2, 5, 1960), "R0": ("fat", 2, 7, 984),
+                     "P1": ("tall", 4, 4, 984), "R1": ("fat", 4, 9, 248),
+                     "P2": ("tall", 4, 4, 248), "R2": ("fat", 4, 14, 64),
+                     "A3": ("tall", 1, 14, 64), "P3": ("tall", 4, 4, 64),
+                     "R3": ("fat", 4, 10, 16), "A4": ("tall", 1, 13, 16),
+                     "P4": ("tall", 4, 4, 16), "R4": ("fat", 4, 9, 8),
+                     "P5": ("tall", 4, 4, 8), "R5": ("fat", 4, 9, 8),
+                     "P6": ("tall", 4, 4, 8), "R6": ("fat", 4, 10, 8),
+                     "P7": ("tall", 4, 4, 8), "R7": ("fat", 4, 9, 8)},
+           "outer": 2, "inner": (4, 4),
+           "true_relres": 4.581865208238907e-11},
+    "AIR": {"rows": [65025, 23718, 7917, 2317, 895, 17],
+            "operator_complexity": 1.9621154883971936,
+            "layouts": [("DIA", "SELL", "SELL")] +
+            [("SELL", "SELL", "SELL")] * 4 +
+            [("DIA", "NoneType", "NoneType")],
+            "dia": {"A0": 3, "A5": 1},
+            "plans": {"P0": ("tall", 3, 3, 576), "R0": ("fat", 3, 24, 192),
+                      "A1": ("tall", 1, 7, 192), "P1": ("tall", 3, 1, 192),
+                      "R1": ("fat", 3, 15, 64), "A2": ("tall", 1, 17, 64),
+                      "P2": ("tall", 3, 1, 72), "R2": ("fat", 3, 14, 24),
+                      "A3": ("tall", 1, 13, 24), "P3": ("tall", 3, 1, 24),
+                      "R3": ("fat", 3, 8, 8), "A4": ("tall", 1, 9, 8),
+                      "P4": ("tall", 53, 1, 424), "R4": ("fat", 53, 1, 8)},
+            "outer": 2, "inner": (23, 21),
+            "true_relres": 5.74217683939961e-11},
+}
+# the classical operators whose K3 case also takes an x holding inf and NaN
+CLASSICAL_NON_FINITE = {("RS", "P0"), ("RS", "R0"), ("AIR", "R0")}
 # the (omega, sweep) pairs the solvers phase adds to K2 and K5
 SOLVER_K2_PAIRS = ((1.2, "symmetric"), (1.2, "forward"), (1.2, "backward"))
 SOLVER_K5_PAIRS = ((1.2, "forward"), (1.2, "backward"))
@@ -97,6 +154,8 @@ SOLVER_K5_PAIRS = ((1.2, "forward"), (1.2, "backward"))
 # again, after a pause (an empty trace has come back whole after one)
 TRACE_TRIES = 5
 TRACE_PAUSE_S = 0.5
+# flushed calls made beyond those timed, whose trace may come back short
+FLUSH_SPARE = 5
 
 
 def check(cond, msg):
@@ -165,11 +224,13 @@ def flush_ops(flush):
 
 
 def flushed_ms(fn, flush, skip, reps=50):
-    """Device milliseconds of each of ``reps`` calls of ``fn``, each made
-    after reading through ``flush`` (a tensor larger than the card's 50 MB
-    L2), so that the call finds its inputs in device memory, not in L2.
-    The read's own operations (``skip``, from ``flush_ops``) mark the
-    calls apart and are not counted."""
+    """Device milliseconds of each of the last ``reps`` of ``reps`` +
+    FLUSH_SPARE calls of ``fn``, each made after reading through ``flush``
+    (a tensor larger than the card's 50 MB L2), so that the call finds its
+    inputs in device memory, not in L2.  The read's own operations
+    (``skip``, from ``flush_ops``) mark the calls apart and are not
+    counted.  A trace has come back without its first few calls (47 of
+    50), hence the spare calls."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -180,22 +241,26 @@ def flushed_ms(fn, flush, skip, reps=50):
         flush.sum()
         fn()
 
+    made = reps + FLUSH_SPARE
     for k in range(TRACE_TRIES):    # a trace that lost operations is taken
         if k:                       # again
             time.sleep(TRACE_PAUSE_S)
         calls, cur = [], None
-        for e in device_events(body, reps):
+        events = device_events(body, made)
+        for e in events:
             if e.name in skip:
                 if cur is not None:
                     calls.append(cur)
                 cur = None
             else:
                 cur = (cur or 0.0) + e.time_range.end - e.time_range.start
-        calls.append(cur)
+        calls = (calls + [cur])[-reps:]
         if len(calls) == reps and all(c for c in calls):
             break
+    marks = "".join("f" if e.name in skip else "k" for e in events)
     check(len(calls) == reps and all(c for c in calls),
-          f"{len(calls)} flushed calls traced, {reps} made")
+          f"{len(calls)} of the last {reps} flushed calls traced, {made} "
+          f"made (trace: {marks}, f the flush, k the call)")
     return [c / 1e3 for c in calls]
 
 
@@ -521,6 +586,302 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
         check(name != "S3" or not warned, f"{name} raised a warning")
         out[name] = launches
     return out
+
+
+def classical_paths(dev, n_rs=500, n_air=256):
+    """The ``classical:`` phase's paths, built as ``bench_suite.py`` builds
+    them (``:47-62`` and ``:141-162``), compressed and placed on ``dev``:
+    Ruge-Stuben on 2-D Poisson n_rs^2 (float32, defaults, CG, b from
+    ``default_rng(0)``) and AIR on 2-D advection n_air^2 (float32, PMIS,
+    ``filter_operator=(False, 0.1)``, GMRES, b the gallery's rhs).  Each a
+    dict: name, scipy A, ml, b, solve options, setup seconds and by key,
+    and the kernels the solve must launch (and no other)."""
+    from pyamg_tpu_torch.classical import air_solver, ruge_stuben_solver
+    from pyamg_tpu_torch.gallery import advection_2d, poisson
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    A_rs = poisson((n_rs, n_rs))
+    A_air, rhs = advection_2d((n_air, n_air))
+    specs = [
+        ("RS", A_rs, np.random.default_rng(0).standard_normal(A_rs.shape[0]),
+         ruge_stuben_solver, {"accel": "cg"},
+         ("dia_spmv", "dia_gs_sweep", "sell_spmv", "sell_gs_sweep")),
+        ("AIR", A_air, np.asarray(rhs, np.float64),
+         lambda A: air_solver(A, CF="PMIS", filter_operator=(False, 0.1)),
+         {"accel": "gmres", "inner_maxiter": 40, "max_outer": 20},
+         ("dia_spmv", "sell_spmv"))]
+    out = []
+    for name, A64, b, make, kw, must in specs:
+        t0 = time.perf_counter()
+        ml = make(A64.astype(np.float32))
+        setup = time.perf_counter() - t0
+        ml.compress_stencils()
+        ml.to_device(dev)
+        out.append({"name": name, "S": to_scipy(A64), "ml": ml, "b": b,
+                    "kw": kw, "setup_s": setup,
+                    "by_key": ml.setup_timings(), "must": must})
+    return out
+
+
+def classical_describe(ml):
+    """What ``tests/jax_classical_reference.py`` prints of a hierarchy: rows,
+    operator complexity, layouts, DIA widths and SELL plans."""
+    from pyamg_tpu_torch.sparse.matrix import DIA
+    from pyamg_tpu_torch.sparse.sell import SELL
+    dia, plans = {}, {}
+    for i, lvl in enumerate(ml.levels):
+        for attr in "APR":
+            op = getattr(lvl, attr)
+            if isinstance(op, DIA):
+                dia[f"{attr}{i}"] = len(op.offsets)
+            elif isinstance(op, SELL):
+                plans[f"{attr}{i}"] = (op.kind, op.t, op.n_passes, op.Sy)
+    return {"rows": [lvl.A.shape[0] for lvl in ml.levels],
+            "operator_complexity": ml.operator_complexity(),
+            "layouts": layout(ml), "dia": dia, "plans": plans}
+
+
+def classical_kernels(dev, path, rng, sms):
+    """Every kernel the path's solve runs, on its operators, against the
+    plain version to 0: K1 (float32) on each DIA level the cycle
+    multiplies by, K2 (the level's symmetric sweep: its colors, color
+    order and omega 1) on each DIA level, K3 on every SELL operator (and
+    on an x holding inf and NaN where CLASSICAL_NON_FINITE says), K5
+    forward and backward on each square SELL level.  Returns the inputs
+    of each case, by "K<k> <operator>", for the timing rows."""
+    import torch
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    from pyamg_tpu_torch.relaxation.relaxation import gs_order
+    from pyamg_tpu_torch.sparse.matrix import DIA
+    from pyamg_tpu_torch.sparse.sell import LANE, SELL
+    tag, ml = path["name"], path["ml"]
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n), device=dev).float()
+
+    inputs = {}
+    for i, lvl in enumerate(ml.levels[:-1]):    # the coarsest: pinv
+        D = lvl.A
+        if isinstance(D, DIA):
+            n, offs = D.shape[0], D.offsets
+            x = vec(n)
+            before = dk.dia_spmv.launches
+            y = dk.dia_spmv(D.data, offs, n, x)
+            launched = dk.dia_spmv.launches - before
+            want = dk.dia_spmv_plain(D.data, offs, n, x)
+            torch.cuda.synchronize()
+            err, _ = rel_err(y, want)
+            print(f"classical: K1 {tag} A{i} float32 n={n} ndiag={len(offs)}"
+                  f" {dk.spmv_geometry(n, 1, D.data.shape[1], 4, sms)} "
+                  f"launches {launched} max_abs_err={err:.3e}")
+            check(err == 0 and launched == 1,
+                  f"K1 {tag} A{i} disagrees with its plain version or took "
+                  f"{launched} launches")
+            inputs[f"K1 A{i}"] = (D, x, err)
+            if lvl.pre[0] == "gauss_seidel":
+                _, so, params = lvl.pre
+                order = gs_order(so["ncolors"], so["sweep"],
+                                 so["iterations"], so["omega"])
+                b = vec(n)
+                args = (D.data, offs, n, x, b, params["Dinv"],
+                        params["colors"], order, so["omega"])
+                got = dk.dia_gs_sweep(*args)
+                want = dk.dia_gs_sweep_plain(*args)
+                torch.cuda.synchronize()
+                err, _ = rel_err(got, want)
+                g = dk.gs_geometry(n, len(offs), max(abs(o) for o in offs),
+                                   4, sms)
+                print(f"classical: K2 {tag} A{i} {so['sweep']} omega="
+                      f"{so['omega']} order={order} {g} "
+                      f"max_abs_err={err:.3e}")
+                check(err == 0, f"K2 {tag} A{i} disagrees with its plain "
+                                f"version")
+                inputs[f"K2 A{i}"] = (D, x, b, params["Dinv"],
+                                      params["colors"], order, err)
+        for attr in "APR":
+            S = getattr(lvl, attr)
+            if not isinstance(S, SELL):
+                continue
+            name = f"{attr}{i}"
+            x = vec(S.shape[1])
+            y, want = sk.sell_spmv(S, x), sk.sell_spmv_plain(S, x)
+            torch.cuda.synchronize()
+            err, _ = rel_err(y, want)
+            msg = ""
+            if (tag, name) in CLASSICAL_NON_FINITE:
+                xn = non_finite(x)
+                yn, wantn = sk.sell_spmv(S, xn), sk.sell_spmv_plain(S, xn)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(wantn)
+                errn = float((yn[fin] - wantn[fin]).abs().max())
+                same = same_non_finite(yn, wantn)
+                msg = (f"; x with inf and NaN: {int((~fin).sum())} "
+                       f"non-finite, same places {same}, "
+                       f"max_abs_err={errn:.3e}")
+                check(same and errn == 0, f"K3 {tag} {name} disagrees with "
+                      f"its plain version on an x holding inf and NaN")
+            print(f"classical: K3 {tag} {name} {S.kind}/{S.t} {S.shape} "
+                  f"passes {S.n_passes} K={S.K} Sy={S.Sy} "
+                  f"{sk.spmv_geometry(S.n_passes, S.shape[0])} "
+                  f"max_abs_err={err:.3e}{msg}")
+            check(err == 0, f"K3 {tag} {name} disagrees with its plain "
+                            f"version")
+            inputs[f"K3 {name}"] = (S, getattr(lvl, attr + "_ell"), x, err)
+        if isinstance(D, SELL) and lvl.pre[0] == "gauss_seidel":
+            Dinv = lvl.pre[2]["Dinv"]
+            n = D.shape[0]
+            x, b = vec(n), vec(n)
+            print(f"classical: K5 {tag} A{i} n={n} passes {D.n_passes} "
+                  f"{sk.gs_geometry(D.n_passes, D.Sy * LANE)}")
+            for sweep in ("forward", "backward"):
+                got = sk.sell_gs_sweep(D, x, b, Dinv, 1.0, sweep)
+                want = sk.sell_gs_sweep_plain(D, x, b, Dinv, 1.0, sweep)
+                torch.cuda.synchronize()
+                err, _ = rel_err(got, want)
+                print(f"classical: K5 {tag} A{i} {sweep} omega=1.0 "
+                      f"max_abs_err={err:.3e}")
+                check(err == 0, f"K5 {tag} A{i} {sweep} disagrees with its "
+                                f"plain version")
+                if sweep == "forward":
+                    inputs[f"K5 A{i}"] = (D, x, b, Dinv, err)
+    return inputs
+
+
+def classical_launches(ml):
+    """{kernel: {operator: launches}} of the last solve on ``ml``, from the
+    wrappers' per-operator counters (DIA levels by (n, diagonals), SELL
+    operators by plan)."""
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    from pyamg_tpu_torch.sparse.matrix import DIA
+    from pyamg_tpu_torch.sparse.sell import SELL
+    out = {k.__name__: {} for k in dk.KERNELS + sk.KERNELS}
+    for i, lvl in enumerate(ml.levels):
+        for attr in "APR":
+            op = getattr(lvl, attr)
+            name = f"{attr}{i}"
+            if isinstance(op, DIA):
+                key = (op.shape[0], len(op.offsets))
+                out["dia_spmv"][name] = dk.dia_spmv.by_op[key]
+                if lvl.pre[0] == "gauss_seidel":
+                    out["dia_gs_sweep"][name] = dk.dia_gs_sweep.by_op[key]
+            elif isinstance(op, SELL):
+                key = sk.plan_key(op)
+                out["sell_spmv"][name] = sk.sell_spmv.by_plan[key]
+                if attr == "A" and lvl.pre[0] == "gauss_seidel":
+                    out["sell_gs_sweep"][name] = \
+                        sk.sell_gs_sweep.by_plan[key]
+    return out
+
+
+def classical_drive(path, want, reps=5):
+    """Drive one classical path as a user does: ``solve_refined`` to 1e-10
+    with the launch counts set to 0 just before and read just after; then
+    ``reps`` warm solves and one profiled.  Checks the iterations (2 outer,
+    inner within 1 of the JAX package's), the true relative residual below
+    1e-10 and the kernels launched: those the path must launch, on every
+    operator of the cycle, and no other.  Returns (launches per kernel,
+    per operator)."""
+    import torch
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    tag, ml, S, b, kw = (path[k] for k in ("name", "ml", "S", "b", "kw"))
+    kernels = dk.KERNELS + sk.KERNELS
+
+    def solve(**extra):
+        return ml.solve_refined(b, A_fine=S, tol=1e-10, **kw, **extra)
+
+    dk.reset_launch_counts()
+    sk.reset_launch_counts()
+    it, res = {}, []
+    t0 = time.perf_counter()
+    x = solve(residuals=res, iterations_out=it)
+    cold = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    per_op = classical_launches(ml)
+    relres = float(np.linalg.norm(b - S @ x) / np.linalg.norm(b))
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"classical: {tag} cold solve_refined {cold:.3f} s, outer "
+          f"{it['outer']} inner {it['inner']} (JAX package "
+          f"{want['outer']} {list(want['inner'])}), true_relres "
+          f"{relres:.3e} (JAX package {want['true_relres']:.3e}), residuals "
+          f"{res}, warm median of {reps} "
+          f"{statistics.median(walls) * 1e3:.3f} ms (all "
+          f"{[round(w * 1e3, 3) for w in walls]}), launches per solve "
+          f"{launches}, per operator {per_op}")
+    print_profile(tag, *profiled(solve), phase="classical")
+    check(x.shape == b.shape and np.isfinite(x).all(),
+          f"{tag}: x is not a finite vector of the right shape")
+    check(it["outer"] == want["outer"] and
+          len(it["inner"]) == len(want["inner"]) and
+          all(abs(a - c) <= 1 for a, c in zip(it["inner"], want["inner"])),
+          f"{tag}: iterations {it} differ from the JAX package's "
+          f"{want['outer']} {want['inner']} by more than 1")
+    check(relres < 1e-10, f"{tag}: true relative residual {relres:.3e} not "
+                          f"below 1e-10")
+    check(all(launches[k] > 0 for k in path["must"]) and
+          all(v == 0 for k, v in launches.items() if k not in path["must"]),
+          f"{tag}: launches {launches}, expected exactly {path['must']}")
+    # every operator of the cycle ran its kernels (the coarsest A is solved
+    # directly), and the operators add up to each kernel's total
+    coarsest = f"A{len(ml.levels) - 1}"
+    check(all(v > 0 for d in per_op.values() for k, v in d.items()
+              if k != coarsest) and
+          all(sum(per_op[k].values()) == launches[k] for k in per_op),
+          f"{tag}: an operator of the cycle was never launched, or the "
+          f"per-operator counts do not add up to the kernels' totals")
+    return launches, per_op
+
+
+def classical_phase(dev, sms, rng, want=None, n_rs=500, n_air=256, reps=5):
+    """The ``classical:`` phase: build both paths and print their setup,
+    hierarchy and launch shapes; hold every kernel case against its plain
+    version; gate the hierarchies against ``want`` (JAX_CLASSICAL); drive
+    each path; then solve both at 96^2 and 64^2 on ``dev`` and on the CPU,
+    which must agree to 1e-9.  Returns ({path: kernel inputs}, {path:
+    launches per operator})."""
+    want = JAX_CLASSICAL if want is None else want
+    paths = classical_paths(dev, n_rs, n_air)
+    inputs, per_ops = {}, {}
+    for path in paths:
+        tag, ml = path["name"], path["ml"]
+        got = classical_describe(ml)
+        print(f"classical: {tag} setup {path['setup_s']:.3f} s, by key "
+              f"{ {k: round(v, 4) for k, v in path['by_key'].items()} }, "
+              f"levels {len(got['rows'])} rows {got['rows']} "
+              f"operator_complexity {got['operator_complexity']!r} layout "
+              f"{got['layouts']} DIA diagonals {got['dia']} SELL plans "
+              f"{got['plans']}")
+        ref = want[tag]
+        check(got["rows"] == ref["rows"],
+              f"{tag}: rows {got['rows']}, the JAX package {ref['rows']}")
+        check(abs(got["operator_complexity"] - ref["operator_complexity"])
+              <= 1e-6, f"{tag}: operator complexity off the JAX package's")
+        check(got["layouts"] == ref["layouts"] and got["dia"] == ref["dia"]
+              and got["plans"] == ref["plans"],
+              f"{tag}: layouts or plans differ from the JAX package's")
+        inputs[tag] = classical_kernels(dev, path, rng, sms)
+    for path in paths:
+        _, per_ops[path["name"]] = classical_drive(path, want[path["name"]],
+                                                   reps)
+    # the same small solves on the card and on the CPU (plain versions)
+    xs = {}
+    for d in ("cuda", "cpu"):
+        xs[d] = [p["ml"].solve_refined(p["b"], A_fine=p["S"], tol=1e-10,
+                                       **p["kw"])
+                 for p in classical_paths(d, 96, 64)]
+    for p, xc, xh in zip(paths, xs["cuda"], xs["cpu"]):
+        diff = float(np.linalg.norm(xc - xh) / np.linalg.norm(xh))
+        print(f"classical: {p['name']} small solve, card vs CPU relative "
+              f"difference {diff:.3e} (tol 1e-9)")
+        check(diff < 1e-9, f"{p['name']}: the card's small solve disagrees "
+                           f"with the CPU's")
+    return inputs, per_ops
 
 
 def main():
@@ -1261,6 +1622,63 @@ def main():
                                     JAX_S1_TRUE_RELRES)
     print(f"solvers: launches per solve {solver_launches}")
     del paths
+
+    # -- 7. classical: Ruge-Stuben 500^2 and AIR 256^2 ----------------------
+    t0 = time.perf_counter()
+    cinputs, cper_op = classical_phase(dev, sms, rng)
+    print(f"classical: phase before its times {time.perf_counter() - t0:.2f}"
+          f" s")
+    for tag, op in (("RS", "A1"), ("RS", "A2"), ("AIR", "A0")):
+        D, xk, err1 = cinputs[tag][f"K1 {op}"]
+        n, nd = D.shape[0], len(D.offsets)
+        Acsr = csr_on(to_scipy(DIA(D.data.cpu().numpy(), D.offsets,
+                                   D.shape)), dev)
+        e_lib, scale = rel_err(Acsr @ xk,
+                               dk.dia_spmv_plain(D.data, D.offsets, n, xk))
+        check(e_lib <= 1e-5 * scale,
+              f"library CSR product disagrees ({tag} {op})")
+        g = dk.spmv_geometry(n, 1, D.data.shape[1], 4, sms)
+        rows.append(row(
+            f"dia_spmv {tag} {op}", "pyamg_tpu/ops/pallas_kernels.py:52",
+            cper_op[tag]["dia_spmv"][op], err1,
+            lambda: dk.dia_spmv(D.data, D.offsets, n, xk),
+            lambda: dk.dia_spmv_plain(D.data, D.offsets, n, xk),
+            lambda: Acsr @ xk, (nd * n + 2 * n) * 4, 2 * nd * n,
+            tag=f"dia_spmv {tag} {op} ({nd} diagonals, {g})"))
+    for op in ("A1", "A2"):
+        D, xg, bg, Dinv, colors, order, err2 = cinputs["RS"][f"K2 {op}"]
+        n, nd = D.shape[0], len(D.offsets)
+        per_color = torch.bincount(colors.long()).tolist()
+        g = dk.gs_geometry(n, nd, max(abs(o) for o in D.offsets), 4, sms)
+        rows.append(row(
+            f"dia_gs_sweep RS {op}", "pyamg_tpu/ops/pallas_kernels.py:126",
+            cper_op["RS"]["dia_gs_sweep"][op], err2,
+            lambda: dk.dia_gs_sweep(D.data, D.offsets, n, xg, bg, Dinv,
+                                    colors, order),
+            lambda: dk.dia_gs_sweep_plain(D.data, D.offsets, n, xg, bg, Dinv,
+                                          colors, order, 1.0),
+            None, (nd * n + 4 * n) * 4 + 4 * n,
+            sum(per_color[c] for c in order) * (2 * nd + 3),
+            tag=f"dia_gs_sweep RS {op} ({len(order)} passes, {g})"))
+    for tag, op in (("RS", "P0"), ("RS", "R0"), ("RS", "A3"), ("AIR", "R0"),
+                    ("AIR", "A1")):
+        S, S_host, xk, err3 = cinputs[tag][f"K3 {op}"]
+        rows.append(sell_row(
+            f"sell_spmv {tag} {op}", "pyamg_tpu/ops/sell_kernels.py:29", S,
+            to_scipy(S_host), xk, err3, f"sell_spmv {tag} {op}",
+            cper_op[tag]["sell_spmv"][op]))
+    S, xg, bg, Dinv, err5 = cinputs["RS"]["K5 A3"]
+    n = S.shape[0]
+    tag = "sell_gs_sweep RS A3 forward"
+    rows.append(row(
+        tag, "pyamg_tpu/ops/sell_kernels.py:241",
+        cper_op["RS"]["sell_gs_sweep"]["A3"], err5,
+        lambda: sk.sell_gs_sweep(S, xg, bg, Dinv, 1.0, "forward"),
+        lambda: sk.sell_gs_sweep_plain(S, xg, bg, Dinv, 1.0, "forward"),
+        None, S.nnz * 8 + 4 * n * 4, 2 * S.nnz + 3 * n, source=sell_src,
+        plain_reps=2, tag=tag))
+    slot_model(S, 4 * n * 4, tag)
+    del cinputs
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -17,13 +17,20 @@ Main path::
     ml.compress_stencils().collapse_coarse(max_n=4096)
     ml.enable_ds_refinement(A64).to_device()
     x = ml.solve_refined_device(b, tol=1e-10)
+
+Classical AMG (Ruge-Stuben and AIR) builds its hierarchy the same way::
+
+    from pyamg_tpu_torch.classical import ruge_stuben_solver
+    ml = ruge_stuben_solver(A64.astype(np.float32)).compress_stencils()
+    x = ml.solve_refined(b, tol=1e-10, accel="cg")
 """
 
 __version__ = "0.1.0"
 
 from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+from pyamg_tpu_torch.classical import air_solver, ruge_stuben_solver
 from pyamg_tpu_torch.multilevel import MultilevelSolver
 from pyamg_tpu_torch.convert import hierarchy_from_arrays
 
-__all__ = ["MultilevelSolver", "hierarchy_from_arrays",
-           "smoothed_aggregation_solver"]
+__all__ = ["MultilevelSolver", "air_solver", "hierarchy_from_arrays",
+           "ruge_stuben_solver", "smoothed_aggregation_solver"]

@@ -1,10 +1,11 @@
-"""The port's native host helpers: first-fit graph coloring and standard
-aggregation.
+"""The port's native host helpers: first-fit graph coloring, standard
+aggregation and the classical (Ruge-Stuben) setup.
 
-``coloring.cpp`` and ``aggregation.cpp`` are each built with ``g++`` at
-first use (``build.py``) and loaded with ctypes.  There is no fallback:
-the colors fix the Gauss-Seidel iterate and the aggregates fix the
-hierarchy, so a missing compiler is an error.
+``coloring.cpp``, ``aggregation.cpp`` and ``classical.cpp`` are each built
+with ``g++`` at first use (``build.py``) and loaded with ctypes.  There is
+no fallback: the colors fix the Gauss-Seidel iterate, and the aggregates,
+the C/F splitting and the interpolation weights fix the hierarchy, so a
+missing compiler is an error.
 """
 
 from __future__ import annotations
@@ -21,9 +22,22 @@ from .build import shared_library
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-# source name -> (its C function, number of int32 buffer arguments)
-_FUNCTIONS = {"coloring": ("first_fit_coloring", 3),
-              "aggregation": ("standard_aggregation", 4)}
+_I = ctypes.c_int32
+_IP = ctypes.POINTER(ctypes.c_int32)
+_FP = ctypes.POINTER(ctypes.c_double)
+
+# source name -> {C function: (restype, argtypes)}
+_FUNCTIONS = {
+    "coloring": {"first_fit_coloring": (_I, [_I, _IP, _IP, _IP])},
+    "aggregation": {"standard_aggregation": (_I, [_I, _IP, _IP, _IP, _IP])},
+    "classical": {
+        "rs_cf_splitting": (None, [_I, _IP, _IP, _IP, _IP, _IP, _IP]),
+        "rs_cf_splitting_pass2": (None, [_I, _IP, _IP, _IP]),
+        "remove_strong_ff_ell": (None, [_I, _I, _IP, _FP, _IP, _IP, _IP]),
+        "classical_interpolation_ell": (
+            None, [_I, _I, _IP, _FP, _IP, _I, _IP, _FP, _IP, _IP, _IP, _I,
+                   _I, _IP, _FP, _IP])},
+}
 
 
 @functools.cache
@@ -36,15 +50,27 @@ def _lib(name):
                           [gxx, "-O3", "-shared", "-fPIC", "-std=c++17"],
                           name)["path"]
     lib = ctypes.CDLL(path)
-    fname, nbuf = _FUNCTIONS[name]
-    fn = getattr(lib, fname)
-    fn.restype = ctypes.c_int32
-    fn.argtypes = [ctypes.c_int32] + [ctypes.POINTER(ctypes.c_int32)] * nbuf
+    for fname, (restype, argtypes) in _FUNCTIONS[name].items():
+        fn = getattr(lib, fname)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib
 
 
 def _ptr(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+    return a.ctypes.data_as(_IP)
+
+
+def _fptr(a):
+    return a.ctypes.data_as(_FP)
+
+
+def _i32(a):
+    return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _f64(a):
+    return np.ascontiguousarray(a, dtype=np.float64)
 
 
 def _csr(n, indptr, indices):
@@ -73,3 +99,70 @@ def standard_aggregation(n, indptr, indices):
     nagg = _lib("aggregation").standard_aggregation(
         n, _ptr(Ap), _ptr(Aj), _ptr(labels), _ptr(cpts))
     return labels[:n], cpts[:nagg]
+
+
+def rs_cf_splitting(n, Sp, Sj, Tp, Tj, second_pass=False):
+    """Ruge-Stuben splitting (1 = C, 0 = F) of the strength graph S in CSR
+    (``Sp``, ``Sj``) with its transpose (``Tp``, ``Tj``); with
+    ``second_pass``, strong F-F pairs without a common C point are
+    repaired."""
+    Sp, Sj = _csr(n, Sp, Sj)
+    Tp, Tj = _csr(n, Tp, Tj)
+    influence = np.zeros(max(n, 1), np.int32)
+    out = np.empty(max(n, 1), np.int32)
+    lib = _lib("classical")
+    lib.rs_cf_splitting(n, _ptr(Sp), _ptr(Sj), _ptr(Tp), _ptr(Tj),
+                        _ptr(influence), _ptr(out))
+    if second_pass:
+        lib.rs_cf_splitting_pass2(n, _ptr(Sp), _ptr(Sj), _ptr(out))
+    return out[:n]
+
+
+def _square_ell(cols, vals, nnz, n):
+    """int32 cols, float64 vals and int32 row counts of an (n, W) ELL whose
+    columns lie in [0, n), as the native loops index by column."""
+    cols, vals, nnz = _i32(cols), _f64(vals), _i32(nnz)
+    if cols.ndim != 2 or cols.shape[0] != n or vals.shape != cols.shape or \
+            nnz.shape != (n,) or (cols.size and (cols.min() < 0 or
+                                                 cols.max() >= n)) or \
+            (n and (nnz.min() < 0 or nnz.max() > cols.shape[1])):
+        raise ValueError("malformed square ELL arrays")
+    return cols, vals, nnz
+
+
+def remove_strong_ff_ell(s_cols, s_vals, s_nnz, split):
+    """(n, Ws) bool: the strong F-F entries of the ELL strength arrays
+    whose two points share no strong C point."""
+    n, Ws = s_cols.shape
+    sc, sv, sn = _square_ell(s_cols, s_vals, s_nnz, n)
+    sp = _i32(split)
+    if sp.shape != (n,):
+        raise ValueError("the splitting must have one entry a row")
+    drop = np.empty((n, Ws), np.int32)
+    _lib("classical").remove_strong_ff_ell(n, Ws, _ptr(sc), _fptr(sv),
+                                           _ptr(sn), _ptr(sp), _ptr(drop))
+    return drop.astype(bool)
+
+
+def classical_interpolation_ell(a_cols, a_vals, a_nnz, s_cols, s_vals,
+                                s_nnz, split, cmap, modified, Wp):
+    """(p_cols, p_vals float64, p_nnz): padded ELL arrays of width ``Wp``
+    of the (modified) classical interpolation of A over the strength
+    pattern S."""
+    n, Wa = a_cols.shape
+    Ws = s_cols.shape[1]
+    ac, av, an = _square_ell(a_cols, a_vals, a_nnz, n)
+    sc, sv, sn = _square_ell(s_cols, s_vals, s_nnz, n)
+    sp, cm = _i32(split), _i32(cmap)
+    if sp.shape != (n,) or cm.shape != (n,):
+        raise ValueError("the splitting and coarse map must have one entry "
+                         "a row")
+    Wp = max(int(Wp), 1)
+    p_cols = np.zeros((n, Wp), np.int32)
+    p_vals = np.zeros((n, Wp), np.float64)
+    p_nnz = np.zeros((n,), np.int32)
+    _lib("classical").classical_interpolation_ell(
+        n, Wa, _ptr(ac), _fptr(av), _ptr(an), Ws, _ptr(sc), _fptr(sv),
+        _ptr(sn), _ptr(sp), _ptr(cm), int(bool(modified)), Wp,
+        _ptr(p_cols), _fptr(p_vals), _ptr(p_nnz))
+    return p_cols, p_vals, p_nnz

@@ -8,8 +8,9 @@ without the port's setup phase.  ``spec``::
 
     {"levels": [                      # finest first; the last is coarsest
         {"A": <operator>, "P": <operator>, "R": <operator>,
-         "pre":  <smoother>, "post": <smoother>},
-        ...,
+         "pre":  <smoother>, "post": <smoother>,
+         "splitting": (n,) bool},     # optional: a classical level's
+        ...,                          # C points
         {"A": <operator>}],
      "coarse": <coarse solver>,
      "ds": {"kind": "dia", "data_hi", "data_lo", "offsets", "n"}}  # optional
@@ -27,7 +28,8 @@ options under ``"opts"`` and its arrays and scalars beside them:
     gauss_seidel_ne  opts {iterations, sweep, ncolors}; colors, omega
     gauss_seidel_nr  as gauss_seidel_ne
     cf_jacobi        opts {iterations, f_iterations, c_iterations};
-    fc_jacobi        Cmask, Fmask (n,) bool, omega, Dinv
+    fc_jacobi        Cmask, Fmask (n,) bool (else from the level's
+                     splitting), omega, Dinv
     krylov_cg, krylov_gmres  opts {maxiter}
     krylov_cgne, krylov_cgnr opts {maxiter}; AH <operator>
     none             {}
@@ -103,7 +105,7 @@ _NE_DINV = {"jacobi_ne": "Dinv_rows", "gauss_seidel_ne": "Dinv_rows",
             "gauss_seidel_nr": "Dinv_cols"}
 
 
-def _smoother(d, A):
+def _smoother(d, A, splitting=None):
     kind = d["kind"]
     opts = dict(d.get("opts", {}))
     params = {k: (_operator(v) if k == "AH" else
@@ -111,6 +113,11 @@ def _smoother(d, A):
               for k, v in d.items() if k not in ("kind", "opts", "order")}
     if "colors" in params:
         params["colors"] = params["colors"].astype(np.int32)
+    if kind in ("cf_jacobi", "fc_jacobi") and "Cmask" not in params:
+        if splitting is None:
+            raise ValueError(f"{kind} needs Cmask and Fmask or the level's "
+                             f"splitting")
+        params.update(Cmask=splitting, Fmask=~splitting)
     if kind in _NE_DINV and not {"AH", "Dinv"} <= params.keys():
         p = ne_params(A)
         params.update(AH=p["AH"], Dinv=p[_NE_DINV[kind]])
@@ -135,10 +142,15 @@ def hierarchy_from_arrays(spec, device="cuda") -> MultilevelSolver:
     levels = []
     for d in spec["levels"]:
         lvl = Level(_operator(d["A"]))
+        split = None
+        if "splitting" in d:
+            split = np.asarray(d["splitting"]).astype(bool)
+            lvl.splitting = split
+            lvl.Cpts, lvl.Fpts = np.flatnonzero(split), np.flatnonzero(~split)
         if "P" in d:
             lvl.P, lvl.R = _operator(d["P"]), _operator(d["R"])
-            lvl.pre = _smoother(d["pre"], lvl.A)
-            lvl.post = _smoother(d["post"], lvl.A)
+            lvl.pre = _smoother(d["pre"], lvl.A, split)
+            lvl.post = _smoother(d["post"], lvl.A, split)
         levels.append(lvl)
     ml = MultilevelSolver(levels, _coarse_solver(spec["coarse"],
                                                  levels[-1].A))

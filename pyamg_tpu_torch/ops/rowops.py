@@ -1,9 +1,11 @@
-"""Row-wise coalescing of host ELL candidate entries (setup phase).
+"""Row-wise operations on host ELL matrices (setup phase).
 
-Counterpart of the host twin in ``pyamg_tpu/ops/rowops.py``: sort each
-row's candidate (col, val) pairs by column, sum duplicate columns and
-left-compact.  Stored entries that sum to zero stay stored, as in the
-reference, because stored-entry counts feed the operator complexity.
+Counterpart of the host twins in ``pyamg_tpu/ops/rowops.py``:
+``ell_dedup`` sorts each row's candidate (col, val) pairs by column, sums
+duplicate columns and left-compacts (stored entries that sum to zero stay
+stored, as in the reference, because stored-entry counts feed the operator
+complexity); ``row_lookup`` gathers A's entries at given columns row by
+row; ``drop_explicit_zeros`` filters stored entries by magnitude.
 """
 
 from __future__ import annotations
@@ -61,3 +63,32 @@ def ell_dedup(cols, vals, valid, shape, width=None, min_width=1) -> ELL:
     width = min(width, c.shape[1]) if c.shape[1] > 0 else min_width
     return ELL(c[:, :width], v[:, :width], rn,
                (int(shape[0]), int(shape[1])))
+
+
+def row_lookup(A: ELL, qcols, qvalid=None):
+    """Per-row membership lookup: ``out[i, k] = A[i, qcols[i, k]]`` (0 where
+    absent or where ``qvalid`` is False).  A's rows are column-sorted with a
+    zero-padding tail; one flat searchsorted over the rows laid end to end
+    with per-row offsets."""
+    n, W = A.cols.shape
+    sent = np.int64(A.shape[1]) + 1
+    k = np.arange(W, dtype=np.int64)[None, :]
+    acols = np.where(k < np.asarray(A.row_nnz)[:, None],
+                     np.asarray(A.cols, np.int64), sent)
+    roff = (sent + 1) * np.arange(n, dtype=np.int64)[:, None]
+    flat = (acols + roff).ravel()          # globally sorted
+    q = np.asarray(qcols, np.int64) + roff[:, :1]
+    idx = np.clip(np.searchsorted(flat, q.ravel()).reshape(q.shape), 0,
+                  n * W - 1)
+    hit = flat[idx] == q
+    out = np.asarray(A.vals).reshape(-1)[idx]
+    if qvalid is not None:
+        hit = hit & np.asarray(qvalid)
+    return np.where(hit, out, 0)
+
+
+def drop_explicit_zeros(A: ELL, tol: float = 0.0) -> ELL:
+    """A without its stored entries of ``|val| <= tol`` (the diagonal is not
+    treated apart)."""
+    keep = (np.abs(np.asarray(A.vals)) > tol) & A.valid_mask()
+    return ell_dedup(A.cols, A.vals, keep, A.shape)

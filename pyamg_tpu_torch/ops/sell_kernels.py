@@ -97,8 +97,10 @@ def _lib():
 
 
 def plan_key(A):
-    """(kind, t, passes, Sy): the key of a plan in ``by_plan``."""
-    return (A.kind, A.t, A.n_passes, A.Sy)
+    """(kind, t, passes, Sy, shape): the key of a plan in ``by_plan`` (the
+    shape tells apart the small plans of a deep hierarchy, which share the
+    rest)."""
+    return (A.kind, A.t, A.n_passes, A.Sy, tuple(A.shape))
 
 
 def _pow2_floor(v):

@@ -17,13 +17,25 @@ Then the blocked sweep is emulated in torch: in each pass a block reads
 its own rows and, as of the previous pass, the rows it polls (staged) or
 those of the blocks it waits for (device), and NaN from every other row.
 The result must equal ``dia_gs_sweep_plain`` bit for bit.
+
+The Ruge-Stuben path on 2-D Poisson 500^2 runs K2 on bands no SA path
+has: its DIA levels are built here at full size from the port's own
+hierarchy, and their launch shapes checked; level 1 (125,000 rows, 11
+diagonals reaching 500 rows) runs staged, and level 2 (31,371 rows, 23
+diagonals reaching 376 rows, past a block of the staged regime) reads the
+band each pass.  Both bands' tagged words are replayed (level 2's in a
+staged shape the kernel would run all the same), and both blocked sweeps
+emulated at their launch shapes with the levels' own colors and order.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+from pyamg_tpu_torch.classical import ruge_stuben_solver
 from pyamg_tpu_torch.gallery import poisson
 from pyamg_tpu_torch.ops import dia_kernels as dk
 from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
@@ -271,3 +283,66 @@ def test_blocked_sweep_equals_plain(operators, op, omega, dtype):
     for g in shapes:
         got = _emulate(g, D, x, b, Dinv, colors, order, omega)
         assert torch.equal(got, want), (name, g)
+
+
+# -- the Ruge-Stuben 500^2 path's DIA levels ----------------------------------
+
+# (n, ndiag, halo) of its DIA levels but the coarsest, and whether K2 runs
+# staged there
+RS_SHAPES = {0: (250_000, 5, 500, True), 1: (125_000, 11, 500, True),
+             2: (31_371, 23, 376, False), 5: (509, 25, 48, True),
+             6: (120, 29, 24, True), 7: (29, 25, 12, True)}
+
+
+@functools.cache
+def _rs_levels():
+    ml = ruge_stuben_solver(poisson((500, 500)).astype(np.float32))
+    return ml.compress_stencils().levels
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("level", list(RS_SHAPES))
+def test_rs_path_geometry(level, itemsize):
+    lvl = _rs_levels()[level]
+    n, ndiag, halo, staged = RS_SHAPES[level]
+    assert isinstance(lvl.A, DIA) and (lvl.A.shape[0], len(lvl.A.offsets),
+                                       max(map(abs, lvl.A.offsets))) == \
+        (n, ndiag, halo)
+    g = dk.gs_geometry(n, ndiag, halo, itemsize)
+    _check_shape(g, n, ndiag, halo, itemsize)
+    assert g.staged == staged
+
+
+@pytest.mark.parametrize("n_order", [7, 9])
+@pytest.mark.parametrize("level", [1, 2])
+def test_rs_path_staged_words(level, n_order):
+    D = _rs_levels()[level].A
+    n, halo = D.shape[0], max(abs(o) for o in D.offsets)
+    g = dk.gs_geometry(n, len(D.offsets), halo, 4)
+    if not g.staged:
+        g = dk._gs_shape(n, g.blocks, len(D.offsets), halo, 4, True)
+    rng = np.random.default_rng(level)
+    for _ in range(3):
+        _replay_words(g, D.offsets, n, n_order, rng)
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_rs_path_blocked_sweep_equals_plain(level):
+    """Symmetric Gauss-Seidel with the level's colors and color order, at
+    the launch shape of the card (132 SMs), float32."""
+    lvl = _rs_levels()[level]
+    _, sopts, params = lvl.pre
+    D = lvl.A.to("cpu")
+    n = D.shape[0]
+    colors = torch.as_tensor(params["colors"])
+    Dinv = torch.as_tensor(params["Dinv"])
+    order = gs_order(sopts["ncolors"], sopts["sweep"], sopts["iterations"],
+                     sopts["omega"])
+    rng = np.random.default_rng(level)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+    b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+    want = dk.dia_gs_sweep_plain(D.data, D.offsets, n, x, b, Dinv, colors,
+                                 order, 1.0)
+    g = dk.gs_geometry(n, len(D.offsets), max(abs(o) for o in D.offsets), 4)
+    assert g.staged == RS_SHAPES[level][3]
+    assert torch.equal(_emulate(g, D, x, b, Dinv, colors, order, 1.0), want)

@@ -10,7 +10,10 @@ than the portable 8, and K5 keeps x in shared memory exactly when its
 size lets it.  The plans are the six of the 3-D Poisson 64^3 path (by
 their sizes, as ``chip_smoke.py`` checks them on the card), small plans
 built here as ``tests/test_torch_sell.py`` builds them, a synthetic deep
-fat plan, and the 2-D Poisson 1800^2 plan's sizes (x past shared memory).
+fat plan, the 2-D Poisson 1800^2 plan's sizes (x past shared memory), and
+the classical paths' busiest plans, built here from the port's own
+hierarchies at full size (Ruge-Stuben on 2-D Poisson 500^2: P0, R0, A3
+and A4; AIR on 2-D advection 256^2: R0, lAIR's restriction).
 """
 
 import numpy as np
@@ -19,7 +22,8 @@ import scipy.sparse as sp
 import torch
 
 from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
-from pyamg_tpu_torch.gallery import poisson
+from pyamg_tpu_torch.classical import air_solver, ruge_stuben_solver
+from pyamg_tpu_torch.gallery import advection_2d, poisson
 from pyamg_tpu_torch.ops import sell_kernels as sk
 from pyamg_tpu_torch.sparse.matrix import from_scipy, to_scipy
 from pyamg_tpu_torch.sparse.sell import LANE, SELL, sell_from_ell
@@ -41,8 +45,14 @@ SIZES = {
 }
 BUILT = ["square48", "tall", "fat", "24^3 P0", "24^3 R0", "24^3 A1",
          "24^3 P1"]
-SPMV_PLANS = [k for k in SIZES if k != "1800^2"] + BUILT
-GS_PLANS = [k for k, v in SIZES.items() if v[3]] + ["square48", "24^3 A1"]
+# (kind, t, passes, Sy) of the classical paths' plans, as the JAX package
+# builds them (tests/jax_classical_reference.py)
+CLASSICAL = {"RS P0": ("tall", 2, 5, 1960), "RS R0": ("fat", 2, 7, 984),
+             "RS A3": ("tall", 1, 14, 64), "RS A4": ("tall", 1, 13, 16),
+             "AIR R0": ("fat", 3, 24, 192)}
+SPMV_PLANS = [k for k in SIZES if k != "1800^2"] + BUILT + list(CLASSICAL)
+GS_PLANS = [k for k, v in SIZES.items() if v[3]] + ["square48", "24^3 A1",
+                                                    "RS A3", "RS A4"]
 CHECKS = ["coverage", "pass_order", "shared_memory", "cluster"]
 
 
@@ -76,6 +86,17 @@ def sizes():
         attr, lvl = name.split()[1]
         op = getattr(ml.levels[int(lvl)], attr)
         assert isinstance(op, SELL), name
+        out[name] = _size(op)
+    classical = {
+        "RS": ruge_stuben_solver(poisson((500, 500)).astype(np.float32)),
+        "AIR": air_solver(advection_2d((256, 256))[0].astype(np.float32),
+                          CF="PMIS", filter_operator=(False, 0.1))}
+    for ml in classical.values():
+        ml.compress_stencils()
+    for name, plan in CLASSICAL.items():
+        path, (attr, lvl) = name.split()
+        op = getattr(classical[path].levels[int(lvl)], attr)
+        assert (op.kind, op.t, op.n_passes, op.Sy) == plan, name
         out[name] = _size(op)
     return out
 
