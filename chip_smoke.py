@@ -65,13 +65,29 @@ Phases, each printed on its own lines:
    version; each solve driven with the counts reset around it (iterations
    within 1 of the JAX package's, true relative residual below 1e-10, the
    kernels launched per operator), warm and profiled; small solves on the
-   card against the CPU; and time rows for the busiest new operators.
+   card against the CPU; and time rows for the busiest new operators;
+8. sa_more: smoothed aggregation on rotated anisotropic diffusion 512^2
+   (evolution strength, grid aggregation; six 9-diagonal DIA levels) and
+   on 2-D linear elasticity 100^2 (BELL levels of 2 x 2 and 3 x 3 blocks,
+   rigid-body modes, block Gauss-Seidel), built as ``bench_suite.py``
+   builds them: setup time by key, levels, blocksizes, operator
+   complexity, layouts and DIA widths against the JAX package's (JAX_SA)
+   before any solve; K1 on every anisotropic DIA level and K2 (each
+   level's symmetric sweep) on every level it smooths, each to 0 against
+   its plain version; each solve driven with the counts reset around it
+   (K1 and K2 on every DIA level the cycle visits; no kernel on the
+   elasticity path, whose ``bspmv`` and block smoothers are torch ops),
+   warm and profiled; the elasticity fine level's ``bspmv``, block
+   Gauss-Seidel color pass and sweep by their torch operations; 64^2 and
+   24^2 solves on the card against the CPU; and time rows for K1 and K2
+   on the anisotropic A0 and A3.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
 non-zero before printing a result.
 """
 
+import functools
 import json
 import re
 import statistics
@@ -145,6 +161,50 @@ JAX_CLASSICAL = {
             "outer": 2, "inner": (23, 21),
             "true_relres": 5.74217683939961e-11},
 }
+# the JAX package's smoothed-aggregation paths of bench_suite.py:83-138
+# (JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/jax_sa_reference.py,
+# CPU; with --small for JAX_SA_SMALL): rows and blocksize of the levels,
+# operator complexity, each level's (A, P, R) layout, the diagonals of each
+# DIA level, outer and inner iterations and the true relative residual.
+# The port's hierarchy must equal it; the anisotropic solve's outer count
+# within 1 and every inner count at most its cap of 60 (each inner CG stops
+# at the cap), the elasticity solve's outer count exactly and its inner
+# counts within 1
+JAX_SA = {
+    "anisotropic": {"rows": [262144, 29241, 3249, 361, 49, 9],
+                    "blocksizes": [(1, 1)] * 6,
+                    "operator_complexity": 1.124563352365929,
+                    "layouts": [("DIA", "PhaseStencil", "PhaseStencil")] * 5
+                    + [("DIA", "NoneType", "NoneType")],
+                    "dia": {f"A{i}": 9 for i in range(6)},
+                    "outer": 4, "inner": (60, 60, 60, 60),
+                    "true_relres": 8.63e-13},
+    "elasticity": {"rows": [20000, 3468, 432, 48],
+                   "blocksizes": [(2, 2)] + [(3, 3)] * 3,
+                   "operator_complexity": 1.2853925498851404,
+                   "layouts": [("BELL", "BELL", "BELL")] * 3 +
+                   [("BELL", "NoneType", "NoneType")],
+                   "dia": {}, "outer": 2, "inner": (9, 9),
+                   "true_relres": 3.95e-11},
+}
+JAX_SA_SMALL = {
+    "anisotropic": {"rows": [4096, 484, 64, 9], "blocksizes": [(1, 1)] * 4,
+                    "operator_complexity": 1.1282271468144045,
+                    "layouts": [("DIA", "PhaseStencil", "PhaseStencil")] * 3
+                    + [("DIA", "NoneType", "NoneType")],
+                    "dia": {f"A{i}": 9 for i in range(4)},
+                    "outer": 3, "inner": (28, 30, 39),
+                    "true_relres": 9.822751874451589e-15},
+    "elasticity": {"rows": [1152, 192, 27],
+                   "blocksizes": [(2, 2), (3, 3), (3, 3)],
+                   "operator_complexity": 1.2576020408163264,
+                   "layouts": [("BELL", "BELL", "BELL")] * 2 +
+                   [("BELL", "NoneType", "NoneType")],
+                   "dia": {}, "outer": 2, "inner": (7, 7),
+                   "true_relres": 3.965880083921101e-11},
+}
+# inner CG's cap on both SA paths (bench_suite.py's inner_maxiter)
+SA_INNER_CAP = 60
 # the classical operators whose K3 case also takes an x holding inf and NaN
 CLASSICAL_NON_FINITE = {("RS", "P0"), ("RS", "R0"), ("AIR", "R0")}
 # the (omega, sweep) pairs the solvers phase adds to K2 and K5
@@ -154,8 +214,10 @@ SOLVER_K5_PAIRS = ((1.2, "forward"), (1.2, "backward"))
 # again, after a pause (an empty trace has come back whole after one)
 TRACE_TRIES = 5
 TRACE_PAUSE_S = 0.5
-# flushed calls made beyond those timed, whose trace may come back short
-FLUSH_SPARE = 5
+# flushed calls made beyond those timed: a trace can come back without
+# its first operations (up to 21 of them, 7 calls, seen in a trace of
+# kernels that follow a 159,500-operation profile)
+FLUSH_SPARE = 20
 
 
 def check(cond, msg):
@@ -216,9 +278,11 @@ def device_ms(fn, reps=50):
     return total_us / reps / 1e3
 
 
-def flush_ops(flush):
-    """The names of the device operations of one read through ``flush``."""
-    names = {e.name for e in device_events(flush.sum, 1)}
+def flush_ops(flush, reads=5):
+    """The names of the device operations of a read through ``flush``,
+    from a trace of ``reads`` reads (a trace can lose its first few
+    operations, and then a trace of one read holds none)."""
+    names = {e.name for e in device_events(flush.sum, reads)}
     check(names, "the trace of the L2 flush holds no device operation")
     return names
 
@@ -588,6 +652,40 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
     return out
 
 
+def kernel_row(flush, skip, name, replaces, launches, err, fn, plain, library,
+               nbytes, ops, source="pyamg_tpu_torch/csrc/dia_kernels.cu",
+               plain_reps=50, tag=None):
+    """A kernel's line: device times per call (profiler; the kernel's
+    and the library call's the median of calls made with L2 flushed,
+    and also their mean L2-warm), and its bound, the larger of bytes
+    over the memory rate and float32 operations over the float32
+    rate.  ``flush`` is read before each flushed call, and ``skip`` names
+    its device operations (``flush_ops``)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    cold = flushed_ms(fn, flush, skip)
+    r = {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches, "max_abs_err": err,
+         "ms": statistics.median(cold),
+         "plain_ms": device_ms(plain, plain_reps),
+         "bound_ms": max(t_bytes, t_ops) * 1e3,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": None if library is None else
+         statistics.median(flushed_ms(library, flush, skip))}
+    lib = "-" if library is None else \
+        f"{r['library_ms'] * 1e3:.2f} us (L2 flushed, median; " \
+        f"{device_ms(library) * 1e3:.2f} us L2-warm)"
+    print(f"times: {tag or name} device {r['ms'] * 1e3:.2f} us per call "
+          f"with L2 flushed (median; {min(cold) * 1e3:.2f}-"
+          f"{max(cold) * 1e3:.2f} us over {len(cold)} calls), "
+          f"{device_ms(fn) * 1e3:.2f} us L2-warm "
+          f"({cuda_ms(fn) * 1e3:.2f} us per call with the host), bound "
+          f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
+          f"{nbytes / 1e6:.2f} MB), plain {r['plain_ms'] * 1e3:.2f} us "
+          f"(L2-warm), library {lib}, launches on the main path "
+          f"{launches}")
+    return r
+
+
 def classical_paths(dev, n_rs=500, n_air=256):
     """The ``classical:`` phase's paths, built as ``bench_suite.py`` builds
     them (``:47-62`` and ``:141-162``), compressed and placed on ``dev``:
@@ -640,14 +738,15 @@ def classical_describe(ml):
             "layouts": layout(ml), "dia": dia, "plans": plans}
 
 
-def classical_kernels(dev, path, rng, sms):
+def path_kernels(dev, path, rng, sms, phase="classical", coarsest=False):
     """Every kernel the path's solve runs, on its operators, against the
     plain version to 0: K1 (float32) on each DIA level the cycle
-    multiplies by, K2 (the level's symmetric sweep: its colors, color
-    order and omega 1) on each DIA level, K3 on every SELL operator (and
-    on an x holding inf and NaN where CLASSICAL_NON_FINITE says), K5
-    forward and backward on each square SELL level.  Returns the inputs
-    of each case, by "K<k> <operator>", for the timing rows."""
+    multiplies by (and on the coarsest with ``coarsest``), K2 (the
+    level's own sweep: its colors, color order and omega) on each DIA
+    level, K3 on every SELL operator (and on an x holding inf and NaN
+    where CLASSICAL_NON_FINITE says), K5 forward and backward on each
+    square SELL level.  Returns the inputs of each case, by
+    "K<k> <operator>", for the timing rows."""
     import torch
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import sell_kernels as sk
@@ -660,7 +759,8 @@ def classical_kernels(dev, path, rng, sms):
         return torch.as_tensor(rng.standard_normal(n), device=dev).float()
 
     inputs = {}
-    for i, lvl in enumerate(ml.levels[:-1]):    # the coarsest: pinv
+    # the coarsest level is solved by pinv: K1 there only with coarsest
+    for i, lvl in enumerate(ml.levels[:None if coarsest else -1]):
         D = lvl.A
         if isinstance(D, DIA):
             n, offs = D.shape[0], D.offsets
@@ -671,7 +771,7 @@ def classical_kernels(dev, path, rng, sms):
             want = dk.dia_spmv_plain(D.data, offs, n, x)
             torch.cuda.synchronize()
             err, _ = rel_err(y, want)
-            print(f"classical: K1 {tag} A{i} float32 n={n} ndiag={len(offs)}"
+            print(f"{phase}: K1 {tag} A{i} float32 n={n} ndiag={len(offs)}"
                   f" {dk.spmv_geometry(n, 1, D.data.shape[1], 4, sms)} "
                   f"launches {launched} max_abs_err={err:.3e}")
             check(err == 0 and launched == 1,
@@ -691,7 +791,7 @@ def classical_kernels(dev, path, rng, sms):
                 err, _ = rel_err(got, want)
                 g = dk.gs_geometry(n, len(offs), max(abs(o) for o in offs),
                                    4, sms)
-                print(f"classical: K2 {tag} A{i} {so['sweep']} omega="
+                print(f"{phase}: K2 {tag} A{i} {so['sweep']} omega="
                       f"{so['omega']} order={order} {g} "
                       f"max_abs_err={err:.3e}")
                 check(err == 0, f"K2 {tag} A{i} disagrees with its plain "
@@ -720,7 +820,7 @@ def classical_kernels(dev, path, rng, sms):
                        f"max_abs_err={errn:.3e}")
                 check(same and errn == 0, f"K3 {tag} {name} disagrees with "
                       f"its plain version on an x holding inf and NaN")
-            print(f"classical: K3 {tag} {name} {S.kind}/{S.t} {S.shape} "
+            print(f"{phase}: K3 {tag} {name} {S.kind}/{S.t} {S.shape} "
                   f"passes {S.n_passes} K={S.K} Sy={S.Sy} "
                   f"{sk.spmv_geometry(S.n_passes, S.shape[0])} "
                   f"max_abs_err={err:.3e}{msg}")
@@ -731,14 +831,14 @@ def classical_kernels(dev, path, rng, sms):
             Dinv = lvl.pre[2]["Dinv"]
             n = D.shape[0]
             x, b = vec(n), vec(n)
-            print(f"classical: K5 {tag} A{i} n={n} passes {D.n_passes} "
+            print(f"{phase}: K5 {tag} A{i} n={n} passes {D.n_passes} "
                   f"{sk.gs_geometry(D.n_passes, D.Sy * LANE)}")
             for sweep in ("forward", "backward"):
                 got = sk.sell_gs_sweep(D, x, b, Dinv, 1.0, sweep)
                 want = sk.sell_gs_sweep_plain(D, x, b, Dinv, 1.0, sweep)
                 torch.cuda.synchronize()
                 err, _ = rel_err(got, want)
-                print(f"classical: K5 {tag} A{i} {sweep} omega=1.0 "
+                print(f"{phase}: K5 {tag} A{i} {sweep} omega=1.0 "
                       f"max_abs_err={err:.3e}")
                 check(err == 0, f"K5 {tag} A{i} {sweep} disagrees with its "
                                 f"plain version")
@@ -747,7 +847,7 @@ def classical_kernels(dev, path, rng, sms):
     return inputs
 
 
-def classical_launches(ml):
+def path_launches(ml):
     """{kernel: {operator: launches}} of the last solve on ``ml``, from the
     wrappers' per-operator counters (DIA levels by (n, diagonals), SELL
     operators by plan)."""
@@ -774,14 +874,21 @@ def classical_launches(ml):
     return out
 
 
-def classical_drive(path, want, reps=5):
-    """Drive one classical path as a user does: ``solve_refined`` to 1e-10
-    with the launch counts set to 0 just before and read just after; then
-    ``reps`` warm solves and one profiled.  Checks the iterations (2 outer,
-    inner within 1 of the JAX package's), the true relative residual below
-    1e-10 and the kernels launched: those the path must launch, on every
-    operator of the cycle, and no other.  Returns (launches per kernel,
-    per operator)."""
+def iterations_near(it, want):
+    """The JAX package's outer count, each inner count within 1."""
+    return (it["outer"] == want["outer"] and
+            len(it["inner"]) == len(want["inner"]) and
+            all(abs(a - c) <= 1 for a, c in zip(it["inner"], want["inner"])))
+
+
+def drive_path(path, want, reps=5, phase="classical"):
+    """Drive one path as a user does: ``solve_refined`` to 1e-10 with the
+    launch counts set to 0 just before and read just after; then ``reps``
+    warm solves and one profiled.  Checks the iterations (the path's
+    ``iterations_ok``, by default ``iterations_near`` the JAX package's),
+    the true relative residual below 1e-10 and the kernels launched: those
+    the path must launch, on every operator of the cycle, and no other.
+    Returns (launches per kernel, per operator, warm median seconds)."""
     import torch
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import sell_kernels as sk
@@ -798,7 +905,7 @@ def classical_drive(path, want, reps=5):
     x = solve(residuals=res, iterations_out=it)
     cold = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
-    per_op = classical_launches(ml)
+    per_op = path_launches(ml)
     relres = float(np.linalg.norm(b - S @ x) / np.linalg.norm(b))
     walls = []
     for _ in range(reps):
@@ -806,7 +913,7 @@ def classical_drive(path, want, reps=5):
         solve()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    print(f"classical: {tag} cold solve_refined {cold:.3f} s, outer "
+    print(f"{phase}: {tag} cold solve_refined {cold:.3f} s, outer "
           f"{it['outer']} inner {it['inner']} (JAX package "
           f"{want['outer']} {list(want['inner'])}), true_relres "
           f"{relres:.3e} (JAX package {want['true_relres']:.3e}), residuals "
@@ -814,14 +921,12 @@ def classical_drive(path, want, reps=5):
           f"{statistics.median(walls) * 1e3:.3f} ms (all "
           f"{[round(w * 1e3, 3) for w in walls]}), launches per solve "
           f"{launches}, per operator {per_op}")
-    print_profile(tag, *profiled(solve), phase="classical")
+    print_profile(tag, *profiled(solve), phase=phase)
     check(x.shape == b.shape and np.isfinite(x).all(),
           f"{tag}: x is not a finite vector of the right shape")
-    check(it["outer"] == want["outer"] and
-          len(it["inner"]) == len(want["inner"]) and
-          all(abs(a - c) <= 1 for a, c in zip(it["inner"], want["inner"])),
-          f"{tag}: iterations {it} differ from the JAX package's "
-          f"{want['outer']} {want['inner']} by more than 1")
+    ok, rule = path.get("iterations_ok", (iterations_near, "within 1"))
+    check(ok(it, want), f"{tag}: iterations {it} against the JAX package's "
+                        f"{want['outer']} {list(want['inner'])}: not {rule}")
     check(relres < 1e-10, f"{tag}: true relative residual {relres:.3e} not "
                           f"below 1e-10")
     check(all(launches[k] > 0 for k in path["must"]) and
@@ -835,7 +940,7 @@ def classical_drive(path, want, reps=5):
           all(sum(per_op[k].values()) == launches[k] for k in per_op),
           f"{tag}: an operator of the cycle was never launched, or the "
           f"per-operator counts do not add up to the kernels' totals")
-    return launches, per_op
+    return launches, per_op, statistics.median(walls)
 
 
 def classical_phase(dev, sms, rng, want=None, n_rs=500, n_air=256, reps=5):
@@ -865,10 +970,10 @@ def classical_phase(dev, sms, rng, want=None, n_rs=500, n_air=256, reps=5):
         check(got["layouts"] == ref["layouts"] and got["dia"] == ref["dia"]
               and got["plans"] == ref["plans"],
               f"{tag}: layouts or plans differ from the JAX package's")
-        inputs[tag] = classical_kernels(dev, path, rng, sms)
+        inputs[tag] = path_kernels(dev, path, rng, sms)
     for path in paths:
-        _, per_ops[path["name"]] = classical_drive(path, want[path["name"]],
-                                                   reps)
+        _, per_ops[path["name"]], _ = drive_path(path, want[path["name"]],
+                                                 reps)
     # the same small solves on the card and on the CPU (plain versions)
     xs = {}
     for d in ("cuda", "cpu"):
@@ -882,6 +987,238 @@ def classical_phase(dev, sms, rng, want=None, n_rs=500, n_air=256, reps=5):
         check(diff < 1e-9, f"{p['name']}: the card's small solve disagrees "
                            f"with the CPU's")
     return inputs, per_ops
+
+
+def sa_more_paths(dev, n_aniso=512, n_el=100):
+    """The ``sa_more:`` phase's paths, built as ``bench_suite.py`` builds
+    them (``:83-118`` and ``:121-138``), compressed and placed on ``dev``:
+    rotated anisotropic diffusion (epsilon 1e-3, theta pi/8, FE) on
+    n_aniso^2 with evolution strength and grid aggregation,
+    ``max_coarse=20``; 2-D linear elasticity on n_el^2 (2 x 2 blocks) with
+    its rigid-body modes as B, ``max_coarse=50``; float32, each solved by
+    ``solve_refined(tol=1e-10, accel="cg", inner_maxiter=60,
+    max_outer=20)``, b from ``default_rng(0)``.  Each a dict as
+    ``classical_paths`` gives, with the path's iteration rule."""
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    from pyamg_tpu_torch.gallery import (diffusion_stencil_2d,
+                                         linear_elasticity, stencil_grid)
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+
+    def outer_near_inner_capped(it, want):
+        return (abs(it["outer"] - want["outer"]) <= 1 and
+                all(k <= SA_INNER_CAP for k in it["inner"]))
+
+    st = diffusion_stencil_2d(epsilon=1e-3, theta=np.pi / 8, type="FE")
+    A_el, B_el = linear_elasticity((n_el, n_el))
+    specs = [
+        ("anisotropic", stencil_grid(st, (n_aniso, n_aniso)), None,
+         {"strength": ("evolution", {}), "aggregate": ("grid", {}),
+          "max_coarse": 20}, ("dia_spmv", "dia_gs_sweep"),
+         (outer_near_inner_capped,
+          f"outer within 1 and every inner at most {SA_INNER_CAP}")),
+        ("elasticity", A_el, B_el, {"max_coarse": 50}, (),
+         (iterations_near, "within 1"))]
+    out = []
+    for name, A64, B, kw, must, rule in specs:
+        t0 = time.perf_counter()
+        ml = smoothed_aggregation_solver(A64.astype(np.float32), B=B, **kw)
+        setup = time.perf_counter() - t0
+        ml.compress_stencils()
+        ml.to_device(dev)
+        out.append({"name": name, "S": to_scipy(A64).tocsr(), "ml": ml,
+                    "b": np.random.default_rng(0).standard_normal(
+                        A64.shape[0]),
+                    "kw": {"accel": "cg", "inner_maxiter": SA_INNER_CAP,
+                           "max_outer": 20},
+                    "setup_s": setup, "by_key": ml.setup_timings(),
+                    "must": must, "iterations_ok": rule})
+    return out
+
+
+def sa_more_describe(ml):
+    """What ``tests/jax_sa_reference.py`` prints of a hierarchy: rows,
+    blocksizes, operator complexity, layouts and DIA widths."""
+    from pyamg_tpu_torch.sparse.matrix import BELL, DIA
+    dia = {}
+    for i, lvl in enumerate(ml.levels):
+        for attr in "APR":
+            if isinstance(getattr(lvl, attr), DIA):
+                dia[f"{attr}{i}"] = len(getattr(lvl, attr).offsets)
+    return {"rows": [lvl.A.shape[0] for lvl in ml.levels],
+            "blocksizes": [lvl.A.blocksize if isinstance(lvl.A, BELL)
+                           else (1, 1) for lvl in ml.levels],
+            "operator_complexity": ml.operator_complexity(),
+            "layouts": layout(ml), "dia": dia}
+
+
+def ops_per_call(fn, flush, skip, reps=20):
+    """{device operation: (launches per call, mean us per launch)} of
+    ``fn``, from the last ``reps`` of ``reps`` + FLUSH_SPARE calls, each
+    after a read through ``flush`` whose operations (``skip``) mark the
+    calls apart, so that a call the trace cut short is left out."""
+    def body():
+        flush.sum()
+        fn()
+
+    calls, cur = [], None
+    for e in device_events(body, reps + FLUSH_SPARE):
+        if e.name in skip:          # a read is several operations
+            if cur:
+                calls.append(cur)
+            cur = {}
+        elif cur is not None:
+            c, d = cur.get(e.name, (0, 0.0))
+            cur[e.name] = (c + 1, d + e.time_range.end - e.time_range.start)
+    calls = (calls + ([cur] if cur else []))[-reps:]
+    check(len(calls) == reps, f"{len(calls)} of {reps} calls traced")
+    out = {}
+    for call in calls:
+        for name, (c, d) in call.items():
+            oc, od = out.get(name, (0, 0.0))
+            out[name] = (oc + c, od + d)
+    return {name: (c / reps, d / c) for name, (c, d) in out.items()}
+
+
+def block_ops(dev, ml, rng, flush, skip):
+    """The elasticity cycle's block work on its fine level, by its torch
+    operations: one ``bspmv``, one block Gauss-Seidel color pass (a full
+    ``bspmv``, the batched product with the inverted diagonal blocks and
+    the masked update) and the level's whole pre-smoothing sweep.  Prints
+    each one's device time per call (L2-warm), its time with the host, and
+    its device operations (``ops_per_call``, L2 flushed)."""
+    import torch
+    from pyamg_tpu_torch.ops.spmv import bspmv
+    from pyamg_tpu_torch.relaxation import relaxation as rx
+    from pyamg_tpu_torch.relaxation.smoothing import apply_smoother
+    lvl = ml.levels[0]
+    A = lvl.A
+    kind, sopts, params = lvl.pre
+    x, b = (torch.as_tensor(rng.standard_normal(A.shape[0]),
+                            device=dev).float() for _ in range(2))
+    first = params["colors"] == 0
+    cases = [("bspmv", lambda: bspmv(A, x)),
+             ("block GS color pass",
+              lambda: x + params["omega"] * rx._block_update(
+                  A, x, b, params["Dinv"], first)),
+             (f"block GS {sopts['sweep']} sweep ({sopts['ncolors']} colors)",
+              lambda: apply_smoother(kind, sopts, params, A, x, b))]
+    for what, fn in cases:
+        fn()
+        torch.cuda.synchronize()
+        ops = "; ".join(
+            f"{c:g} x {us:.2f} us {name[:70]}" for name, (c, us) in
+            sorted(ops_per_call(fn, flush, skip).items(),
+                   key=lambda kv: -kv[1][0] * kv[1][1]))
+        print(f"sa_more: elasticity A0 {what}: {device_ms(fn) * 1e3:.2f} us "
+              f"of device time per call, {cuda_ms(fn, reps=50) * 1e3:.2f} us "
+              f"per call with the host; device operations per call (L2 "
+              f"flushed before each): {ops}")
+
+
+def sa_more_phase(dev, sms, rng, flush, skip, want=None, small=None,
+                  n_aniso=512, n_el=100, n_small=(64, 24), reps=5):
+    """The ``sa_more:`` phase: build both SA paths and print their setup
+    and hierarchy; gate the hierarchies against ``want`` (JAX_SA) before
+    any solve; hold K1 on every anisotropic DIA level and K2 (each level's
+    symmetric sweep, omega 1) on every level it smooths against the plain
+    versions; drive each path; time the elasticity path's block work
+    (``block_ops``, with ``flush`` and ``skip`` as ``flushed_ms``); then
+    solve both at ``n_small`` on ``dev`` and on the CPU: the iterations of
+    ``small`` (JAX_SA_SMALL) on both and solutions within 1e-9.  Returns
+    ({path: kernel inputs}, {path: launches per operator})."""
+    want = JAX_SA if want is None else want
+    small = JAX_SA_SMALL if small is None else small
+    paths = sa_more_paths(dev, n_aniso, n_el)
+    inputs, per_ops = {}, {}
+    for path in paths:
+        tag, ml = path["name"], path["ml"]
+        got = sa_more_describe(ml)
+        print(f"sa_more: {tag} setup {path['setup_s']:.3f} s, by key "
+              f"{ {k: round(v, 4) for k, v in path['by_key'].items()} }, "
+              f"levels {len(got['rows'])} rows {got['rows']} blocksizes "
+              f"{got['blocksizes']} operator_complexity "
+              f"{got['operator_complexity']!r} layout {got['layouts']} DIA "
+              f"diagonals {got['dia']}")
+        ref = want[tag]
+        check(got["rows"] == ref["rows"] and
+              got["blocksizes"] == ref["blocksizes"],
+              f"{tag}: rows {got['rows']} blocksizes {got['blocksizes']}, "
+              f"the JAX package {ref['rows']} {ref['blocksizes']}")
+        check(abs(got["operator_complexity"] - ref["operator_complexity"])
+              <= 1e-6, f"{tag}: operator complexity off the JAX package's")
+        check(got["layouts"] == ref["layouts"] and got["dia"] == ref["dia"],
+              f"{tag}: layouts or DIA widths differ from the JAX package's")
+        inputs[tag] = path_kernels(dev, path, rng, sms, phase="sa_more",
+                                   coarsest=True)
+    for path in paths:
+        _, per_ops[path["name"]], _ = drive_path(
+            path, want[path["name"]], reps, phase="sa_more")
+    block_ops(dev, paths[1]["ml"], rng, flush, skip)
+    # the same small solves on the card and on the CPU (plain versions)
+    got = {}
+    for d in ("cuda", "cpu"):
+        got[d] = []
+        for p in sa_more_paths(d, *n_small):
+            it = {}
+            x = p["ml"].solve_refined(p["b"], A_fine=p["S"], tol=1e-10,
+                                      iterations_out=it, **p["kw"])
+            got[d].append((x, it))
+    for p, (xc, itc), (xh, ith) in zip(paths, got["cuda"], got["cpu"]):
+        ref = small[p["name"]]
+        diff = float(np.linalg.norm(xc - xh) / np.linalg.norm(xh))
+        print(f"sa_more: {p['name']} small solve, card {itc} CPU {ith} (JAX "
+              f"package {ref['outer']} {list(ref['inner'])}), card vs CPU "
+              f"relative difference {diff:.3e} (tol 1e-9)")
+        check(itc == ith and iterations_near(itc, ref),
+              f"{p['name']}: the small solve's iterations differ between "
+              f"card and CPU or from the JAX package's")
+        check(diff < 1e-9, f"{p['name']}: the card's small solve disagrees "
+                           f"with the CPU's")
+    return inputs, per_ops
+
+
+def dia_rows(dev, sms, row, inputs, per_ops, k1_ops, k2_ops):
+    """The kernel table's rows of K1 on the (path, operator) pairs
+    ``k1_ops`` and of K2 on ``k2_ops``, from a phase's kernel inputs
+    (``path_kernels``) and launches per operator (``drive_path``); K1's
+    library call is torch.sparse's CSR product of the same operator."""
+    import torch
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.sparse.matrix import DIA, to_scipy
+    rows = []
+    for tag, op in k1_ops:
+        D, xk, err1 = inputs[tag][f"K1 {op}"]
+        n, nd = D.shape[0], len(D.offsets)
+        Acsr = csr_on(to_scipy(DIA(D.data.cpu().numpy(), D.offsets,
+                                   D.shape)), dev)
+        e_lib, scale = rel_err(Acsr @ xk,
+                               dk.dia_spmv_plain(D.data, D.offsets, n, xk))
+        check(e_lib <= 1e-5 * scale,
+              f"library CSR product disagrees ({tag} {op})")
+        g = dk.spmv_geometry(n, 1, D.data.shape[1], 4, sms)
+        rows.append(row(
+            f"dia_spmv {tag} {op}", "pyamg_tpu/ops/pallas_kernels.py:52",
+            per_ops[tag]["dia_spmv"][op], err1,
+            lambda: dk.dia_spmv(D.data, D.offsets, n, xk),
+            lambda: dk.dia_spmv_plain(D.data, D.offsets, n, xk),
+            lambda: Acsr @ xk, (nd * n + 2 * n) * 4, 2 * nd * n,
+            tag=f"dia_spmv {tag} {op} ({nd} diagonals, {g})"))
+    for tag, op in k2_ops:
+        D, xg, bg, Dinv, colors, order, err2 = inputs[tag][f"K2 {op}"]
+        n, nd = D.shape[0], len(D.offsets)
+        per_color = torch.bincount(colors.long()).tolist()
+        g = dk.gs_geometry(n, nd, max(abs(o) for o in D.offsets), 4, sms)
+        rows.append(row(
+            f"dia_gs_sweep {tag} {op}", "pyamg_tpu/ops/pallas_kernels.py:126",
+            per_ops[tag]["dia_gs_sweep"][op], err2,
+            lambda: dk.dia_gs_sweep(D.data, D.offsets, n, xg, bg, Dinv,
+                                    colors, order),
+            lambda: dk.dia_gs_sweep_plain(D.data, D.offsets, n, xg, bg, Dinv,
+                                          colors, order, 1.0),
+            None, (nd * n + 4 * n) * 4 + 4 * n,
+            sum(per_color[c] for c in order) * (2 * nd + 3),
+            tag=f"dia_gs_sweep {tag} {op} ({len(order)} passes, {g})"))
+    return rows
 
 
 def main():
@@ -918,6 +1255,7 @@ def main():
                   f"bytes static shared memory, stack frame {frame} B, spill "
                   f"stores {st} B, spill loads {ld} B")
     print(f"device: kernels built in {time.perf_counter() - t0:.1f} s")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # -- 2. kernels against their plain versions ---------------------------
     _, ml_k, _ = build_hierarchy(500, 0, dev, ds=False)
@@ -958,7 +1296,6 @@ def main():
               f"{launched} launches")
         return data, x, err
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     P2048 = poisson((2048, 2048)).astype(np.float32)
     big = dia_from_ell(P2048)
     k1_ops = {"500^2 level 0": ml_k.levels[0].A,
@@ -1457,37 +1794,7 @@ def main():
     flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
     skip = flush_ops(flush)
 
-    def row(name, replaces, launches, err, fn, plain, library, nbytes, ops,
-            source="pyamg_tpu_torch/csrc/dia_kernels.cu", plain_reps=50,
-            tag=None):
-        """A kernel's line: device times per call (profiler; the kernel's
-        and the library call's the median of calls made with L2 flushed,
-        and also their mean L2-warm), and its bound, the larger of bytes
-        over the memory rate and float32 operations over the float32
-        rate."""
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
-        cold = flushed_ms(fn, flush, skip)
-        r = {"name": name, "route": "cuda", "source": source,
-             "replaces": replaces, "launches": launches, "max_abs_err": err,
-             "ms": statistics.median(cold),
-             "plain_ms": device_ms(plain, plain_reps),
-             "bound_ms": max(t_bytes, t_ops) * 1e3,
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": None if library is None else
-             statistics.median(flushed_ms(library, flush, skip))}
-        lib = "-" if library is None else \
-            f"{r['library_ms'] * 1e3:.2f} us (L2 flushed, median; " \
-            f"{device_ms(library) * 1e3:.2f} us L2-warm)"
-        print(f"times: {tag or name} device {r['ms'] * 1e3:.2f} us per call "
-              f"with L2 flushed (median; {min(cold) * 1e3:.2f}-"
-              f"{max(cold) * 1e3:.2f} us over {len(cold)} calls), "
-              f"{device_ms(fn) * 1e3:.2f} us L2-warm "
-              f"({cuda_ms(fn) * 1e3:.2f} us per call with the host), bound "
-              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}, "
-              f"{nbytes / 1e6:.2f} MB), plain {r['plain_ms'] * 1e3:.2f} us "
-              f"(L2-warm), library {lib}, launches on the main path "
-              f"{launches}")
-        return r
+    row = functools.partial(kernel_row, flush, skip)
 
     # K1 on each DIA operator, launches per solve from each path's cold
     # solve (2048^2 is off both paths); the library call is torch.sparse's
@@ -1628,38 +1935,9 @@ def main():
     cinputs, cper_op = classical_phase(dev, sms, rng)
     print(f"classical: phase before its times {time.perf_counter() - t0:.2f}"
           f" s")
-    for tag, op in (("RS", "A1"), ("RS", "A2"), ("AIR", "A0")):
-        D, xk, err1 = cinputs[tag][f"K1 {op}"]
-        n, nd = D.shape[0], len(D.offsets)
-        Acsr = csr_on(to_scipy(DIA(D.data.cpu().numpy(), D.offsets,
-                                   D.shape)), dev)
-        e_lib, scale = rel_err(Acsr @ xk,
-                               dk.dia_spmv_plain(D.data, D.offsets, n, xk))
-        check(e_lib <= 1e-5 * scale,
-              f"library CSR product disagrees ({tag} {op})")
-        g = dk.spmv_geometry(n, 1, D.data.shape[1], 4, sms)
-        rows.append(row(
-            f"dia_spmv {tag} {op}", "pyamg_tpu/ops/pallas_kernels.py:52",
-            cper_op[tag]["dia_spmv"][op], err1,
-            lambda: dk.dia_spmv(D.data, D.offsets, n, xk),
-            lambda: dk.dia_spmv_plain(D.data, D.offsets, n, xk),
-            lambda: Acsr @ xk, (nd * n + 2 * n) * 4, 2 * nd * n,
-            tag=f"dia_spmv {tag} {op} ({nd} diagonals, {g})"))
-    for op in ("A1", "A2"):
-        D, xg, bg, Dinv, colors, order, err2 = cinputs["RS"][f"K2 {op}"]
-        n, nd = D.shape[0], len(D.offsets)
-        per_color = torch.bincount(colors.long()).tolist()
-        g = dk.gs_geometry(n, nd, max(abs(o) for o in D.offsets), 4, sms)
-        rows.append(row(
-            f"dia_gs_sweep RS {op}", "pyamg_tpu/ops/pallas_kernels.py:126",
-            cper_op["RS"]["dia_gs_sweep"][op], err2,
-            lambda: dk.dia_gs_sweep(D.data, D.offsets, n, xg, bg, Dinv,
-                                    colors, order),
-            lambda: dk.dia_gs_sweep_plain(D.data, D.offsets, n, xg, bg, Dinv,
-                                          colors, order, 1.0),
-            None, (nd * n + 4 * n) * 4 + 4 * n,
-            sum(per_color[c] for c in order) * (2 * nd + 3),
-            tag=f"dia_gs_sweep RS {op} ({len(order)} passes, {g})"))
+    rows += dia_rows(dev, sms, row, cinputs, cper_op,
+                     (("RS", "A1"), ("RS", "A2"), ("AIR", "A0")),
+                     (("RS", "A1"), ("RS", "A2")))
     for tag, op in (("RS", "P0"), ("RS", "R0"), ("RS", "A3"), ("AIR", "R0"),
                     ("AIR", "A1")):
         S, S_host, xk, err3 = cinputs[tag][f"K3 {op}"]
@@ -1679,6 +1957,16 @@ def main():
         plain_reps=2, tag=tag))
     slot_model(S, 4 * n * 4, tag)
     del cinputs
+
+    # -- 8. sa_more: anisotropic diffusion 512^2 and elasticity 100^2 -------
+    t0 = time.perf_counter()
+    sinputs, sper_op = sa_more_phase(dev, sms, rng, flush, skip)
+    print(f"sa_more: phase before its times {time.perf_counter() - t0:.2f} s")
+    # K1 and K2 on the anisotropic finest level and on A3 (361 rows, the
+    # small-level regime)
+    aniso = (("anisotropic", "A0"), ("anisotropic", "A3"))
+    rows += dia_rows(dev, sms, row, sinputs, sper_op, aniso, aniso)
+    del sinputs
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

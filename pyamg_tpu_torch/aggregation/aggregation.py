@@ -4,7 +4,9 @@
 Per level, on the host with numpy/scipy: strength of connection,
 aggregation, candidate improvement (relaxation on A x = 0), tentative
 prolongator by per-aggregate QR, prolongation smoothing, restriction by
-symmetry and the Galerkin product.  Scalar operators only.
+symmetry and the Galerkin product.  A block (BELL) operator coarsens its
+block graph: T, P, R and the coarse operators are BELLs, the Galerkin
+product a block SpGEMM.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import dataclasses
 
 import numpy as np
 
-from pyamg_tpu_torch.sparse.matrix import asarray_or_ell
+from pyamg_tpu_torch.sparse.matrix import BELL, asarray_or_ell
 from pyamg_tpu_torch.multilevel import Level, MultilevelSolver
 from pyamg_tpu_torch.relaxation.smoothing import (
     apply_smoother, change_smoothers, make_smoother, unpack_arg)
@@ -21,9 +23,25 @@ from pyamg_tpu_torch.strength import strength_measure
 from pyamg_tpu_torch.aggregation.aggregate import aggregate_dispatch
 from pyamg_tpu_torch.aggregation.tentative import fit_candidates
 from pyamg_tpu_torch.aggregation.smooth import smooth_prolongator
-from pyamg_tpu_torch.util.utils import levelize
-from pyamg_tpu_torch.ops.spgemm import spgemm
-from pyamg_tpu_torch.ops.transpose import transpose
+from pyamg_tpu_torch.util.utils import SetupClock, levelize
+from pyamg_tpu_torch.ops.spgemm import spgemm, spgemm_bell
+from pyamg_tpu_torch.ops.transpose import btranspose, transpose
+
+
+def _galerkin(R, A, P):
+    if isinstance(A, BELL):
+        return spgemm_bell(spgemm_bell(R, A), P)
+    return spgemm(spgemm(R, A), P)
+
+
+def _transpose(P, conjugate):
+    if isinstance(P, BELL):
+        return btranspose(P, conjugate=conjugate)
+    return transpose(P, conjugate=conjugate)
+
+
+def _block_rows(A):
+    return A.n_block_rows if isinstance(A, BELL) else A.shape[0]
 
 
 def _improve_candidates(A, B, spec):
@@ -50,9 +68,11 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
                                 diagonal_dominance=False, keep=False,
                                 coarse_solver="pinv", seed=0):
     """Smoothed-aggregation AMG hierarchy of a symmetric or Hermitian
-    scalar operator (host ELL or scipy sparse).  Of the aggregation
-    methods ``'standard'`` (the default, greedy) and ``'grid'`` are
-    ported.
+    operator: a host ELL, a host BELL or scipy sparse (BSR becomes a
+    BELL).  ``B`` defaults to ones, or on a BELL to one candidate per
+    unknown of a block (``kron(ones, eye(blocksize))``); ``max_coarse``
+    counts block rows.  Of the aggregation methods ``'standard'`` (the
+    default, greedy) and ``'grid'`` are ported.
 
     Examples
     --------
@@ -73,8 +93,12 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
     if diagonal_dominance:
         raise NotImplementedError("diagonal_dominance is not ported yet")
     n = A.shape[0]
-    B = np.ones((n, 1), dtype=A.dtype) if B is None else \
-        np.asarray(B, dtype=A.dtype)
+    if B is None:
+        bs = A.blocksize[0] if isinstance(A, BELL) else 1
+        B = np.asarray(np.kron(np.ones((n // bs, 1)), np.eye(bs)),
+                       dtype=A.dtype)
+    else:
+        B = np.asarray(B, dtype=A.dtype)
     if B.ndim == 1:
         B = B[:, None]
 
@@ -85,7 +109,8 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
 
     levels = [Level(A=A)]
     levels[0].B = B
-    while len(levels) < max_levels and levels[-1].A.shape[0] > max_coarse:
+    while len(levels) < max_levels and \
+            _block_rows(levels[-1].A) > max_coarse:
         if not _extend_hierarchy(levels, strength, aggregate, smooth,
                                  improve_candidates, keep, symmetry, seed):
             break
@@ -100,16 +125,19 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
     """One coarsening step; False when coarsening stalls."""
     lvl_idx = len(levels) - 1
     A, B = levels[-1].A, levels[-1].B
+    clock = SetupClock()
 
     C = strength_measure(A, strength[lvl_idx])
+    clock.mark("strength")
     # the strength filter drops the grid tag: thread it through so grid
     # aggregation and the PhaseStencil transfers can engage
-    fine_grid = A.grid
+    fine_grid = getattr(A, "grid", None)
     if fine_grid is not None:
         C = dataclasses.replace(C, grid=fine_grid)
 
     AggOp, Cnodes = aggregate_dispatch(C, aggregate[lvl_idx],
                                        seed=seed + lvl_idx)
+    clock.mark("aggregate")
     coarse_grid = getattr(AggOp, "col_grid", None)
     nnodes, nagg = AggOp.shape
     if nagg == 0 or nagg >= nnodes:
@@ -117,17 +145,20 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
 
     B = _improve_candidates(A, B, improve_candidates[lvl_idx])
     levels[-1].B = B
+    clock.mark("improve_candidates")
     T, Bc = fit_candidates(AggOp, B)
+    clock.mark("fit_candidates")
     P = smooth_prolongator(smooth[lvl_idx], A, T, C, Bc)
+    clock.mark("smooth_P")
     # grid-aligned single-candidate coarsening keeps the tensor structure:
     # tag P and the Galerkin product with the fine and coarse grids
     if coarse_grid is not None and fine_grid is not None \
-            and Bc.shape[1] == 1:
+            and not isinstance(P, BELL) and Bc.shape[1] == 1:
         P = dataclasses.replace(P, grid=fine_grid, col_grid=coarse_grid)
     else:
         coarse_grid = None
 
-    R = transpose(P, conjugate=(symmetry == "hermitian"))
+    R = _transpose(P, conjugate=(symmetry == "hermitian"))
 
     if keep:
         levels[-1].C = C
@@ -136,8 +167,11 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
     levels[-1].Cnodes = Cnodes
     levels[-1].P = P
     levels[-1].R = R
+    clock.mark("transpose_R")
 
-    Ac = spgemm(spgemm(R, A), P)
+    Ac = _galerkin(R, A, P)
+    clock.mark("rap")
+    levels[-1]._setup_timings = clock.times
     if coarse_grid is not None:
         Ac = dataclasses.replace(Ac, grid=coarse_grid)
     lvl = Level(A=Ac)

@@ -3,14 +3,16 @@ path of ``pyamg_tpu/aggregation/tentative.py:fit_candidates``).
 
 Modified Gram-Schmidt over each aggregate's block of candidates, batched
 over aggregates with numpy; a column whose post-orthogonalization norm
-falls below ``tol`` times its pre-norm is dropped.
+falls below ``tol`` times its pre-norm is dropped (a zero column of T and
+of R).  With K1 unknowns a node and K2 candidates T is a BELL of (K1, K2)
+blocks, one per node; with one of each, an ELL.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pyamg_tpu_torch.sparse.matrix import ELL
+from pyamg_tpu_torch.sparse.matrix import BELL, ELL
 
 
 def _membership(AggOp: ELL):
@@ -31,8 +33,10 @@ def _membership(AggOp: ELL):
 
 
 def fit_candidates(AggOp: ELL, B, tol=1e-10):
-    """(T, Bc): tentative prolongator (n x nagg ELL) and coarse
-    candidates Bc = R, for a single candidate on a scalar operator."""
+    """(T, Bc): the tentative prolongator of the (n nodes x nagg) aggregation
+    ``AggOp`` and candidates B (n * K1 rows, K2 columns), and the coarse
+    candidates Bc = R of shape (nagg * K2, K2).  T is an (n x nagg) ELL for
+    K1 = K2 = 1, else an (n K1 x nagg K2) BELL of (K1, K2) blocks."""
     B = np.asarray(B)
     if B.ndim == 1:
         B = B[:, None]
@@ -41,9 +45,6 @@ def fit_candidates(AggOp: ELL, B, tol=1e-10):
     K1 = B.shape[0] // n
     if K1 * n != B.shape[0]:
         raise ValueError("B row count must be a multiple of n")
-    if (K1, K2) != (1, 1):
-        raise NotImplementedError(
-            "block candidates (BELL prolongators) are not ported yet")
     dtype = B.dtype
 
     members, labels = _membership(AggOp)
@@ -73,6 +74,10 @@ def fit_candidates(AggOp: ELL, B, tol=1e-10):
     Tblocks[idx[~pad]] = Q.reshape(nagg, m_max, K1, K2)[~pad]
     has = labels >= 0
     cols = np.where(has, labels, 0).astype(np.int32)[:, None]
-    vals = np.where(has, Tblocks[:, 0, 0], 0)[:, None]
-    T = ELL(cols, vals, has.astype(np.int32), (n, nagg))
-    return T, R.reshape(nagg * K2, K2)
+    Bc = R.reshape(nagg * K2, K2)
+    if K1 == 1 and K2 == 1:
+        vals = np.where(has, Tblocks[:, 0, 0], 0)[:, None]
+        return ELL(cols, vals, has.astype(np.int32), (n, nagg)), Bc
+    vals = np.where(has[:, None, None], Tblocks, 0)[:, None, :, :]
+    return BELL(cols, vals, has.astype(np.int32), (n * K1, nagg * K2),
+                (K1, K2)), Bc

@@ -16,11 +16,11 @@ from pyamg_tpu_torch.sparse.matrix import asarray_or_ell
 from pyamg_tpu_torch.multilevel import Level, MultilevelSolver
 from pyamg_tpu_torch.relaxation.smoothing import change_smoothers, unpack_arg
 from pyamg_tpu_torch.strength import strength_measure
-from pyamg_tpu_torch.classical.classical import (SetupClock,
-                                                 interpolation_of,
+from pyamg_tpu_torch.classical.classical import (interpolation_of,
                                                  splitting_of)
 from pyamg_tpu_torch.classical.interpolate import local_air
 from pyamg_tpu_torch.ops.spgemm import spgemm
+from pyamg_tpu_torch.util.utils import SetupClock
 
 
 def air_solver(A,

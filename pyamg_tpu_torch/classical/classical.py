@@ -9,8 +9,6 @@ Galerkin product.  Scalar operators only.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from pyamg_tpu_torch.sparse.matrix import asarray_or_ell
@@ -23,20 +21,7 @@ from pyamg_tpu_torch.classical.interpolate import (
     one_point_interpolation)
 from pyamg_tpu_torch.ops.spgemm import spgemm
 from pyamg_tpu_torch.ops.transpose import transpose
-
-
-class SetupClock:
-    """Wall time of the setup phases of one level, summed by key:
-    ``mark(key)`` charges the time since the last mark to ``key``."""
-
-    def __init__(self):
-        self.times = {}
-        self._t0 = time.perf_counter()
-
-    def mark(self, key):
-        now = time.perf_counter()
-        self.times[key] = self.times.get(key, 0.0) + (now - self._t0)
-        self._t0 = now
+from pyamg_tpu_torch.util.utils import SetupClock
 
 
 def splitting_of(C, CF, seed):

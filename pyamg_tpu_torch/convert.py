@@ -30,6 +30,13 @@ options under ``"opts"`` and its arrays and scalars beside them:
     cf_jacobi        opts {iterations, f_iterations, c_iterations};
     fc_jacobi        Cmask, Fmask (n,) bool (else from the level's
                      splitting), omega, Dinv
+    block_gauss_seidel  opts {iterations, sweep, ncolors}; Dinv (nb, br,
+                     br) (the pseudo-inverted diagonal blocks), colors
+                     (nb,) int32 of the block graph, omega
+    block_jacobi     opts {iterations}; omega, Dinv (nb, br, br)
+    cf_block_jacobi  opts as cf_jacobi; Cmask, Fmask (nb,) bool (else
+    fc_block_jacobi  from the level's splitting, each block row's first
+                     unknown), omega, Dinv (nb, br, br)
     krylov_cg, krylov_gmres  opts {maxiter}
     krylov_cgne, krylov_cgnr opts {maxiter}; AH <operator>
     none             {}
@@ -56,6 +63,8 @@ An operator is one of
                    "kind", "K", "pad_top", "x_rows", "nnz", "base_lo",
                    "base_hi"}
     ELL           {"cols": (n, W), "vals": (n, W), "row_nnz": (n,), "shape"}
+    BELL          {"cols": (nb, W), "vals": (nb, W, br, bc),
+                   "row_nnz": (nb,), "shape" (scalar), "blocksize"}
 
 ``order`` is the color-pass sequence the producer sweeps on a DIA or ELL
 level; it must equal the port's own (``relaxation.gs_order``), or the
@@ -67,7 +76,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil
+from pyamg_tpu_torch.sparse.matrix import BELL, DIA, ELL, PhaseStencil
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.multilevel import CoarseSolver, Level, MultilevelSolver
 from pyamg_tpu_torch.relaxation.relaxation import gs_order, ne_params
@@ -94,6 +103,10 @@ def _operator(d):
                     str(d["kind"]), int(d["K"]), int(d["pad_top"]),
                     int(d["x_rows"]), int(d["nnz"]), int(d["base_lo"]),
                     int(d["base_hi"]))
+    if "blocksize" in d:
+        return BELL(np.asarray(d["cols"], np.int32), np.asarray(d["vals"]),
+                    np.asarray(d["row_nnz"], np.int32), _shape(d),
+                    tuple(int(b) for b in d["blocksize"]))
     if "cols" in d:
         return ELL(np.asarray(d["cols"], np.int32), np.asarray(d["vals"]),
                    np.asarray(d["row_nnz"], np.int32), _shape(d))
@@ -101,6 +114,7 @@ def _operator(d):
                _shape(d))
 
 
+_CF_KINDS = ("cf_jacobi", "fc_jacobi", "cf_block_jacobi", "fc_block_jacobi")
 _NE_DINV = {"jacobi_ne": "Dinv_rows", "gauss_seidel_ne": "Dinv_rows",
             "gauss_seidel_nr": "Dinv_cols"}
 
@@ -113,10 +127,12 @@ def _smoother(d, A, splitting=None):
               for k, v in d.items() if k not in ("kind", "opts", "order")}
     if "colors" in params:
         params["colors"] = params["colors"].astype(np.int32)
-    if kind in ("cf_jacobi", "fc_jacobi") and "Cmask" not in params:
+    if kind in _CF_KINDS and "Cmask" not in params:
         if splitting is None:
             raise ValueError(f"{kind} needs Cmask and Fmask or the level's "
                              f"splitting")
+        if isinstance(A, BELL) and splitting.shape[0] != A.n_block_rows:
+            splitting = splitting.reshape(A.n_block_rows, -1)[:, 0]
         params.update(Cmask=splitting, Fmask=~splitting)
     if kind in _NE_DINV and not {"AH", "Dinv"} <= params.keys():
         p = ne_params(A)

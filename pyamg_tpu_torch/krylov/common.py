@@ -9,7 +9,7 @@ host reads one stop flag per iteration.
 
 Placement: a tensor or an operator already placed (``.to(device)``)
 stays where it is, and b and x0 follow it.  A host array or host
-operator (numpy, scipy sparse, a host ELL/DIA/SELL) goes to
+operator (numpy, scipy sparse, a host ELL/BELL/DIA/SELL) goes to
 ``device``, by default the card; nothing falls back to the CPU by itself
 (``pyamg_tpu_torch/_device.py``).
 """
@@ -20,11 +20,12 @@ import numpy as np
 import torch
 
 from pyamg_tpu_torch._device import as_tensor, resolve
-from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil, from_scipy
+from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
+                                           from_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec as sp_matvec
 
-CONTAINERS = (DIA, ELL, PhaseStencil, SELL)
+CONTAINERS = (DIA, ELL, BELL, PhaseStencil, SELL)
 
 
 def real_dtype(dtype):
@@ -52,7 +53,8 @@ def placed_device(A):
     """The device an operator or tensor lives on, None for host data."""
     if isinstance(A, torch.Tensor):
         return A.device
-    arr = {DIA: "data", ELL: "vals", SELL: "vals"}.get(type(A))
+    arr = {DIA: "data", ELL: "vals", BELL: "vals",
+           SELL: "vals"}.get(type(A))
     if arr is not None:
         v = getattr(A, arr)
         return v.device if isinstance(v, torch.Tensor) else None

@@ -30,7 +30,8 @@ import torch
 
 from pyamg_tpu_torch._device import as_tensor, resolve
 from pyamg_tpu_torch.krylov.common import finalize, norm
-from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil, to_scipy
+from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
+                                           to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec
 from pyamg_tpu_torch.relaxation.smoothing import apply_smoother
@@ -48,7 +49,7 @@ def _cast(v, dtype):
             if np.issubdtype(v.dtype, np.floating) else v
     if isinstance(v, DIA):
         return DIA(_cast(v.data, dtype), v.offsets, v.shape)
-    if isinstance(v, ELL):
+    if isinstance(v, (ELL, BELL)):
         return dataclasses.replace(v, vals=_cast(v.vals, dtype))
     if isinstance(v, PhaseStencil):
         return dataclasses.replace(
@@ -64,7 +65,7 @@ def _cast(v, dtype):
 def _put(v, device):
     """An operator, an array or a dict of them on ``device``; anything
     else (Python scalars, callables) as it is."""
-    if isinstance(v, (DIA, ELL, PhaseStencil, SELL)):
+    if isinstance(v, (DIA, ELL, BELL, PhaseStencil, SELL)):
         return v.to(device)
     if isinstance(v, (np.ndarray, torch.Tensor)):
         return as_tensor(v, device)

@@ -1,8 +1,11 @@
-"""Elementwise host ELL algebra used by prolongation smoothing
-(counterpart of ``scale``/``scale_rows``/``add``/``sub`` in
+"""Elementwise host ELL algebra used by prolongation smoothing and the
+evolution strength (counterpart of ``scale``, ``scale_rows``, ``add``,
+``sub``, ``add_scaled_identity`` and ``with_diagonal`` in
 ``pyamg_tpu/ops/arith.py``; setup phase, numpy)."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -32,3 +35,39 @@ def add(A: ELL, B: ELL, width=None) -> ELL:
 
 def sub(A: ELL, B: ELL, width=None) -> ELL:
     return add(A, scale(B, -1), width=width)
+
+
+def _diagonal_slots(A: ELL):
+    """(rows, (n, W) bool of the stored diagonal entries)."""
+    rows = np.arange(A.shape[0], dtype=np.int32)
+    return rows, (A.cols == rows[:, None]) & A.valid_mask()
+
+
+def add_scaled_identity(A: ELL, alpha=1.0, beta=1.0, width=None) -> ELL:
+    """beta * I + alpha * A (square A).  Where every row stores its
+    diagonal the pattern is kept as it is; otherwise the diagonal is
+    merged in."""
+    n = A.shape[0]
+    rows, isdiag = _diagonal_slots(A)
+    if bool(isdiag.any(axis=1).all()):
+        vals = A.vals * alpha + np.where(isdiag, beta, 0)
+        return dataclasses.replace(A, vals=vals)
+    cols = np.concatenate([A.cols, rows[:, None]], axis=1)
+    vals = np.concatenate([A.vals * alpha,
+                           np.full((n, 1), beta, dtype=A.vals.dtype)], axis=1)
+    valid = np.concatenate([A.valid_mask(), np.ones((n, 1), bool)], axis=1)
+    return ell_dedup(cols, vals, valid, A.shape, width=width)
+
+
+def with_diagonal(A: ELL, d) -> ELL:
+    """A with its diagonal replaced (or inserted) by the vector d."""
+    rows, isdiag = _diagonal_slots(A)
+    d = np.asarray(d)
+    if bool(isdiag.any(axis=1).all()):
+        return dataclasses.replace(
+            A, vals=np.where(isdiag, d[:, None], A.vals))
+    cols = np.concatenate([A.cols, rows[:, None]], axis=1)
+    vals = np.concatenate([np.where(isdiag, 0, A.vals), d[:, None]], axis=1)
+    valid = np.concatenate([A.valid_mask(),
+                            np.ones((A.shape[0], 1), bool)], axis=1)
+    return ell_dedup(cols, vals, valid, A.shape)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from pyamg_tpu_torch._device import as_tensor, resolve
-from pyamg_tpu_torch.sparse.matrix import DIA, ELL
+from pyamg_tpu_torch.sparse.matrix import BELL, DIA, ELL, to_scipy
 from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
 
 
@@ -29,7 +29,7 @@ def check_matmul_precision():
 
 
 def to_dense(A, device="cuda") -> torch.Tensor:
-    """Dense (n, m) tensor of a host DIA, ELL or SELL container on
+    """Dense (n, m) tensor of a host DIA, ELL, BELL or SELL container on
     ``device``."""
     device = resolve(device)
     n, m = A.shape
@@ -54,6 +54,8 @@ def to_dense(A, device="cuda") -> torch.Tensor:
         return M
     if isinstance(A, SELL):
         return as_tensor(sell_to_scipy(A).toarray(), device)
+    if isinstance(A, BELL):
+        return as_tensor(to_scipy(A).toarray(), device)
     raise TypeError(f"cannot densify {type(A).__name__}")
 
 

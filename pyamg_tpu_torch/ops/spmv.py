@@ -3,7 +3,9 @@
 Host (numpy) operands take scipy's CSR product: that is the setup phase.
 Tensor operands are the solve phase: a DIA product is kernel K1 on CUDA
 (``ops/dia_kernels.py``), a SELL product kernel K3/K4
-(``ops/sell_kernels.py``), an ELL product a gather-multiply-reduce.
+(``ops/sell_kernels.py``), an ELL product a gather-multiply-reduce, a BELL
+product a gather of x's blocks and one einsum (torch ops on the tensors'
+device: the reference computes it outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -11,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyamg_tpu_torch.sparse.matrix import DIA, ELL, PhaseStencil, to_scipy
+from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
+                                           to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
 
@@ -34,6 +37,25 @@ def spmv(A: ELL, x):
     return torch.sum(A.vals * x[A.cols], dim=1)
 
 
+def bspmv(A: BELL, x):
+    """y = A @ x for block-ELL A; x flat of shape (n_cols,) or (n_cols, k):
+    scipy's BSR product for host arrays, else x's blocks gathered by
+    block column and contracted with the blocks in one einsum."""
+    if isinstance(x, np.ndarray):
+        return _scipy_memo(A) @ x
+    if x.is_cuda:
+        from pyamg_tpu_torch.ops.dense import check_matmul_precision
+        check_matmul_precision()
+    br, bc = A.blocksize
+    nb, nbc = A.n_block_rows, A.n_block_cols
+    if x.ndim == 1:
+        xg = x.reshape(nbc, bc)[A.cols]                 # (nb, W, bc)
+        return torch.einsum("nwij,nwj->ni", A.vals, xg).reshape(nb * br)
+    k = x.shape[1]
+    xg = x.reshape(nbc, bc, k)[A.cols]                  # (nb, W, bc, k)
+    return torch.einsum("nwij,nwjk->nik", A.vals, xg).reshape(nb * br, k)
+
+
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for banded A and x of shape (n,) or (n, k) (kernel K1 on
     CUDA tensors, one launch)."""
@@ -46,6 +68,8 @@ def matvec(A, x):
     """Dispatch on container type."""
     if isinstance(A, DIA):
         return dia_spmv(A, x)
+    if isinstance(A, BELL):
+        return bspmv(A, x)
     if isinstance(A, PhaseStencil):
         return A.mv(x)
     if isinstance(A, SELL):
@@ -55,10 +79,40 @@ def matvec(A, x):
     raise TypeError(f"no matvec for {type(A).__name__}")
 
 
+def _diagonal_blocks(A):
+    """(nb, W) mask of the stored diagonal blocks of a square-blocked
+    BELL (numpy or tensor, as A's arrays)."""
+    if isinstance(A.cols, torch.Tensor):
+        rows = torch.arange(A.n_block_rows, device=A.cols.device)[:, None]
+        slots = torch.arange(A.width, device=A.cols.device)[None, :]
+        return (A.cols == rows) & (slots < A.row_nnz[:, None])
+    return (A.cols == np.arange(A.n_block_rows, dtype=np.int32)[:, None]) \
+        & A.valid_mask()
+
+
+def extract_block_diagonal(A: BELL):
+    """(nb, br, bc) diagonal blocks of A (zero where none is stored)."""
+    hit = _diagonal_blocks(A)
+    if isinstance(hit, torch.Tensor):
+        return torch.einsum("nw,nwij->nij", hit.to(A.vals.dtype), A.vals)
+    return np.einsum("nw,nwij->nij", hit.astype(A.vals.dtype), A.vals)
+
+
 def extract_diagonal(A):
-    """diag(A) as a dense vector of a DIA, a square SELL or an ELL."""
+    """diag(A) as a dense vector of a DIA, a square SELL, an ELL or a
+    BELL with square blocks."""
     if isinstance(A, (DIA, SELL)):
         return A.diagonal()
+    if isinstance(A, BELL):
+        br, bc = A.blocksize
+        if br != bc:
+            raise ValueError(f"the diagonal of blocks {A.blocksize} is not "
+                             f"a scalar diagonal")
+        D = extract_block_diagonal(A)
+        if isinstance(D, torch.Tensor):
+            return torch.diagonal(D, dim1=1, dim2=2).reshape(-1)
+        idx = np.arange(br)
+        return D[:, idx, idx].reshape(-1)
     if isinstance(A.cols, torch.Tensor):
         rows = torch.arange(A.shape[0], device=A.cols.device)[:, None]
         slots = torch.arange(A.width, device=A.cols.device)[None, :]

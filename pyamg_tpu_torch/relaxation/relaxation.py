@@ -1,5 +1,5 @@
 """Relaxation sweeps (counterpart of ``pyamg_tpu/relaxation/relaxation.py``
-without the block (BELL) smoothers and Schwarz).
+without Schwarz).
 
 * Jacobi family: ``jacobi``, ``jacobi_indexed``, ``cf_jacobi``,
   ``fc_jacobi``; each iteration is one product ``A x`` (K1 on a DIA, K3
@@ -15,6 +15,13 @@ without the block (BELL) smoothers and Schwarz).
 * Normal-equation smoothers ``jacobi_ne``, ``gauss_seidel_ne``,
   ``gauss_seidel_nr``: products with A and with A^H (an ELL built at
   setup, ``ne_params``).
+* Block smoothers on a BELL, with the pseudo-inverted diagonal blocks
+  ``Dinv`` (nb, br, br): ``block_jacobi``, ``block_jacobi_indexed``,
+  ``cf_block_jacobi``, ``fc_block_jacobi`` and the multicolor
+  ``block_gauss_seidel`` over a coloring of the block graph.  A color
+  pass is one full product ``A x`` (``bspmv``), one batched product with
+  ``Dinv`` and a masked update, as in the reference; on tensors these are
+  torch ops on their device.
 
 Host (numpy) operands are the setup phase (candidate improvement);
 tensor operands are the solve phase.  No function here reads a tensor
@@ -27,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyamg_tpu_torch.sparse.matrix import DIA, ELL, from_scipy, to_scipy
+from pyamg_tpu_torch.sparse.matrix import BELL, DIA, ELL, from_scipy, to_scipy
 from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
 from pyamg_tpu_torch.ops.spmv import extract_diagonal, matvec
 from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
@@ -335,4 +342,114 @@ def gauss_seidel_nr(A, x, b, iterations=1, sweep="forward", omega=1.0,
             g = matvec(AH, b - matvec(A, x))
             on = colors[:m] == c if colors.shape[0] >= m else True
             x = x + where(on, omega * Dinv * g, 0.0)
+    return x
+
+
+# -- block smoothers (BELL) ----------------------------------------------------
+
+def block_pattern(A: BELL) -> ELL:
+    """The block graph of a host BELL as a host ELL of ones (what the
+    block smoothers color)."""
+    return ELL(A.cols, np.ones(A.cols.shape, np.float32), A.row_nnz,
+               (A.n_block_rows, A.n_block_cols))
+
+
+def block_dinv(A: BELL):
+    """The pseudo-inverses of A's diagonal blocks, (nb, br, br): computed
+    on the host (numpy's SVD), and placed where A's blocks are."""
+    from pyamg_tpu_torch.ops.spmv import extract_block_diagonal
+    from pyamg_tpu_torch.util.linalg import pinv_array
+    D = extract_block_diagonal(A)
+    if isinstance(D, torch.Tensor):
+        return torch.as_tensor(pinv_array(D.cpu().numpy()), device=D.device)
+    return pinv_array(D)
+
+
+def _block_update(A: BELL, x, b, Dinv, mask):
+    """blockdiag(Dinv) (b - A x) on the block rows of ``mask`` (all for
+    None), 0 elsewhere, shaped as x."""
+    nb, br = A.n_block_rows, A.blocksize[0]
+    r = b - matvec(A, x)
+    einsum = torch.einsum if isinstance(r, torch.Tensor) else np.einsum
+    if x.ndim == 2:
+        dx = einsum("nij,njk->nik", Dinv, r.reshape(nb, br, -1))
+        m = None if mask is None else mask[:, None, None]
+    else:
+        dx = einsum("nij,nj->ni", Dinv, r.reshape(nb, br))
+        m = None if mask is None else mask[:, None]
+    if m is not None:
+        dx = _where(_host(dx))(m, dx, 0)
+    return dx.reshape(x.shape)
+
+
+def _block_operands(A, x, b, Dinv):
+    if not isinstance(A, BELL):
+        raise TypeError(f"block smoothers take a BELL, not "
+                        f"{type(A).__name__}")
+    Dinv = block_dinv(A) if Dinv is None else Dinv
+    if _host(x, b, Dinv):
+        return np.asarray(x), np.asarray(b), np.asarray(Dinv)
+    return x, b, Dinv
+
+
+def block_jacobi(A, x, b, Dinv=None, iterations=1, omega=1.0):
+    """Block Jacobi: x <- x + omega blockdiag(Dinv) (b - A x)."""
+    x, b, Dinv = _block_operands(A, x, b, Dinv)
+    for _ in range(iterations):
+        x = x + omega * _block_update(A, x, b, Dinv, None)
+    return x
+
+
+def block_gauss_seidel(A, x, b, iterations=1, sweep="forward", Dinv=None,
+                       colors=None, ncolors=None, omega=1.0):
+    """Multicolor block Gauss-Seidel: per color c of the block graph's
+    coloring (forward, backward or forward then backward for
+    'symmetric', ``iterations`` times, no pass dropped), the block rows of
+    c get omega blockdiag(Dinv) (b - A x)."""
+    x, b, Dinv = _block_operands(A, x, b, Dinv)
+    if colors is None:
+        colors, ncolors = make_coloring(block_pattern(A))
+    if isinstance(x, torch.Tensor):
+        colors = torch.as_tensor(colors, device=x.device)
+    else:
+        colors = np.asarray(colors)
+    order = list(range(int(ncolors)))
+    passes = {"forward": order, "backward": order[::-1],
+              "symmetric": order + order[::-1]}
+    if sweep not in passes:
+        raise ValueError(f"unknown sweep {sweep!r}")
+    for _ in range(iterations):
+        for c in passes[sweep]:
+            x = x + omega * _block_update(A, x, b, Dinv, colors == c)
+    return x
+
+
+def block_jacobi_indexed(A, x, b, indices, Dinv=None, iterations=1,
+                         omega=1.0):
+    """Block Jacobi on the block rows of ``indices`` (block-row indices or
+    a bool mask over block rows); the others keep their values."""
+    x, b, Dinv = _block_operands(A, x, b, Dinv)
+    mask = _index_mask(indices, A.n_block_rows, x)
+    for _ in range(iterations):
+        x = x + omega * _block_update(A, x, b, Dinv, mask)
+    return x
+
+
+def cf_block_jacobi(A, x, b, Cpts, Fpts, Dinv=None, iterations=1,
+                    f_iterations=1, c_iterations=1, omega=1.0):
+    """CF block Jacobi: relax the C blocks, then the F blocks."""
+    Dinv = block_dinv(A) if Dinv is None else Dinv
+    for _ in range(iterations):
+        x = block_jacobi_indexed(A, x, b, Cpts, Dinv, c_iterations, omega)
+        x = block_jacobi_indexed(A, x, b, Fpts, Dinv, f_iterations, omega)
+    return x
+
+
+def fc_block_jacobi(A, x, b, Cpts, Fpts, Dinv=None, iterations=1,
+                    f_iterations=1, c_iterations=1, omega=1.0):
+    """FC block Jacobi: relax the F blocks, then the C blocks."""
+    Dinv = block_dinv(A) if Dinv is None else Dinv
+    for _ in range(iterations):
+        x = block_jacobi_indexed(A, x, b, Fpts, Dinv, f_iterations, omega)
+        x = block_jacobi_indexed(A, x, b, Cpts, Dinv, c_iterations, omega)
     return x

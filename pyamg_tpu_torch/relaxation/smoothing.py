@@ -1,6 +1,5 @@
 """Smoother setup and application (counterpart of
-``pyamg_tpu/relaxation/smoothing.py`` without the block (BELL) smoothers
-and Schwarz).
+``pyamg_tpu/relaxation/smoothing.py`` without Schwarz).
 
 A smoother is a triple ``(kind, sopts, params)``: ``kind`` and the static
 options ``sopts`` (Python scalars: they choose the code path and the loop
@@ -11,20 +10,25 @@ it from a level's host operator; ``apply_smoother`` runs it.  A
 polynomial it computed, Jacobi's damping as omega / rho.  So
 ``change_smoothers`` keeps each level's specs (``Level.smoother_specs``)
 for ``MultilevelSolver.change_solve_matrix`` to rebuild from.
+
+On a block (BELL) operator the Gauss-Seidel and block names set up the
+block smoothers: the pseudo-inverted diagonal blocks and, for
+Gauss-Seidel, a first-fit coloring of the block graph.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pyamg_tpu_torch.sparse.matrix import ELL, from_scipy
+from pyamg_tpu_torch.sparse.matrix import BELL, ELL, from_scipy
 from pyamg_tpu_torch.relaxation import relaxation as rx
 
 
 def rho_D_inv_A(A, seed=0):
-    """Spectral radius of D^-1 A (host ELL)."""
+    """Spectral radius of D^-1 A (host ELL, or BELL with D its scalar
+    diagonal)."""
     from pyamg_tpu_torch.util.linalg import approximate_spectral_radius
-    from pyamg_tpu_torch.ops.spmv import spmv
+    from pyamg_tpu_torch.ops.spmv import matvec
     Dinv = rx.dinv_vec(A)
 
     class _Op:
@@ -33,7 +37,7 @@ def rho_D_inv_A(A, seed=0):
 
         @staticmethod
         def matvec(v):
-            return Dinv * spmv(A, v)
+            return Dinv * matvec(A, v)
 
     return approximate_spectral_radius(_Op, seed=seed)
 
@@ -44,10 +48,11 @@ def _spectral_radius(A):
 
 
 def _scalar(A, what):
+    """Raise for a block operator where the reference has no block form."""
     if not isinstance(A, ELL):
         raise NotImplementedError(
-            f"{what} takes a scalar host ELL operator; block (BELL) "
-            f"smoothers are not ported yet")
+            f"{what} takes a scalar host ELL operator; the reference has no "
+            f"block (BELL) form of it")
 
 
 # -- setup_*: (level, A, opts) -> (kind, sopts, params) ----------------------
@@ -71,6 +76,14 @@ def setup_richardson(level, A, opts):
 
 
 def setup_gauss_seidel(level, A, opts):
+    """Multicolor Gauss-Seidel; on a BELL, block Gauss-Seidel over a
+    coloring of its block graph."""
+    if isinstance(A, BELL):
+        colors, nc = rx.make_coloring(rx.block_pattern(A))
+        return ("block_gauss_seidel",
+                {"iterations": int(opts.get("iterations", 1)),
+                 "sweep": opts.get("sweep", "forward"), "ncolors": nc},
+                {"colors": colors, "Dinv": rx.block_dinv(A), "omega": 1.0})
     _scalar(A, "Gauss-Seidel setup")
     colors, nc = rx.make_coloring(A)
     # omega is static (an option, not a param) so that the sweep can drop
@@ -84,7 +97,10 @@ def setup_gauss_seidel(level, A, opts):
 
 def setup_sor(level, A, opts):
     kind, sopts, params = setup_gauss_seidel(level, A, opts)
-    return (kind, {**sopts, "omega": float(opts.get("omega", 1.0))}, params)
+    omega = float(opts.get("omega", 1.0))
+    if kind == "block_gauss_seidel":
+        return (kind, sopts, {**params, "omega": omega})
+    return (kind, {**sopts, "omega": omega}, params)
 
 
 def setup_chebyshev(level, A, opts):
@@ -138,10 +154,15 @@ setup_gauss_seidel_nr = _setup_gs_normal("gauss_seidel_nr", "Dinv_cols")
 
 
 def setup_block_jacobi(level, A, opts):
-    """On a scalar operator, Jacobi (as the reference); block (BELL)
-    operators are not ported."""
-    _scalar(A, "block Jacobi setup")
-    return setup_jacobi(level, A, opts)
+    """Block Jacobi, damped by omega / rho(D^-1 A) with ``withrho`` (the
+    default); on a scalar operator, Jacobi (as the reference)."""
+    if not isinstance(A, BELL):
+        return setup_jacobi(level, A, opts)
+    omega = float(opts.get("omega", 1.0))
+    if bool(opts.get("withrho", True)):
+        omega = omega / rho_D_inv_A(A)
+    return ("block_jacobi", {"iterations": int(opts.get("iterations", 1))},
+            {"omega": omega, "Dinv": rx.block_dinv(A)})
 
 
 def setup_block_gauss_seidel(level, A, opts):
@@ -165,14 +186,28 @@ def setup_fc_jacobi(level, A, opts):
 
 
 def setup_cf_block_jacobi(level, A, opts):
-    """On a scalar operator, CF-Jacobi (as the reference)."""
-    _scalar(A, "CF block Jacobi setup")
-    return setup_cf_jacobi(level, A, opts)
+    """CF block Jacobi on the level's splitting (per block row, or per
+    unknown, of which each block row's first counts); on a scalar
+    operator, CF-Jacobi (as the reference)."""
+    if not isinstance(A, BELL):
+        return setup_cf_jacobi(level, A, opts)
+    split = np.asarray(level.splitting)
+    nb = A.n_block_rows
+    if split.shape[0] != nb:
+        split = split.reshape(nb, -1)[:, 0]
+    return ("cf_block_jacobi",
+            {"iterations": int(opts.get("iterations", 1)),
+             "f_iterations": int(opts.get("f_iterations", 1)),
+             "c_iterations": int(opts.get("c_iterations", 1))},
+            {"Cmask": split == 1, "Fmask": split == 0,
+             "omega": float(opts.get("omega", 1.0)),
+             "Dinv": rx.block_dinv(A)})
 
 
 def setup_fc_block_jacobi(level, A, opts):
-    _scalar(A, "FC block Jacobi setup")
-    return setup_fc_jacobi(level, A, opts)
+    kind, sopts, params = setup_cf_block_jacobi(level, A, opts)
+    return ("fc_block_jacobi" if kind == "cf_block_jacobi" else "fc_jacobi",
+            sopts, params)
 
 
 def setup_schwarz(level, A, opts):
@@ -332,6 +367,23 @@ def apply_smoother(kind, sopts, params, A, x, b):
                   sweep=sopts["sweep"], omega=params["omega"],
                   colors=params["colors"], ncolors=sopts["ncolors"],
                   AH=params["AH"], Dinv=params["Dinv"])
+    if kind == "block_gauss_seidel":
+        return rx.block_gauss_seidel(A, x, b, iterations=sopts["iterations"],
+                                     sweep=sopts["sweep"], Dinv=params["Dinv"],
+                                     colors=params["colors"],
+                                     ncolors=sopts["ncolors"],
+                                     omega=params["omega"])
+    if kind == "block_jacobi":
+        return rx.block_jacobi(A, x, b, Dinv=params["Dinv"],
+                               iterations=sopts["iterations"],
+                               omega=params["omega"])
+    if kind in ("cf_block_jacobi", "fc_block_jacobi"):
+        fn = rx.cf_block_jacobi if kind == "cf_block_jacobi" else \
+            rx.fc_block_jacobi
+        return fn(A, x, b, params["Cmask"], params["Fmask"],
+                  Dinv=params["Dinv"], iterations=sopts["iterations"],
+                  f_iterations=sopts["f_iterations"],
+                  c_iterations=sopts["c_iterations"], omega=params["omega"])
     if kind in ("cf_jacobi", "fc_jacobi"):
         fn = rx.cf_jacobi if kind == "cf_jacobi" else rx.fc_jacobi
         return fn(A, x, b, params["Cmask"], params["Fmask"],

@@ -3,6 +3,9 @@
 * ``ELL`` -- padded-row sparse matrix.  The setup phase builds and uses it
   with numpy arrays; ``to(device)`` turns it into tensors for the rare
   level that stays uncompressed in the solve phase.
+* ``BELL`` -- padded-row block sparse matrix (the BSR analogue):
+  ``(nb, W)`` block columns and ``(nb, W, br, bc)`` dense blocks.  Its
+  product is a gather of x's blocks and one einsum (``ops/spmv.bspmv``).
 * ``DIA`` -- banded matrix, ``data[d, i] = A[i, i + offsets[d]]``, row-padded
   to a multiple of ``DIA_TILE`` with zeros; ``shape`` keeps the logical
   size.  Its product is kernel K1 (``ops/dia_kernels.py``).
@@ -73,6 +76,61 @@ class ELL:
     def __repr__(self):
         return (f"ELL(shape={self.shape}, width={self.width}, "
                 f"dtype={self.vals.dtype})")
+
+
+@dataclasses.dataclass(frozen=True)
+class BELL:
+    """Padded-row block sparse matrix: ``cols[i, k]`` is the block column
+    of the k-th stored block of block row i, ``vals[i, k]`` that dense
+    ``(br, bc)`` block, ``row_nnz`` the stored blocks per block row.
+    Padding slots hold block column 0 and a zero block.  ``shape`` is the
+    scalar shape; the block grid is ``(shape[0] // br, shape[1] // bc)``."""
+
+    cols: object
+    vals: object
+    row_nnz: object
+    shape: Tuple[int, int]
+    blocksize: Tuple[int, int]
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.shape[0] // self.blocksize[0]
+
+    @property
+    def n_block_cols(self) -> int:
+        return self.shape[1] // self.blocksize[1]
+
+    @property
+    def width(self) -> int:
+        return self.cols.shape[1] if self.cols.ndim == 2 else 0
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def nnz(self) -> int:
+        """Stored scalar entries (every entry of every stored block)."""
+        br, bc = self.blocksize
+        return int(self.row_nnz.sum()) * br * bc
+
+    def valid_mask(self):
+        """(nb, W) bool: True for stored blocks (host arrays)."""
+        return np.arange(self.width)[None, :] < \
+            np.asarray(self.row_nnz)[:, None]
+
+    def astype(self, dtype):
+        return dataclasses.replace(self, vals=self.vals.astype(dtype))
+
+    def to(self, device) -> "BELL":
+        return dataclasses.replace(
+            self, cols=as_tensor(self.cols, device, torch.long),
+            vals=as_tensor(self.vals, device),
+            row_nnz=as_tensor(self.row_nnz, device, torch.int32))
+
+    def __repr__(self):
+        return (f"BELL(shape={self.shape}, blocksize={self.blocksize}, "
+                f"width={self.width}, dtype={self.vals.dtype})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,11 +438,12 @@ def ell_from_csr_arrays(indptr, indices, data, shape, width=None,
     return ELL(cols, vals, row_nnz, (int(shape[0]), int(shape[1])))
 
 
-def from_scipy(A, width=None) -> ELL:
-    """scipy sparse (scalar) -> host ELL."""
+def from_scipy(A, width=None):
+    """scipy sparse -> host ELL, or a host BELL for a BSR matrix with
+    blocks larger than 1 x 1."""
     import scipy.sparse as sp
     if sp.issparse(A) and A.format == "bsr" and A.blocksize != (1, 1):
-        raise NotImplementedError("block (BSR) operators are not ported yet")
+        return bell_from_scipy(A, width=width)
     A = sp.csr_matrix(A) if not (sp.issparse(A) and A.format == "csr") \
         else A
     A = A.copy()
@@ -392,8 +451,32 @@ def from_scipy(A, width=None) -> ELL:
     return ell_from_csr_arrays(A.indptr, A.indices, A.data, A.shape, width)
 
 
+def bell_from_scipy(A, width=None) -> BELL:
+    """scipy sparse (as BSR, its blocksize kept) -> host BELL."""
+    import scipy.sparse as sp
+    A = sp.bsr_matrix(A) if not (sp.issparse(A) and A.format == "bsr") \
+        else A
+    A = A.copy()
+    A.sort_indices()
+    br, bc = A.blocksize
+    nb = A.shape[0] // br
+    indptr, indices, data = A.indptr, A.indices, A.data
+    row_nnz = np.diff(indptr).astype(np.int32)
+    W = int(max(1, row_nnz.max() if nb else 0)) if width is None \
+        else int(width)
+    cols = np.zeros((nb, W), dtype=np.int32)
+    vals = np.zeros((nb, W, br, bc), dtype=data.dtype)
+    if len(indices):
+        rows = np.repeat(np.arange(nb), row_nnz)
+        offs = np.arange(len(indices)) - np.repeat(indptr[:-1], row_nnz)
+        cols[rows, offs] = indices
+        vals[rows, offs] = data
+    return BELL(cols, vals, row_nnz, (int(A.shape[0]), int(A.shape[1])),
+                (int(br), int(bc)))
+
+
 def to_scipy(A):
-    """Host ELL/DIA -> scipy CSR."""
+    """Host ELL/DIA -> scipy CSR; host BELL -> scipy BSR."""
     import scipy.sparse as sp
     if isinstance(A, DIA):
         n = A.shape[0]
@@ -408,12 +491,16 @@ def to_scipy(A):
     row_nnz = np.asarray(A.row_nnz)
     indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int64)
     mask = np.arange(A.width)[None, :] < row_nnz[:, None]
+    if isinstance(A, BELL):
+        return sp.bsr_matrix((vals[mask], cols[mask], indptr), shape=A.shape,
+                             blocksize=A.blocksize)
     return sp.csr_matrix((vals[mask], cols[mask], indptr), shape=A.shape)
 
 
-def asarray_or_ell(A, dtype=None) -> ELL:
-    """Accept scipy / dense / ELL inputs uniformly (user-facing factories)."""
+def asarray_or_ell(A, dtype=None):
+    """Accept scipy / dense / ELL / BELL inputs uniformly (user-facing
+    factories): a BSR matrix becomes a BELL, anything else an ELL."""
     import scipy.sparse as sp
-    if not isinstance(A, ELL):
+    if not isinstance(A, (ELL, BELL)):
         A = from_scipy(A if sp.issparse(A) else sp.csr_matrix(np.asarray(A)))
     return A if dtype is None else A.astype(dtype)

@@ -1,5 +1,6 @@
-"""Spectral radius estimate (counterpart of
-``pyamg_tpu/util/linalg.py:approximate_spectral_radius``; setup phase).
+"""Spectral radius estimate and batched pseudo-inverse (counterpart of
+``approximate_spectral_radius`` and ``pinv_array`` in
+``pyamg_tpu/util/linalg.py``; setup phase).
 
 Restarted Arnoldi on the host with numpy: the Ritz value of largest
 magnitude of the small Hessenberg matrix estimates rho(A).
@@ -9,15 +10,15 @@ from __future__ import annotations
 
 import numpy as np
 
-from pyamg_tpu_torch.sparse.matrix import ELL
-from pyamg_tpu_torch.ops.spmv import spmv
+from pyamg_tpu_torch.sparse.matrix import BELL, ELL
+from pyamg_tpu_torch.ops.spmv import matvec
 
 
 def _as_matvec(A):
-    """(matvec, n, dtype) of a host ELL or of an object with ``matvec``,
-    ``shape`` and ``dtype``."""
-    if isinstance(A, ELL):
-        return (lambda v: spmv(A, v)), A.shape[0], A.dtype
+    """(matvec, n, dtype) of a host ELL or BELL or of an object with
+    ``matvec``, ``shape`` and ``dtype``."""
+    if isinstance(A, (ELL, BELL)):
+        return (lambda v: matvec(A, v)), A.shape[0], A.dtype
     return A.matvec, A.shape[0], A.dtype
 
 
@@ -74,3 +75,14 @@ def approximate_spectral_radius(A, tol=0.01, maxiter=15, restart=5,
         if breakdown or (ev_max > 0 and err / ev_max < tol):
             break
     return ev_max
+
+
+def pinv_array(blocks):
+    """Pseudo-inverses of a batch of small square blocks, (m, k, k) ->
+    (m, k, k); 1 x 1 blocks invert elementwise (0 stays 0)."""
+    blocks = np.asarray(blocks)
+    if blocks.shape[-1] == 1:
+        d = blocks[..., 0, 0]
+        inv = np.where(np.abs(d) > 0, 1.0 / np.where(d == 0, 1, d), 0.0)
+        return inv[..., None, None]
+    return np.linalg.pinv(blocks)

@@ -1,7 +1,10 @@
 """Option and operator helpers (counterpart of ``levelize`` and
-``filter_matrix_rows`` of ``pyamg_tpu/util/utils.py``)."""
+``filter_matrix_rows`` of ``pyamg_tpu/util/utils.py``) and the setup
+clock of the solver constructors."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -58,3 +61,17 @@ def filter_matrix_rows(A: ELL, theta, diagonal=False, lump=False):
             mass = mass + dropped[:, j]
         vals_kept = vals_kept + np.where(isdiag, mass[:, None], 0)
     return ell_dedup(cols, vals_kept, keep, A.shape)
+
+
+class SetupClock:
+    """Wall time of the setup phases of one level, summed by key:
+    ``mark(key)`` charges the time since the last mark to ``key``."""
+
+    def __init__(self):
+        self.times = {}
+        self._t0 = time.perf_counter()
+
+    def mark(self, key):
+        now = time.perf_counter()
+        self.times[key] = self.times.get(key, 0.0) + (now - self._t0)
+        self._t0 = now

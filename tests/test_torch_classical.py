@@ -133,8 +133,13 @@ def test_classical_strength_checks_its_input():
     A, _ = _pair(MATRICES["poisson"]())
     with pytest.raises(ValueError):
         classical_strength_of_connection(A, norm="max")
-    with pytest.raises(NotImplementedError):
-        classical_strength_of_connection(to_scipy(A).tobsr((2, 2)))
+    # a block operator is measured on its blocks, as the reference does:
+    # equal to the JAX package's block strength, every norm
+    Sb = to_scipy(A).tobsr((2, 2))
+    Ab, Abr = from_scipy(Sb), ref_from_scipy(Sb)
+    for norm, theta in STRENGTH:
+        _same(classical_strength_of_connection(Ab, theta=theta, norm=norm),
+              ref_classical_soc(Abr, theta=theta, norm=norm))
 
 
 def test_row_lookup_and_drop_explicit_zeros():

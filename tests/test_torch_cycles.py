@@ -383,7 +383,8 @@ def test_complexities_and_repr_match_reference(pair):
     with pytest.raises(TypeError):
         ml.cycle_complexity("X")
     assert repr(ml) == repr(ref_ml)
-    assert ml.setup_timings() == {}
+    # the setup records its phases by key, as the reference's does
+    assert set(ml.setup_timings()) == set(ref_ml.setup_timings())
 
 
 PAIRS = [
