@@ -80,7 +80,22 @@ Phases, each printed on its own lines:
    warm and profiled; the elasticity fine level's ``bspmv``, block
    Gauss-Seidel color pass and sweep by their torch operations; 64^2 and
    24^2 solves on the card against the CPU; and time rows for K1 and K2
-   on the anisotropic A0 and A3.
+   on the anisotropic A0 and A3;
+9. families: root-node SA (energy-minimising P, float64), pairwise
+   aggregation (float32) and adaptive SA (one bootstrapped candidate,
+   float64) on 2-D Poisson 500^2, built with their defaults and
+   ``max_coarse=50``: setup time by key, levels, operator complexity,
+   layouts, DIA widths and SELL plans against the JAX package's
+   (JAX_FAMILIES) before any solve, and for adaptive SA the rows and rho
+   of each trial hierarchy and ``work``; K1 and K2 (in the level's dtype)
+   on every DIA level, K3 on every SELL operator and K5 forward and
+   backward on every square SELL level, each to 0 against its plain
+   version, and K3 on float32 SELL plans of the root-node P0 and R0 (off
+   the path: its float64 transfers stay ELL); each solve driven with the
+   counts reset around it, warm and profiled; 48^2 solves on the card
+   against the CPU; and time rows for K1 and K2 on root-node A0, A1 and
+   A4 and pairwise A6, K3 on pairwise P0 and R1 and the root-node plans,
+   and K5 on pairwise A1.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
@@ -98,6 +113,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
+                               # (data sheet)
 SEED = 2022
 # the JAX package's inner CG iterations per outer step on the 64^3 path
 # (tests/jax_sell_reference.py 64, Pallas kernels in interpret mode on a
@@ -203,7 +220,63 @@ JAX_SA_SMALL = {
                    "dia": {}, "outer": 2, "inner": (7, 7),
                    "true_relres": 3.965880083921101e-11},
 }
-# inner CG's cap on both SA paths (bench_suite.py's inner_maxiter)
+# the JAX package's root-node, pairwise and adaptive SA paths on 2-D
+# Poisson 500^2 (JAX_PLATFORMS=cpu PYTHONPATH=.:tests python
+# tests/jax_families_reference.py, CPU, SELL kernels in interpret mode;
+# with --small for JAX_FAMILIES_SMALL at 48^2): rows, operator complexity,
+# each level's (A, P, R) layout, the diagonals of each DIA level, each
+# SELL operator's (kind, t, passes, Sy), outer and inner iterations and the
+# true relative residual; for adaptive SA ``work`` and each trial
+# hierarchy's (rows, rho first measured on it).  The port's hierarchy must
+# equal it (operator complexity within 1e-6, rho within 1e-8 relative),
+# its iterations within 1 (iterations_near)
+_DIA_ELL = [("DIA", "ELL", "ELL")] * 5 + [("DIA", "NoneType", "NoneType")]
+_RN_ROWS = [250000, 41750, 4704, 532, 65, 9]
+JAX_FAMILIES = {
+    "RN": {"rows": _RN_ROWS, "operator_complexity": 1.3365945512820512,
+           "layouts": _DIA_ELL,
+           "dia": {"A0": 5, "A1": 11, "A2": 11, "A3": 11, "A4": 13, "A5": 15},
+           "plans": {}, "outer": 2, "inner": (9, 9),
+           "true_relres": 1.1744152066398591e-11},
+    "PW": {"rows": [250000, 74167, 21972, 6447, 1901, 559, 159, 48],
+           "operator_complexity": 1.5567203525641025,
+           "layouts": [("DIA", "SELL", "ELL")] +
+           [("SELL", "SELL", "SELL")] * 5 +
+           [("DIA", "SELL", "SELL"), ("DIA", "NoneType", "NoneType")],
+           "dia": {"A0": 5, "A6": 51, "A7": 25},
+           "plans": {"P0": ("tall", 3, 5, 1968), "A1": ("tall", 1, 19, 1024),
+                     "P1": ("tall", 3, 2, 600), "R1": ("fat", 3, 20, 200),
+                     "A2": ("tall", 1, 11, 176), "P2": ("tall", 3, 1, 192),
+                     "R2": ("fat", 3, 8, 64), "A3": ("tall", 1, 14, 56),
+                     "P3": ("tall", 3, 1, 72), "R3": ("fat", 3, 4, 24),
+                     "A4": ("tall", 1, 11, 16), "P4": ("tall", 3, 1, 24),
+                     "R4": ("fat", 3, 4, 8), "A5": ("tall", 1, 11, 8),
+                     "P5": ("tall", 4, 1, 8), "R5": ("fat", 4, 4, 8),
+                     "P6": ("tall", 3, 1, 24), "R6": ("fat", 3, 4, 8)},
+           "outer": 6, "inner": (60,) * 6,
+           "true_relres": 2.7671180972372516e-11},
+    "aSA": {"rows": _RN_ROWS, "operator_complexity": 1.3365945512820512,
+            "layouts": _DIA_ELL,
+            "dia": {"A0": 5, "A1": 11, "A2": 11, "A3": 11, "A4": 13,
+                    "A5": 15},
+            "plans": {}, "work": 48373705.0,
+            "trials": [(_RN_ROWS, 0.5946364671694983),
+                       (_RN_ROWS, 0.5916549989508952),
+                       (_RN_ROWS, 0.5960526515450012), (_RN_ROWS, None)],
+            "outer": 6, "inner": (60,) * 6,
+            "true_relres": 3.9977638894590734e-12},
+}
+JAX_FAMILIES_SMALL = {
+    "RN": {"rows": [2304, 396, 45], "operator_complexity": 1.3392478813559323,
+           "outer": 2, "inner": (5, 6)},
+    "PW": {"rows": [2304, 682, 206, 63, 19],
+           "operator_complexity": 1.538665254237288, "outer": 2,
+           "inner": (16, 17)},
+    "aSA": {"rows": [2304, 396, 45], "operator_complexity": 1.3392478813559323,
+            "outer": 2, "inner": (13, 14)},
+}
+# inner CG's cap on both SA paths (bench_suite.py's inner_maxiter), and on
+# the pairwise and adaptive SA paths
 SA_INNER_CAP = 60
 # the classical operators whose K3 case also takes an x holding inf and NaN
 CLASSICAL_NON_FINITE = {("RS", "P0"), ("RS", "R0"), ("AIR", "R0")}
@@ -450,14 +523,15 @@ def layout(ml):
             for l in ml.levels]
 
 
-def csr_on(S, device):
-    """A scipy matrix as a float32 torch CSR tensor (the library yardstick)."""
+def csr_on(S, device, dtype=None):
+    """A scipy matrix as a torch CSR tensor (the library yardstick), in
+    float32 unless ``dtype`` says otherwise."""
     import torch
     S = S.tocsr()
     return torch.sparse_csr_tensor(
         torch.as_tensor(S.indptr, dtype=torch.int64),
         torch.as_tensor(S.indices, dtype=torch.int64),
-        torch.as_tensor(S.data, dtype=torch.float32), size=S.shape,
+        torch.as_tensor(S.data, dtype=dtype or torch.float32), size=S.shape,
         device=device)
 
 
@@ -654,14 +728,14 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
 
 def kernel_row(flush, skip, name, replaces, launches, err, fn, plain, library,
                nbytes, ops, source="pyamg_tpu_torch/csrc/dia_kernels.cu",
-               plain_reps=50, tag=None):
+               plain_reps=50, tag=None, peak=F32_FLOPS):
     """A kernel's line: device times per call (profiler; the kernel's
     and the library call's the median of calls made with L2 flushed,
     and also their mean L2-warm), and its bound, the larger of bytes
-    over the memory rate and float32 operations over the float32
-    rate.  ``flush`` is read before each flushed call, and ``skip`` names
-    its device operations (``flush_ops``)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    over the memory rate and operations over ``peak``, the rate of their
+    type (float32 by default).  ``flush`` is read before each flushed
+    call, and ``skip`` names its device operations (``flush_ops``)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     cold = flushed_ms(fn, flush, skip)
     r = {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -740,8 +814,8 @@ def classical_describe(ml):
 
 def path_kernels(dev, path, rng, sms, phase="classical", coarsest=False):
     """Every kernel the path's solve runs, on its operators, against the
-    plain version to 0: K1 (float32) on each DIA level the cycle
-    multiplies by (and on the coarsest with ``coarsest``), K2 (the
+    plain version to 0: K1 (in the level's dtype) on each DIA level the
+    cycle multiplies by (and on the coarsest with ``coarsest``), K2 (the
     level's own sweep: its colors, color order and omega) on each DIA
     level, K3 on every SELL operator (and on an x holding inf and NaN
     where CLASSICAL_NON_FINITE says), K5 forward and backward on each
@@ -755,8 +829,8 @@ def path_kernels(dev, path, rng, sms, phase="classical", coarsest=False):
     from pyamg_tpu_torch.sparse.sell import LANE, SELL
     tag, ml = path["name"], path["ml"]
 
-    def vec(n):
-        return torch.as_tensor(rng.standard_normal(n), device=dev).float()
+    def vec(n, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(n), device=dev).to(dtype)
 
     inputs = {}
     # the coarsest level is solved by pinv: K1 there only with coarsest
@@ -764,15 +838,17 @@ def path_kernels(dev, path, rng, sms, phase="classical", coarsest=False):
         D = lvl.A
         if isinstance(D, DIA):
             n, offs = D.shape[0], D.offsets
-            x = vec(n)
+            x = vec(n, D.data.dtype)
             before = dk.dia_spmv.launches
             y = dk.dia_spmv(D.data, offs, n, x)
             launched = dk.dia_spmv.launches - before
             want = dk.dia_spmv_plain(D.data, offs, n, x)
             torch.cuda.synchronize()
             err, _ = rel_err(y, want)
-            print(f"{phase}: K1 {tag} A{i} float32 n={n} ndiag={len(offs)}"
-                  f" {dk.spmv_geometry(n, 1, D.data.shape[1], 4, sms)} "
+            es = D.data.element_size()
+            print(f"{phase}: K1 {tag} A{i} {str(D.data.dtype)[6:]} n={n} "
+                  f"ndiag={len(offs)} "
+                  f"{dk.spmv_geometry(n, 1, D.data.shape[1], es, sms)} "
                   f"launches {launched} max_abs_err={err:.3e}")
             check(err == 0 and launched == 1,
                   f"K1 {tag} A{i} disagrees with its plain version or took "
@@ -782,7 +858,7 @@ def path_kernels(dev, path, rng, sms, phase="classical", coarsest=False):
                 _, so, params = lvl.pre
                 order = gs_order(so["ncolors"], so["sweep"],
                                  so["iterations"], so["omega"])
-                b = vec(n)
+                b = vec(n, D.data.dtype)
                 args = (D.data, offs, n, x, b, params["Dinv"],
                         params["colors"], order, so["omega"])
                 got = dk.dia_gs_sweep(*args)
@@ -790,7 +866,7 @@ def path_kernels(dev, path, rng, sms, phase="classical", coarsest=False):
                 torch.cuda.synchronize()
                 err, _ = rel_err(got, want)
                 g = dk.gs_geometry(n, len(offs), max(abs(o) for o in offs),
-                                   4, sms)
+                                   es, sms)
                 print(f"{phase}: K2 {tag} A{i} {so['sweep']} omega="
                       f"{so['omega']} order={order} {g} "
                       f"max_abs_err={err:.3e}")
@@ -1177,47 +1253,210 @@ def sa_more_phase(dev, sms, rng, flush, skip, want=None, small=None,
     return inputs, per_ops
 
 
+def families_paths(dev, n=500):
+    """The ``families:`` phase's paths on 2-D Poisson n^2, built with the
+    port's entry points and their defaults, compressed and placed on
+    ``dev``: root-node SA in float64 (``solve_refined(accel="cg")``),
+    pairwise aggregation in float32 and adaptive SA with one candidate in
+    float64 (both ``inner_maxiter=60, max_outer=20``); ``max_coarse=50``,
+    b from ``default_rng(0)``.  Each a dict as ``classical_paths`` gives;
+    adaptive SA's also holds ``work`` and its trials, root-node SA's
+    ``sell32``: float32 SELL plans of its P0 and R0 (placed) with their
+    host ELLs, which the path's float64 transfers are not."""
+    from pyamg_tpu_torch.aggregation import (adaptive_sa_solver,
+                                             pairwise_solver, rootnode_solver)
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    from pyamg_tpu_torch.sparse.sell import sell_from_ell
+    dia2 = ("dia_spmv", "dia_gs_sweep")
+    capped = {"accel": "cg", "inner_maxiter": SA_INNER_CAP, "max_outer": 20}
+    A64 = poisson((n, n))
+    S = to_scipy(A64).tocsr()
+    b = np.random.default_rng(0).standard_normal(A64.shape[0])
+    specs = [
+        ("RN", np.float64, lambda A: rootnode_solver(A, max_coarse=50),
+         {"accel": "cg"}, dia2),
+        ("PW", np.float32, lambda A: pairwise_solver(A, max_coarse=50),
+         capped, dia2 + ("sell_spmv", "sell_gs_sweep")),
+        ("aSA", np.float64, lambda A: adaptive_sa_solver(
+            A, num_candidates=1, max_coarse=50), capped, dia2)]
+    out = []
+    for name, dtype, make, kw, must in specs:
+        t0 = time.perf_counter()
+        ml = make(A64.astype(dtype))
+        setup = time.perf_counter() - t0
+        path = {"name": name, "S": S, "b": b, "kw": kw, "setup_s": setup,
+                "must": must}
+        if isinstance(ml, tuple):
+            ml, path["work"] = ml
+            path["trials"] = ml.trials
+        path["by_key"] = ml.setup_timings()
+        if name == "RN":
+            path["sell32"] = {}
+            for attr in "PR":
+                ell = getattr(ml.levels[0], attr).astype(np.float32)
+                plan = sell_from_ell(ell)
+                check(plan is not None, f"no float32 SELL plan of RN {attr}0")
+                path["sell32"][f"{attr}0"] = (plan.to(dev), ell)
+        ml.compress_stencils()
+        ml.to_device(dev)
+        path["ml"] = ml
+        out.append(path)
+    return out
+
+
+def families_phase(dev, sms, rng, want=None, small=None, n=500, n_small=48,
+                   reps=5):
+    """The ``families:`` phase: build the three paths and print their setup
+    and hierarchy (and adaptive SA's trials and work); gate them against
+    ``want`` (JAX_FAMILIES) before any solve; hold every kernel case on
+    their operators against the plain versions (``path_kernels``, K1 and
+    K2 in each level's dtype) and K3 on root-node's float32 P0 and R0
+    plans; drive each path; then solve all three at ``n_small`` on ``dev``
+    and on the CPU: the iterations of ``small`` (JAX_FAMILIES_SMALL) on
+    both and solutions within 1e-9.  Returns ({path: kernel inputs},
+    {path: launches per operator})."""
+    import torch
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    want = JAX_FAMILIES if want is None else want
+    small = JAX_FAMILIES_SMALL if small is None else small
+    paths = families_paths(dev, n)
+    inputs, per_ops = {}, {}
+    for path in paths:
+        tag, ml = path["name"], path["ml"]
+        got = classical_describe(ml)
+        ref = want[tag]
+        print(f"families: {tag} setup {path['setup_s']:.3f} s, by key "
+              f"{ {k: round(v, 4) for k, v in path['by_key'].items()} }, "
+              f"levels {len(got['rows'])} rows {got['rows']} "
+              f"operator_complexity {got['operator_complexity']!r} (JAX "
+              f"package {ref['operator_complexity']!r}) layout "
+              f"{got['layouts']} DIA diagonals {got['dia']} SELL plans "
+              f"{got['plans']}")
+        check(got["rows"] == ref["rows"],
+              f"{tag}: rows {got['rows']}, the JAX package {ref['rows']}")
+        check(abs(got["operator_complexity"] - ref["operator_complexity"])
+              <= 1e-6, f"{tag}: operator complexity off the JAX package's")
+        check(got["layouts"] == ref["layouts"] and got["dia"] == ref["dia"]
+              and got["plans"] == ref["plans"],
+              f"{tag}: layouts, DIA widths or plans differ from the JAX "
+              f"package's")
+        if "trials" in path:
+            trials = [(t["rows"], t["rho"]) for t in path["trials"]]
+            for k, ((rows, rho), (rrows, rrho)) in enumerate(
+                    zip(trials, ref["trials"])):
+                print(f"families: {tag} trial {k}: rows {rows} rho {rho!r} "
+                      f"(JAX package {rrows} {rrho!r})")
+            print(f"families: {tag} work {path['work']!r} (JAX package "
+                  f"{ref['work']!r})")
+            check(len(trials) == len(ref["trials"]) and
+                  all(r == rr and (rho is None) == (rrho is None) and
+                      (rho is None or abs(rho - rrho) <= 1e-8 * rrho)
+                      for (r, rho), (rr, rrho) in zip(trials, ref["trials"]))
+                  and path["work"] == ref["work"],
+                  f"{tag}: trials or work differ from the JAX package's")
+        inputs[tag] = path_kernels(dev, path, rng, sms, phase="families",
+                                   coarsest=True)
+    # K3 on root-node's float32 plans of P0 and R0 (off the path)
+    for name, (S, ell) in paths[0]["sell32"].items():
+        x = torch.as_tensor(rng.standard_normal(S.shape[1]),
+                            device=dev).float()
+        y, want_y = sk.sell_spmv(S, x), sk.sell_spmv_plain(S, x)
+        torch.cuda.synchronize()
+        err, _ = rel_err(y, want_y)
+        print(f"families: K3 RN {name} float32 plan (off the path) "
+              f"{S.kind}/{S.t} {S.shape} passes {S.n_passes} K={S.K} "
+              f"Sy={S.Sy} {sk.spmv_geometry(S.n_passes, S.shape[0])} "
+              f"max_abs_err={err:.3e}")
+        check(err == 0, f"K3 RN {name} float32 plan disagrees with its plain "
+                        f"version")
+        inputs["RN"][f"K3 {name} float32"] = (S, ell, x, err)
+    for path in paths:
+        _, per_ops[path["name"]], _ = drive_path(
+            path, want[path["name"]], reps, phase="families")
+    # the same small solves on the card and on the CPU (plain versions)
+    got = {}
+    for d in ("cuda", "cpu"):
+        got[d] = []
+        for p in families_paths(d, n_small):
+            it = {}
+            x = p["ml"].solve_refined(p["b"], A_fine=p["S"], tol=1e-10,
+                                      iterations_out=it, **p["kw"])
+            got[d].append((x, it, classical_describe(p["ml"])))
+    for p, (xc, itc, dc), (xh, ith, _) in zip(paths, got["cuda"],
+                                              got["cpu"]):
+        ref = small[p["name"]]
+        diff = float(np.linalg.norm(xc - xh) / np.linalg.norm(xh))
+        print(f"families: {p['name']} {n_small}^2 rows {dc['rows']} "
+              f"operator_complexity {dc['operator_complexity']!r}, solve on "
+              f"the card {itc} CPU {ith} (JAX package {ref['outer']} "
+              f"{list(ref['inner'])}), card vs CPU relative difference "
+              f"{diff:.3e} (tol 1e-9)")
+        check(dc["rows"] == ref["rows"] and
+              abs(dc["operator_complexity"] - ref["operator_complexity"])
+              <= 1e-6, f"{p['name']}: the small hierarchy differs from the "
+                       f"JAX package's")
+        check(itc == ith and iterations_near(itc, ref),
+              f"{p['name']}: the small solve's iterations differ between "
+              f"card and CPU or from the JAX package's")
+        check(diff < 1e-9, f"{p['name']}: the card's small solve disagrees "
+                           f"with the CPU's")
+    return inputs, per_ops
+
+
 def dia_rows(dev, sms, row, inputs, per_ops, k1_ops, k2_ops):
     """The kernel table's rows of K1 on the (path, operator) pairs
     ``k1_ops`` and of K2 on ``k2_ops``, from a phase's kernel inputs
     (``path_kernels``) and launches per operator (``drive_path``); K1's
-    library call is torch.sparse's CSR product of the same operator."""
+    library call is torch.sparse's CSR product of the same operator, in
+    its dtype; the bound counts the dtype's bytes and operations at its
+    rate."""
     import torch
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.sparse.matrix import DIA, to_scipy
+
+    def sized(D):
+        es = D.data.element_size()
+        dt = "" if es == 4 else f", {str(D.data.dtype)[6:]}"
+        return es, (F32_FLOPS if es == 4 else F64_FLOPS), dt
+
     rows = []
     for tag, op in k1_ops:
         D, xk, err1 = inputs[tag][f"K1 {op}"]
         n, nd = D.shape[0], len(D.offsets)
+        es, peak, dt = sized(D)
         Acsr = csr_on(to_scipy(DIA(D.data.cpu().numpy(), D.offsets,
-                                   D.shape)), dev)
+                                   D.shape)), dev, D.data.dtype)
         e_lib, scale = rel_err(Acsr @ xk,
                                dk.dia_spmv_plain(D.data, D.offsets, n, xk))
         check(e_lib <= 1e-5 * scale,
               f"library CSR product disagrees ({tag} {op})")
-        g = dk.spmv_geometry(n, 1, D.data.shape[1], 4, sms)
+        g = dk.spmv_geometry(n, 1, D.data.shape[1], es, sms)
         rows.append(row(
-            f"dia_spmv {tag} {op}", "pyamg_tpu/ops/pallas_kernels.py:52",
+            f"dia_spmv {tag} {op}{dt}", "pyamg_tpu/ops/pallas_kernels.py:52",
             per_ops[tag]["dia_spmv"][op], err1,
             lambda: dk.dia_spmv(D.data, D.offsets, n, xk),
             lambda: dk.dia_spmv_plain(D.data, D.offsets, n, xk),
-            lambda: Acsr @ xk, (nd * n + 2 * n) * 4, 2 * nd * n,
-            tag=f"dia_spmv {tag} {op} ({nd} diagonals, {g})"))
+            lambda: Acsr @ xk, (nd * n + 2 * n) * es, 2 * nd * n, peak=peak,
+            tag=f"dia_spmv {tag} {op} ({nd} diagonals{dt}, {g})"))
     for tag, op in k2_ops:
         D, xg, bg, Dinv, colors, order, err2 = inputs[tag][f"K2 {op}"]
         n, nd = D.shape[0], len(D.offsets)
+        es, peak, dt = sized(D)
         per_color = torch.bincount(colors.long()).tolist()
-        g = dk.gs_geometry(n, nd, max(abs(o) for o in D.offsets), 4, sms)
+        g = dk.gs_geometry(n, nd, max(abs(o) for o in D.offsets), es, sms)
         rows.append(row(
-            f"dia_gs_sweep {tag} {op}", "pyamg_tpu/ops/pallas_kernels.py:126",
+            f"dia_gs_sweep {tag} {op}{dt}",
+            "pyamg_tpu/ops/pallas_kernels.py:126",
             per_ops[tag]["dia_gs_sweep"][op], err2,
             lambda: dk.dia_gs_sweep(D.data, D.offsets, n, xg, bg, Dinv,
                                     colors, order),
             lambda: dk.dia_gs_sweep_plain(D.data, D.offsets, n, xg, bg, Dinv,
                                           colors, order, 1.0),
-            None, (nd * n + 4 * n) * 4 + 4 * n,
-            sum(per_color[c] for c in order) * (2 * nd + 3),
-            tag=f"dia_gs_sweep {tag} {op} ({len(order)} passes, {g})"))
+            # the band, b, Dinv and x read once, x written once; colors
+            None, (nd * n + 4 * n) * es + 4 * n,
+            sum(per_color[c] for c in order) * (2 * nd + 3), peak=peak,
+            tag=f"dia_gs_sweep {tag} {op} ({len(order)} passes{dt}, {g})"))
     return rows
 
 
@@ -1967,6 +2206,41 @@ def main():
     aniso = (("anisotropic", "A0"), ("anisotropic", "A3"))
     rows += dia_rows(dev, sms, row, sinputs, sper_op, aniso, aniso)
     del sinputs
+
+    # -- 9. families: root-node, pairwise and adaptive SA on 500^2 ----------
+    t0 = time.perf_counter()
+    finputs, fper_op = families_phase(dev, sms, rng)
+    print(f"families: phase before its times {time.perf_counter() - t0:.2f}"
+          f" s")
+    # K1 and K2 on root-node A0, A1 and A4 (float64) and pairwise A6 (51
+    # diagonals, float32)
+    fam = (("RN", "A0"), ("RN", "A1"), ("RN", "A4"), ("PW", "A6"))
+    rows += dia_rows(dev, sms, row, finputs, fper_op, fam, fam)
+    # K3 on pairwise P0 and R1 (the path's transfers; its R0 stays ELL, as
+    # in the JAX package) and on root-node's float32 P0 and R0 plans (off
+    # the path, whose float64 transfers stay ELL)
+    k3 = [("PW", "P0", fper_op["PW"]["sell_spmv"]["P0"]),
+          ("PW", "R1", fper_op["PW"]["sell_spmv"]["R1"]),
+          ("RN", "P0 float32", 0), ("RN", "R0 float32", 0)]
+    for tag, op, launches in k3:
+        S, S_host, xk, err3 = finputs[tag][f"K3 {op}"]
+        off = "" if launches else " (off the path)"
+        rows.append(sell_row(
+            f"sell_spmv {tag} {op}{off}", "pyamg_tpu/ops/sell_kernels.py:29",
+            S, to_scipy(S_host), xk, err3, f"sell_spmv {tag} {op}{off}",
+            launches))
+    S, xg, bg, Dinv, err5 = finputs["PW"]["K5 A1"]
+    n = S.shape[0]
+    tag = "sell_gs_sweep PW A1 forward"
+    rows.append(row(
+        tag, "pyamg_tpu/ops/sell_kernels.py:241",
+        fper_op["PW"]["sell_gs_sweep"]["A1"], err5,
+        lambda: sk.sell_gs_sweep(S, xg, bg, Dinv, 1.0, "forward"),
+        lambda: sk.sell_gs_sweep_plain(S, xg, bg, Dinv, 1.0, "forward"),
+        None, S.nnz * 8 + 4 * n * 4, 2 * S.nnz + 3 * n, source=sell_src,
+        plain_reps=2, tag=tag))
+    slot_model(S, 4 * n * 4, tag)
+    del finputs
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

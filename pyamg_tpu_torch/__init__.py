@@ -10,7 +10,9 @@ Main path::
 
     import numpy as np
     from pyamg_tpu_torch.gallery import poisson
-    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    from pyamg_tpu_torch.aggregation import (adaptive_sa_solver, pairwise_solver,
+                                         rootnode_solver,
+                                         smoothed_aggregation_solver)
     A64 = poisson((500, 500))
     ml = smoothed_aggregation_solver(A64.astype(np.float32),
                                      aggregate=("grid", {}), max_coarse=10)
@@ -18,19 +20,25 @@ Main path::
     ml.enable_ds_refinement(A64).to_device()
     x = ml.solve_refined_device(b, tol=1e-10)
 
-Classical AMG (Ruge-Stuben and AIR) builds its hierarchy the same way::
+Root-node, pairwise and adaptive smoothed aggregation and classical AMG
+(Ruge-Stuben and AIR) build their hierarchies the same way::
 
     from pyamg_tpu_torch.classical import ruge_stuben_solver
     ml = ruge_stuben_solver(A64.astype(np.float32)).compress_stencils()
     x = ml.solve_refined(b, tol=1e-10, accel="cg")
+    ml = rootnode_solver(A64, max_coarse=50).compress_stencils()
+    ml, work = adaptive_sa_solver(A64, max_coarse=50)
 """
 
 __version__ = "0.1.0"
 
-from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+from pyamg_tpu_torch.aggregation import (adaptive_sa_solver, pairwise_solver,
+                                         rootnode_solver,
+                                         smoothed_aggregation_solver)
 from pyamg_tpu_torch.classical import air_solver, ruge_stuben_solver
 from pyamg_tpu_torch.multilevel import MultilevelSolver
 from pyamg_tpu_torch.convert import hierarchy_from_arrays
 
-__all__ = ["MultilevelSolver", "air_solver", "hierarchy_from_arrays",
+__all__ = ["MultilevelSolver", "adaptive_sa_solver", "air_solver",
+           "hierarchy_from_arrays", "pairwise_solver", "rootnode_solver",
            "ruge_stuben_solver", "smoothed_aggregation_solver"]

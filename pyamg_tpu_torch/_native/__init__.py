@@ -1,5 +1,5 @@
-"""The port's native host helpers: first-fit graph coloring, standard
-aggregation and the classical (Ruge-Stuben) setup.
+"""The port's native host helpers: first-fit graph coloring, standard and
+naive aggregation and the classical (Ruge-Stuben) setup.
 
 ``coloring.cpp``, ``aggregation.cpp`` and ``classical.cpp`` are each built
 with ``g++`` at first use (``build.py``) and loaded with ctypes.  There is
@@ -29,7 +29,8 @@ _FP = ctypes.POINTER(ctypes.c_double)
 # source name -> {C function: (restype, argtypes)}
 _FUNCTIONS = {
     "coloring": {"first_fit_coloring": (_I, [_I, _IP, _IP, _IP])},
-    "aggregation": {"standard_aggregation": (_I, [_I, _IP, _IP, _IP, _IP])},
+    "aggregation": {"standard_aggregation": (_I, [_I, _IP, _IP, _IP, _IP]),
+                    "naive_aggregation": (_I, [_I, _IP, _IP, _IP, _IP])},
     "classical": {
         "rs_cf_splitting": (None, [_I, _IP, _IP, _IP, _IP, _IP, _IP]),
         "rs_cf_splitting_pass2": (None, [_I, _IP, _IP, _IP]),
@@ -90,15 +91,26 @@ def first_fit_coloring(n, indptr, indices):
     return colors[:n], int(nc)
 
 
-def standard_aggregation(n, indptr, indices):
-    """Greedy 3-pass aggregation of a CSR strength graph: (labels int32
-    with -1 for isolated nodes, cpts int32 of one root per aggregate)."""
+def _aggregate(fname, n, indptr, indices):
     Ap, Aj = _csr(n, indptr, indices)
     labels = np.empty(max(n, 1), np.int32)
     cpts = np.empty(max(n, 1), np.int32)
-    nagg = _lib("aggregation").standard_aggregation(
+    nagg = getattr(_lib("aggregation"), fname)(
         n, _ptr(Ap), _ptr(Aj), _ptr(labels), _ptr(cpts))
     return labels[:n], cpts[:nagg]
+
+
+def standard_aggregation(n, indptr, indices):
+    """Greedy 3-pass aggregation of a CSR strength graph: (labels int32
+    with -1 for isolated nodes, cpts int32 of one root per aggregate)."""
+    return _aggregate("standard_aggregation", n, indptr, indices)
+
+
+def naive_aggregation(n, indptr, indices):
+    """Greedy naive aggregation of a CSR strength graph (each free node
+    roots an aggregate of itself and its free neighbours): (labels int32,
+    cpts int32 of one root per aggregate)."""
+    return _aggregate("naive_aggregation", n, indptr, indices)
 
 
 def rs_cf_splitting(n, Sp, Sj, Tp, Tj, second_pass=False):

@@ -1,6 +1,16 @@
-"""Grid and standard aggregation (counterpart of ``grid_aggregation``,
-``standard_aggregation`` and ``aggregate_dispatch`` in
-``pyamg_tpu/aggregation/aggregate.py``; setup phase, numpy)."""
+"""Aggregation methods (counterpart of ``grid_aggregation``,
+``standard_aggregation``, ``naive_aggregation``, ``pairwise_aggregation``
+and ``aggregate_dispatch`` in ``pyamg_tpu/aggregation/aggregate.py``; setup
+phase, numpy).
+
+The greedy standard and naive aggregations run in the port's native
+helper (``_native/aggregation.cpp``), which is built or raises: the
+aggregates fix the hierarchy, so no other method stands in for it.  The
+parallel forms seed aggregates with a distance-2 (standard) or distance-1
+(naive) maximal independent set and grow them by label propagation.
+Pairwise aggregation composes heavy-edge handshake matchings.  Lloyd,
+balanced Lloyd and METIS aggregation are not ported.
+"""
 
 from __future__ import annotations
 
@@ -60,35 +70,189 @@ def _csr_arrays(C: ELL):
     return indptr, indices
 
 
-def standard_aggregation(C: ELL, seed=0, method="greedy"):
+def standard_aggregation(C: ELL, seed=0, max_rounds=None, method="greedy"):
     """Standard aggregation of the strength graph ``C``: the sequential
-    3-pass greedy of the port's native helper.  Returns ``(AggOp, Cpts)``.
-    ``method='parallel'`` (MIS-2 seeds and label propagation) is not
-    ported."""
+    3-pass greedy of the port's native helper (``method='greedy'``), or
+    MIS-2 seeds grown by label propagation (``'parallel'``, which the
+    greedy form also takes where it finds no aggregate).  Returns
+    ``(AggOp, Cpts)``."""
     from pyamg_tpu_torch import _native
+    out = _greedy(C, _native.standard_aggregation, method)
+    return out or _standard_aggregation_parallel(C, seed=seed,
+                                                 max_rounds=max_rounds)
+
+
+def _greedy(C: ELL, native, method):
+    """``(AggOp, Cpts)`` of the native greedy aggregation ``native`` for
+    ``method='greedy'``, or None for ``'parallel'`` and for a graph the
+    greedy finds no aggregate in."""
+    if method == "parallel":
+        return None
     if method != "greedy":
-        raise NotImplementedError(
-            f"standard aggregation method {method!r} is not ported yet "
-            "(only 'greedy')")
-    indptr, indices = _csr_arrays(C)
-    labels, cpts = _native.standard_aggregation(C.shape[0], indptr, indices)
+        raise ValueError(f"unrecognized method {method!r}")
+    labels, cpts = native(C.shape[0], *_csr_arrays(C))
     nagg = int(labels.max()) + 1 if len(labels) else 0
+    return (_aggop_from_labels(labels, nagg, C.vals.dtype), cpts) \
+        if nagg > 0 else None
+
+
+def _neighbors_nodiag(C: ELL):
+    cols = np.asarray(C.cols)
+    return cols, C.valid_mask() & (cols != np.arange(C.shape[0])[:, None])
+
+
+def _propagate_round(cols, mask, w, agg):
+    """Unaggregated nodes adopt the label of their strongest labelled
+    neighbour (the first of equal strengths)."""
+    lab = agg[cols]
+    ok = mask & (lab >= 0)
+    j = np.argmax(np.where(ok, w, -np.inf), axis=1)[:, None]
+    best_ok = np.take_along_axis(ok, j, axis=1)[:, 0]
+    best = np.take_along_axis(lab, j, axis=1)[:, 0]
+    return np.where((agg < 0) & best_ok, best, agg)
+
+
+def _seeded(C: ELL, k, seed):
+    """(roots, labels with the roots numbered and -1 elsewhere, neighbour
+    columns, their mask, |C|) of the distance-k MIS of C."""
+    from pyamg_tpu_torch.graph import maximal_independent_set
+    roots = np.where(maximal_independent_set(C, k=k, seed=seed) == 1)[0]
+    agg = np.full(C.shape[0], -1, np.int32)
+    agg[roots] = np.arange(len(roots))
+    cols, mask = _neighbors_nodiag(C)
+    return roots, agg, cols, mask, np.abs(np.asarray(C.vals))
+
+
+def _standard_aggregation_parallel(C: ELL, seed=0, max_rounds=None):
+    """MIS-2 seeds, then up to ``max_rounds`` (3) rounds of label
+    propagation; a graph without roots makes every node an aggregate."""
+    n = C.shape[0]
+    roots, agg, cols, mask, w = _seeded(C, 2, seed)
+    nagg = len(roots)
     if nagg == 0:
-        raise NotImplementedError(
-            "a graph without aggregates takes the parallel aggregation, "
-            "which is not ported yet")
-    return _aggop_from_labels(labels, nagg, C.vals.dtype), cpts
+        return _aggop_from_labels(np.arange(n), n, C.vals.dtype), \
+            np.arange(n)
+    for _ in range(max_rounds if max_rounds is not None else 3):
+        new = _propagate_round(cols, mask, w, agg)
+        done = bool(np.all(new == agg))
+        agg = new
+        if done:
+            break
+    return _aggop_from_labels(agg, nagg, C.vals.dtype), roots
+
+
+def naive_aggregation(C: ELL, seed=0, method="greedy"):
+    """Naive aggregation of the strength graph ``C``: the greedy of the
+    port's native helper (``method='greedy'``), or MIS-1 seeds with one
+    round of label propagation (``'parallel'``).  Returns
+    ``(AggOp, Cpts)``."""
+    from pyamg_tpu_torch import _native
+    return _greedy(C, _native.naive_aggregation, method) or \
+        _naive_aggregation_parallel(C, seed=seed)
+
+
+def _naive_aggregation_parallel(C: ELL, seed=0):
+    """MIS-1 seeds and one round of label propagation (MIS-1 maximality
+    puts every node with a neighbour next to a root); nodes left over
+    become aggregates of their own."""
+    roots, agg, cols, mask, w = _seeded(C, 1, seed)
+    nagg = len(roots)
+    agg = _propagate_round(cols, mask, w, agg)
+    left = np.where(agg < 0)[0]
+    if len(left):
+        agg[left] = nagg + np.arange(len(left))
+        roots = np.concatenate([roots, left])
+        nagg += len(left)
+    return _aggop_from_labels(agg, nagg, C.vals.dtype), roots
+
+
+def pairwise_aggregation(A, matchings=2, theta=0.25, norm="min", seed=0):
+    """Notay-style pairwise aggregation by ``matchings`` composed
+    heavy-edge handshake matchings, each on the Galerkin product of the
+    last (reference ``aggregate.py:181``).  A BELL is matched on its
+    blocks' minima.  ``theta`` and ``norm`` are accepted and not used, as
+    in the JAX package.  Returns ``(AggOp, Cpts)``, Cpts the first member
+    of each aggregate."""
+    from pyamg_tpu_torch.ops.spgemm import spgemm
+    from pyamg_tpu_torch.ops.transpose import transpose
+    if not isinstance(A, ELL):
+        from pyamg_tpu_torch.strength import _block_reduce
+        A = _block_reduce(A, "min")
+    total, cur = None, A
+    for m in range(matchings):
+        agg, nagg = _one_matching(cur, seed=seed + m)
+        T = _aggop_from_labels(agg, nagg, cur.vals.dtype)
+        total = T if total is None else spgemm(total, T, width=1)
+        if m + 1 < matchings:
+            cur = spgemm(spgemm(transpose(T), cur), T)
+    has = np.asarray(total.row_nnz) > 0
+    total = ELL(total.cols, np.where(total.valid_mask(), 1.0, 0.0).astype(
+        total.vals.dtype), total.row_nnz, total.shape)
+    labels = np.asarray(total.cols[:, 0])
+    members = np.where(has)[0]
+    nagg = total.shape[1]
+    # the first member of each aggregate (0 for an empty one)
+    Cpts = np.zeros(nagg, np.int64)
+    first = np.unique(labels[members], return_index=True)
+    Cpts[first[0]] = members[first[1]]
+    return total, Cpts
+
+
+def _one_matching(A: ELL, seed=0):
+    """Heavy-edge handshake matching: each round, every live node points
+    at its live neighbour of the largest ``-Re(a_ij)`` plus a fresh random
+    tie-break (``rng.random(n) * 1e-6 * scale``, in float64 as the JAX
+    package's sum promotes it), and mutual pairs match; up to 12 rounds.
+    Returns (labels, number of aggregates): pairs in order of their first
+    node, the unmatched nodes as singletons."""
+    n = A.shape[0]
+    cols = np.asarray(A.cols)
+    rows = np.arange(n)
+    mask = A.valid_mask() & (cols != rows[:, None])
+    w = np.where(mask, -np.real(np.asarray(A.vals)), -np.inf)
+    scale = float(np.max(np.where(np.isfinite(w), np.abs(w), 0))) or 1.0
+    partner = np.full(n, -1, np.int64)
+    rng = np.random.default_rng(seed)
+    live = np.ones(n, bool)
+    for _ in range(12):
+        tie = rng.random(n) * (1e-6 * scale)
+        key = w.astype(np.float64) + tie[cols]
+        ww = np.where(live[cols] & mask & live[:, None], key, -np.inf)
+        j = np.argmax(ww, axis=1)[:, None]
+        tgt = np.take_along_axis(cols, j, axis=1)[:, 0]
+        ok = np.take_along_axis(ww, j, axis=1)[:, 0] > -np.inf
+        tgt = np.where(ok & live, tgt, -1)
+        mutual = (tgt >= 0) & (tgt[np.where(tgt >= 0, tgt, 0)] == rows)
+        partner = np.where(mutual & (partner < 0), tgt, partner)
+        live = live & (partner < 0)
+        if not live.any():
+            break
+    # number the pairs and singletons in order of their first node
+    first = (partner < 0) | (partner > rows)
+    ids = np.cumsum(first) - 1
+    agg = np.where(first, ids, ids[np.where(partner >= 0, partner, 0)])
+    return agg.astype(np.int32), int(first.sum())
 
 
 def aggregate_dispatch(C, spec, seed=0):
-    """Dispatch PyAMG's ``(name, opts)`` aggregation convention; ``'grid'``
-    and ``'standard'`` are ported."""
+    """Dispatch PyAMG's ``(name, opts)`` aggregation convention:
+    ``'grid'``, ``'standard'``, ``'naive'``, ``'pairwise'`` and
+    ``'predefined'``; ``'lloyd'``, ``'balanced lloyd'`` and ``'metis'``
+    are not ported yet."""
     from pyamg_tpu_torch.relaxation.smoothing import unpack_arg
     name, opts = unpack_arg(spec)
     if name == "grid":
         return grid_aggregation(C, **opts)
     if name == "standard":
         return standard_aggregation(C, seed=seed, **opts)
-    raise NotImplementedError(
-        f"aggregation {name!r} is not ported yet (only 'grid' and "
-        "'standard')")
+    if name == "naive":
+        return naive_aggregation(C, seed=seed, **opts)
+    if name == "pairwise":
+        return pairwise_aggregation(C, seed=seed, **opts)
+    if name == "predefined":
+        return opts["AggOp"], opts.get("Cpts")
+    if name in ("lloyd", "balanced lloyd", "metis"):
+        raise NotImplementedError(
+            f"aggregation {name!r} is not ported yet (its clustering, "
+            f"graph.py's Lloyd and Bellman-Ford, comes with the next slice)")
+    raise ValueError(f"unrecognized aggregation method {name!r}")

@@ -23,7 +23,8 @@ from pyamg_tpu_torch.strength import strength_measure
 from pyamg_tpu_torch.aggregation.aggregate import aggregate_dispatch
 from pyamg_tpu_torch.aggregation.tentative import fit_candidates
 from pyamg_tpu_torch.aggregation.smooth import smooth_prolongator
-from pyamg_tpu_torch.util.utils import SetupClock, levelize
+from pyamg_tpu_torch.util.utils import (SetupClock, eliminate_diag_dom_nodes,
+                                        levelize)
 from pyamg_tpu_torch.ops.spgemm import spgemm, spgemm_bell
 from pyamg_tpu_torch.ops.transpose import btranspose, transpose
 
@@ -53,7 +54,7 @@ def _improve_candidates(A, B, spec):
                           np.zeros_like(np.asarray(B)))
 
 
-def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
+def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
                                 strength="symmetric", aggregate="standard",
                                 smooth=("jacobi", {"omega": 4.0 / 3.0}),
                                 presmoother=("block_gauss_seidel",
@@ -67,12 +68,15 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
                                 max_levels=10, max_coarse=10,
                                 diagonal_dominance=False, keep=False,
                                 coarse_solver="pinv", seed=0):
-    """Smoothed-aggregation AMG hierarchy of a symmetric or Hermitian
-    operator: a host ELL, a host BELL or scipy sparse (BSR becomes a
-    BELL).  ``B`` defaults to ones, or on a BELL to one candidate per
-    unknown of a block (``kron(ones, eye(blocksize))``); ``max_coarse``
-    counts block rows.  Of the aggregation methods ``'standard'`` (the
-    default, greedy) and ``'grid'`` are ported.
+    """Smoothed-aggregation AMG hierarchy of a host ELL, a host BELL or
+    scipy sparse (BSR becomes a BELL).  ``B`` defaults to ones, or on a
+    BELL to one candidate per unknown of a block (``kron(ones,
+    eye(blocksize))``); ``max_coarse`` counts block rows.  With
+    ``symmetry='nonsymmetric'`` R is the adjoint of a P smoothed on A^H
+    from the left candidates ``BH`` (B by default).
+    ``diagonal_dominance`` (True or ``(True, {'theta': ...})``) keeps
+    strongly diagonally dominant rows on the fine level.  Lloyd, balanced
+    Lloyd and METIS aggregation are not ported.
 
     Examples
     --------
@@ -86,33 +90,19 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
     4
     """
     A = asarray_or_ell(A)
-    if symmetry == "nonsymmetric":
-        raise NotImplementedError("nonsymmetric SA is not ported yet")
-    if symmetry not in ("symmetric", "hermitian"):
-        raise ValueError("expected symmetric, nonsymmetric or hermitian")
-    if diagonal_dominance:
-        raise NotImplementedError("diagonal_dominance is not ported yet")
-    n = A.shape[0]
-    if B is None:
-        bs = A.blocksize[0] if isinstance(A, BELL) else 1
-        B = np.asarray(np.kron(np.ones((n // bs, 1)), np.eye(bs)),
-                       dtype=A.dtype)
-    else:
-        B = np.asarray(B, dtype=A.dtype)
-    if B.ndim == 1:
-        B = B[:, None]
+    B, BH = candidates(A, B, BH, symmetry)
 
     strength = levelize(strength, max_levels)
     aggregate = levelize(aggregate, max_levels)
     smooth = levelize(smooth, max_levels)
     improve_candidates = levelize(improve_candidates, max_levels)
 
-    levels = [Level(A=A)]
-    levels[0].B = B
+    levels = [level_with_candidates(A, B, BH)]
     while len(levels) < max_levels and \
             _block_rows(levels[-1].A) > max_coarse:
         if not _extend_hierarchy(levels, strength, aggregate, smooth,
-                                 improve_candidates, keep, symmetry, seed):
+                                 improve_candidates, diagonal_dominance,
+                                 keep, symmetry, seed):
             break
 
     ml = MultilevelSolver(levels, coarse_solver=coarse_solver)
@@ -120,14 +110,54 @@ def smoothed_aggregation_solver(A, B=None, symmetry="hermitian",
     return ml
 
 
+def candidates(A, B, BH, symmetry):
+    """(B, BH) as (n, k) arrays in A's dtype: B defaults to ones, or on a
+    BELL to one candidate per unknown of a block; BH, kept only for
+    ``symmetry='nonsymmetric'``, to B."""
+    if symmetry not in ("symmetric", "hermitian", "nonsymmetric"):
+        raise ValueError("expected symmetric, nonsymmetric or hermitian")
+    n = A.shape[0]
+    bs = A.blocksize[0] if isinstance(A, BELL) else 1
+    B = np.kron(np.ones((n // bs, 1)), np.eye(bs)) if B is None else B
+    B = np.asarray(B, dtype=A.dtype)
+    B = B[:, None] if B.ndim == 1 else B
+    if symmetry != "nonsymmetric":
+        return B, None
+    BH = B if BH is None else np.asarray(BH, dtype=A.dtype)
+    return B, (BH[:, None] if BH.ndim == 1 else BH)
+
+
+def level_with_candidates(A, B, BH):
+    """A level of A with its candidates B (and BH, where not None)."""
+    lvl = Level(A=A)
+    lvl.B = B
+    if BH is not None:
+        lvl.BH = BH
+    return lvl
+
+
+def strength_and_dominance(A, spec, diagonal_dominance):
+    """The strength of connection of A by ``spec``, without the edges of
+    the rows ``diagonal_dominance`` marks as dominant."""
+    C = strength_measure(A, spec)
+    if diagonal_dominance:
+        flag, dd_kwargs = unpack_arg(diagonal_dominance)
+        if flag:
+            C = eliminate_diag_dom_nodes(A, C, **dd_kwargs)
+    return C
+
+
 def _extend_hierarchy(levels, strength, aggregate, smooth,
-                      improve_candidates, keep, symmetry, seed):
+                      improve_candidates, diagonal_dominance, keep, symmetry,
+                      seed):
     """One coarsening step; False when coarsening stalls."""
     lvl_idx = len(levels) - 1
     A, B = levels[-1].A, levels[-1].B
+    nonsym = symmetry == "nonsymmetric"
     clock = SetupClock()
 
-    C = strength_measure(A, strength[lvl_idx])
+    AH = _transpose(A, conjugate=True) if nonsym else None
+    C = strength_and_dominance(A, strength[lvl_idx], diagonal_dominance)
     clock.mark("strength")
     # the strength filter drops the grid tag: thread it through so grid
     # aggregation and the PhaseStencil transfers can engage
@@ -145,8 +175,14 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
 
     B = _improve_candidates(A, B, improve_candidates[lvl_idx])
     levels[-1].B = B
+    if nonsym:
+        BH = _improve_candidates(AH, levels[-1].BH,
+                                 improve_candidates[lvl_idx])
+        levels[-1].BH = BH
     clock.mark("improve_candidates")
     T, Bc = fit_candidates(AggOp, B)
+    if nonsym:
+        TH, BHc = fit_candidates(AggOp, BH)
     clock.mark("fit_candidates")
     P = smooth_prolongator(smooth[lvl_idx], A, T, C, Bc)
     clock.mark("smooth_P")
@@ -158,7 +194,11 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
     else:
         coarse_grid = None
 
-    R = _transpose(P, conjugate=(symmetry == "hermitian"))
+    if nonsym:
+        R = _transpose(smooth_prolongator(smooth[lvl_idx], AH, TH, C, BHc),
+                       conjugate=True)
+    else:
+        R = _transpose(P, conjugate=(symmetry == "hermitian"))
 
     if keep:
         levels[-1].C = C
@@ -174,7 +214,5 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
     levels[-1]._setup_timings = clock.times
     if coarse_grid is not None:
         Ac = dataclasses.replace(Ac, grid=coarse_grid)
-    lvl = Level(A=Ac)
-    lvl.B = Bc
-    levels.append(lvl)
+    levels.append(level_with_candidates(Ac, Bc, BHc if nonsym else None))
     return True

@@ -1,18 +1,20 @@
-"""Prolongation smoothing (counterpart of ``jacobi_prolongation_smoother``
-and ``smooth_prolongator`` in ``pyamg_tpu/aggregation/smooth.py``; setup
-phase, numpy): P = (I - omega/rho(D^-1 A) D^-1 A)^degree T.  A block
-(BELL) operator with a block T scales by its pseudo-inverted diagonal
-blocks."""
+"""Prolongation smoothing (counterpart of ``jacobi_prolongation_smoother``,
+``richardson_prolongation_smoother`` and ``smooth_prolongator`` in
+``pyamg_tpu/aggregation/smooth.py``; setup phase, numpy):
+P = (I - omega/rho(D^-1 A) D^-1 A)^degree T, or (I - omega/rho(A) A)^degree
+T.  A block (BELL) operator with a block T scales by its pseudo-inverted
+diagonal blocks.  Energy minimisation lives in ``energy.py``."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from pyamg_tpu_torch.sparse.matrix import BELL
-from pyamg_tpu_torch.ops.arith import scale_rows, sub
+from pyamg_tpu_torch.ops.arith import scale, scale_rows, sub
 from pyamg_tpu_torch.ops.spgemm import spgemm, spgemm_bell
 from pyamg_tpu_torch.ops.spmv import extract_block_diagonal, extract_diagonal
-from pyamg_tpu_torch.util.linalg import pinv_array
+from pyamg_tpu_torch.util.linalg import approximate_spectral_radius, \
+    pinv_array
 
 
 def _bell_scale_rows_blockdiag(A: BELL, Dinv):
@@ -84,13 +86,40 @@ def jacobi_prolongation_smoother(S, T, C, B, omega=4.0 / 3.0, degree=1,
     return P
 
 
+def richardson_prolongation_smoother(S, T, omega=4.0 / 3.0, degree=1):
+    """Richardson prolongation smoothing (reference ``smooth.py:209``):
+    P = (I - omega / rho(S) S)^degree T."""
+    if isinstance(T, BELL) and not isinstance(S, BELL):
+        S = BELL(S.cols, S.vals[:, :, None, None], S.row_nnz, S.shape,
+                 (1, 1))
+    w = omega / approximate_spectral_radius(S)
+    if isinstance(S, BELL) and isinstance(T, BELL):
+        Sw = BELL(S.cols, S.vals * w, S.row_nnz, S.shape, S.blocksize)
+        P = T
+        for _ in range(degree):
+            P = _bell_sub(P, spgemm_bell(Sw, P))
+        return P
+    Sw = scale(S, w)
+    P = T
+    for _ in range(degree):
+        P = sub(P, spgemm(Sw, P))
+    return P
+
+
 def smooth_prolongator(fn_spec, A, T, C, B):
-    """Dispatch the ``smooth=`` option: ``'jacobi'`` or None."""
+    """Dispatch the ``smooth=`` option: ``'jacobi'``, ``'richardson'``,
+    ``'energy'`` or None."""
     from pyamg_tpu_torch.relaxation.smoothing import unpack_arg
     fn, kwargs = unpack_arg(fn_spec)
     if fn == "jacobi":
         return jacobi_prolongation_smoother(A, T, C, B, **kwargs)
+    if fn == "richardson":
+        return richardson_prolongation_smoother(A, T, **kwargs)
+    if fn == "energy":
+        from pyamg_tpu_torch.aggregation.energy import (
+            energy_prolongation_smoother)
+        return energy_prolongation_smoother(A, T, C, B, None, (False, {}),
+                                            **kwargs)
     if fn is None:
         return T
-    raise NotImplementedError(
-        f"prolongation smoother {fn!r} is not ported yet (only 'jacobi')")
+    raise ValueError(f"unrecognized prolongation smoother {fn!r}")

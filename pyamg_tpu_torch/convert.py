@@ -9,8 +9,11 @@ without the port's setup phase.  ``spec``::
     {"levels": [                      # finest first; the last is coarsest
         {"A": <operator>, "P": <operator>, "R": <operator>,
          "pre":  <smoother>, "post": <smoother>,
-         "splitting": (n,) bool},     # optional: a classical level's
-        ...,                          # C points
+         "splitting": (n,) bool,      # optional: a classical level's
+                                      # C points
+         "B", "BH": (n, k),           # optional: the level's candidates
+         "Cpts", "Fpts": int arrays}, # optional: a root-node level's
+        ...,                          # C- and F-points
         {"A": <operator>}],
      "coarse": <coarse solver>,
      "ds": {"kind": "dia", "data_hi", "data_lo", "offsets", "n"}}  # optional
@@ -163,6 +166,9 @@ def hierarchy_from_arrays(spec, device="cuda") -> MultilevelSolver:
             split = np.asarray(d["splitting"]).astype(bool)
             lvl.splitting = split
             lvl.Cpts, lvl.Fpts = np.flatnonzero(split), np.flatnonzero(~split)
+        for key in ("B", "BH", "Cpts", "Fpts"):
+            if key in d:
+                setattr(lvl, key, np.asarray(d[key]))
         if "P" in d:
             lvl.P, lvl.R = _operator(d["P"]), _operator(d["R"])
             lvl.pre = _smoother(d["pre"], lvl.A, split)

@@ -74,6 +74,20 @@ assert not bad, bad
 """
 
 
+NEW_MODULES = ["aggregation.adaptive", "aggregation.energy",
+               "aggregation.pairwise", "aggregation.rootnode"]
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_walk_covers_the_family_modules(name):
+    """The blocked import below walks the root-node, pairwise, adaptive
+    and energy modules with the rest, and their sources are read above."""
+    walked = {m.name for m in pkgutil.walk_packages(
+        pyamg_tpu_torch.__path__, "pyamg_tpu_torch.")}
+    assert f"pyamg_tpu_torch.{name}" in walked
+    assert os.path.join(PKG, *name.split(".")) + ".py" in set(_sources())
+
+
 def test_package_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

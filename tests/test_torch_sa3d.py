@@ -124,9 +124,16 @@ def test_standard_aggregation_matches_reference(case):
 
 
 def test_parallel_standard_aggregation_is_not_ported():
-    C = symmetric_strength_of_connection(poisson((8, 8)))
-    with pytest.raises(NotImplementedError):
-        standard_aggregation(C, method="parallel")
+    """Ported since: the parallel form (MIS-2 seeds and label propagation)
+    aggregates as the JAX package's does."""
+    S = to_scipy(poisson((8, 8)))
+    C = symmetric_strength_of_connection(from_scipy(S))
+    agg, roots = standard_aggregation(C, method="parallel")
+    ragg, rroots = ref_standard_aggregation(ref_soc(ref_from_scipy(S)),
+                                            method="parallel")
+    np.testing.assert_array_equal(agg.cols, np.asarray(ragg.cols))
+    np.testing.assert_array_equal(agg.row_nnz, np.asarray(ragg.row_nnz))
+    np.testing.assert_array_equal(roots, np.asarray(rroots))
 
 
 # -- (e) the hierarchy --------------------------------------------------------
