@@ -95,7 +95,25 @@ Phases, each printed on its own lines:
    counts reset around it, warm and profiled; 48^2 solves on the card
    against the CPU; and time rows for K1 and K2 on root-node A0, A1 and
    A4 and pairwise A6, K3 on pairwise P0 and R1 and the root-node plans,
-   and K5 on pairwise A1.
+   and K5 on pairwise A1;
+10. blackbox: on 2-D Poisson 500^2 (b from ``default_rng(0).random``),
+   BB, the one-call solve's own route (``solver`` of
+   ``solver_configuration``, float64: evolution strength, energy
+   smoothing, symmetric Gauss-Seidel; compressed; ``solve(A, b,
+   tol=1e-10, existing_solver=ml)`` by CG), LL (SA with Lloyd
+   aggregation, float32, compressed) and SZ (SA with strength-based
+   Schwarz smoothing, ``keep=True``, float32, uncompressed): setup time
+   by key, levels, operator complexity, layouts, DIA widths and SELL
+   plans against the JAX package's (JAX_BLACKBOX) before any solve;
+   every K1/K2/K3/K5 case on their operators to 0 against its plain
+   version; each solve driven with the counts reset around it (SZ
+   launches no kernel: its Schwarz sweeps are torch gathers and batched
+   triangular solves), warm and profiled, and one V-cycle of each
+   profiled with no host read; CG's warning on SZ; 48^2 solves on the
+   card against the CPU (BB also fresh to 1e-8, uncompressed), and a
+   compressed Schwarz hierarchy raising its TypeError; and time rows for
+   K1 and K2 on BB A1 (27 diagonals, float64), K3 on LL P1 and R1 and K5
+   on LL A1.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
@@ -274,6 +292,51 @@ JAX_FAMILIES_SMALL = {
            "inner": (16, 17)},
     "aSA": {"rows": [2304, 396, 45], "operator_complexity": 1.3392478813559323,
             "outer": 2, "inner": (13, 14)},
+}
+# the JAX package's blackbox, Lloyd and Schwarz paths on 2-D Poisson 500^2
+# (JAX_PLATFORMS=cpu PYTHONPATH=.:tests python
+# tests/jax_blackbox_reference.py, CPU, SELL kernels in interpret mode;
+# with --small for JAX_BLACKBOX_SMALL at 48^2): rows, operator complexity,
+# each level's (A, P, R) layout, the diagonals of each DIA level, each SELL
+# operator's (kind, t, passes, Sy), iterations (BB: CG's count; BB small
+# also that of a fresh solve to 1e-8, which leaves its hierarchy
+# uncompressed) and the true relative residual.  The port's hierarchy
+# must equal it (operator complexity within 1e-6), BB's CG count within
+# 1, LL's and SZ's outer count exactly and inner counts within 1
+_LL_SELL = [("SELL", "SELL", "SELL")] * 3
+JAX_BLACKBOX = {
+    "BB": {"rows": [250000, 41750, 2893, 77],
+           "operator_complexity": 1.8707419871794873,
+           "layouts": [("DIA", "ELL", "ELL")] * 2 + [("ELL", "ELL", "ELL"),
+                                                     ("ELL", "NoneType",
+                                                      "NoneType")],
+           "dia": {"A0": 5, "A1": 27}, "plans": {}, "cg": 16,
+           "true_relres": 7.363e-11},
+    "LL": {"rows": [250000, 25000, 2500, 250, 25],
+           "operator_complexity": 1.2468149038461538,
+           "layouts": [("DIA", "ELL", "ELL")] + _LL_SELL +
+           [("DIA", "NoneType", "NoneType")],
+           "dia": {"A0": 5, "A4": 49},
+           "plans": {"A1": ("tall", 1, 128, 200), "P1": ("tall", 10, 27, 200),
+                     "R1": ("fat", 10, 322, 24), "A2": ("tall", 1, 76, 24),
+                     "P2": ("tall", 10, 10, 40), "R2": ("fat", 10, 171, 8),
+                     "A3": ("tall", 1, 42, 8), "P3": ("tall", 10, 9, 40),
+                     "R3": ("fat", 10, 111, 8)},
+           "outer": 3, "inner": (15, 10, 11), "true_relres": 2.451e-12},
+    "SZ": {"rows": _RN_ROWS, "operator_complexity": 1.3365945512820512,
+           "layouts": [("ELL", "ELL", "ELL")] * 5 +
+           [("ELL", "NoneType", "NoneType")], "dia": {}, "plans": {},
+           "outer": 3, "inner": (15, 6, 6), "true_relres": 2.454e-12},
+}
+JAX_BLACKBOX_SMALL = {
+    "BB": {"rows": [2304, 396], "operator_complexity": 1.7191031073446328,
+           "cg": 10, "cg_fresh": 8},
+    "LL": {"rows": [2304, 230, 23],
+           "operator_complexity": 1.2124823446327684, "outer": 2,
+           "inner": (10, 8)},
+    "SZ": {"rows": [2304, 396, 45],
+           "operator_complexity": 1.3392478813559323, "outer": 2,
+           "inner": (7, 6)},
 }
 # inner CG's cap on both SA paths (bench_suite.py's inner_maxiter), and on
 # the pairwise and adaptive SA paths
@@ -958,12 +1021,14 @@ def iterations_near(it, want):
 
 
 def drive_path(path, want, reps=5, phase="classical"):
-    """Drive one path as a user does: ``solve_refined`` to 1e-10 with the
-    launch counts set to 0 just before and read just after; then ``reps``
-    warm solves and one profiled.  Checks the iterations (the path's
-    ``iterations_ok``, by default ``iterations_near`` the JAX package's),
-    the true relative residual below 1e-10 and the kernels launched: those
-    the path must launch, on every operator of the cycle, and no other.
+    """Drive one path as a user does: ``solve_refined`` to 1e-10 (or the
+    path's own ``solve(residuals=, iterations_out=)``, returning x as
+    numpy) with the launch counts set to 0 just before and read just
+    after; then ``reps`` warm solves and one profiled.  Checks the
+    iterations (the path's ``iterations_ok``, by default
+    ``iterations_near`` the JAX package's), the true relative residual
+    below 1e-10 and the kernels launched: those the path must launch, on
+    every operator of the cycle, and no other.
     Returns (launches per kernel, per operator, warm median seconds)."""
     import torch
     from pyamg_tpu_torch.ops import dia_kernels as dk
@@ -971,8 +1036,10 @@ def drive_path(path, want, reps=5, phase="classical"):
     tag, ml, S, b, kw = (path[k] for k in ("name", "ml", "S", "b", "kw"))
     kernels = dk.KERNELS + sk.KERNELS
 
-    def solve(**extra):
+    def refined(**extra):
         return ml.solve_refined(b, A_fine=S, tol=1e-10, **kw, **extra)
+
+    solve = path.get("solve", refined)
 
     dk.reset_launch_counts()
     sk.reset_launch_counts()
@@ -989,9 +1056,9 @@ def drive_path(path, want, reps=5, phase="classical"):
         solve()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    print(f"{phase}: {tag} cold solve_refined {cold:.3f} s, outer "
-          f"{it['outer']} inner {it['inner']} (JAX package "
-          f"{want['outer']} {list(want['inner'])}), true_relres "
+    ref_it = {k: want[k] for k in ("outer", "inner", "cg") if k in want}
+    print(f"{phase}: {tag} cold solve {cold:.3f} s, iterations {it} (JAX "
+          f"package {ref_it}), true_relres "
           f"{relres:.3e} (JAX package {want['true_relres']:.3e}), residuals "
           f"{res}, warm median of {reps} "
           f"{statistics.median(walls) * 1e3:.3f} ms (all "
@@ -1002,7 +1069,7 @@ def drive_path(path, want, reps=5, phase="classical"):
           f"{tag}: x is not a finite vector of the right shape")
     ok, rule = path.get("iterations_ok", (iterations_near, "within 1"))
     check(ok(it, want), f"{tag}: iterations {it} against the JAX package's "
-                        f"{want['outer']} {list(want['inner'])}: not {rule}")
+                        f"{ref_it}: not {rule}")
     check(relres < 1e-10, f"{tag}: true relative residual {relres:.3e} not "
                           f"below 1e-10")
     check(all(launches[k] > 0 for k in path["must"]) and
@@ -1030,23 +1097,8 @@ def classical_phase(dev, sms, rng, want=None, n_rs=500, n_air=256, reps=5):
     paths = classical_paths(dev, n_rs, n_air)
     inputs, per_ops = {}, {}
     for path in paths:
-        tag, ml = path["name"], path["ml"]
-        got = classical_describe(ml)
-        print(f"classical: {tag} setup {path['setup_s']:.3f} s, by key "
-              f"{ {k: round(v, 4) for k, v in path['by_key'].items()} }, "
-              f"levels {len(got['rows'])} rows {got['rows']} "
-              f"operator_complexity {got['operator_complexity']!r} layout "
-              f"{got['layouts']} DIA diagonals {got['dia']} SELL plans "
-              f"{got['plans']}")
-        ref = want[tag]
-        check(got["rows"] == ref["rows"],
-              f"{tag}: rows {got['rows']}, the JAX package {ref['rows']}")
-        check(abs(got["operator_complexity"] - ref["operator_complexity"])
-              <= 1e-6, f"{tag}: operator complexity off the JAX package's")
-        check(got["layouts"] == ref["layouts"] and got["dia"] == ref["dia"]
-              and got["plans"] == ref["plans"],
-              f"{tag}: layouts or plans differ from the JAX package's")
-        inputs[tag] = path_kernels(dev, path, rng, sms)
+        gate_hierarchy("classical", path, want[path["name"]])
+        inputs[path["name"]] = path_kernels(dev, path, rng, sms)
     for path in paths:
         _, per_ops[path["name"]], _ = drive_path(path, want[path["name"]],
                                                  reps)
@@ -1253,6 +1305,29 @@ def sa_more_phase(dev, sms, rng, flush, skip, want=None, small=None,
     return inputs, per_ops
 
 
+def gate_hierarchy(phase, path, ref):
+    """Print a path's setup time by key and its hierarchy, and check it
+    against the JAX package's ``ref``: rows, operator complexity within
+    1e-6, layouts, DIA widths and SELL plans."""
+    tag = path["name"]
+    got = classical_describe(path["ml"])
+    print(f"{phase}: {tag} setup {path['setup_s']:.3f} s, by key "
+          f"{ {k: round(v, 4) for k, v in path['by_key'].items()} }, "
+          f"levels {len(got['rows'])} rows {got['rows']} "
+          f"operator_complexity {got['operator_complexity']!r} (JAX "
+          f"package {ref['operator_complexity']!r}) layout "
+          f"{got['layouts']} DIA diagonals {got['dia']} SELL plans "
+          f"{got['plans']}")
+    check(got["rows"] == ref["rows"],
+          f"{tag}: rows {got['rows']}, the JAX package {ref['rows']}")
+    check(abs(got["operator_complexity"] - ref["operator_complexity"])
+          <= 1e-6, f"{tag}: operator complexity off the JAX package's")
+    check(got["layouts"] == ref["layouts"] and got["dia"] == ref["dia"]
+          and got["plans"] == ref["plans"],
+          f"{tag}: layouts, DIA widths or plans differ from the JAX "
+          f"package's")
+
+
 def families_paths(dev, n=500):
     """The ``families:`` phase's paths on 2-D Poisson n^2, built with the
     port's entry points and their defaults, compressed and placed on
@@ -1324,23 +1399,8 @@ def families_phase(dev, sms, rng, want=None, small=None, n=500, n_small=48,
     inputs, per_ops = {}, {}
     for path in paths:
         tag, ml = path["name"], path["ml"]
-        got = classical_describe(ml)
         ref = want[tag]
-        print(f"families: {tag} setup {path['setup_s']:.3f} s, by key "
-              f"{ {k: round(v, 4) for k, v in path['by_key'].items()} }, "
-              f"levels {len(got['rows'])} rows {got['rows']} "
-              f"operator_complexity {got['operator_complexity']!r} (JAX "
-              f"package {ref['operator_complexity']!r}) layout "
-              f"{got['layouts']} DIA diagonals {got['dia']} SELL plans "
-              f"{got['plans']}")
-        check(got["rows"] == ref["rows"],
-              f"{tag}: rows {got['rows']}, the JAX package {ref['rows']}")
-        check(abs(got["operator_complexity"] - ref["operator_complexity"])
-              <= 1e-6, f"{tag}: operator complexity off the JAX package's")
-        check(got["layouts"] == ref["layouts"] and got["dia"] == ref["dia"]
-              and got["plans"] == ref["plans"],
-              f"{tag}: layouts, DIA widths or plans differ from the JAX "
-              f"package's")
+        gate_hierarchy("families", path, ref)
         if "trials" in path:
             trials = [(t["rows"], t["rho"]) for t in path["trials"]]
             for k, ((rows, rho), (rrows, rrho)) in enumerate(
@@ -1401,6 +1461,190 @@ def families_phase(dev, sms, rng, want=None, small=None, n=500, n_small=48,
               f"card and CPU or from the JAX package's")
         check(diff < 1e-9, f"{p['name']}: the card's small solve disagrees "
                            f"with the CPU's")
+    return inputs, per_ops
+
+
+def cg_near(it, want):
+    """The blackbox solve's CG count within 1 of the JAX package's."""
+    return abs(it["cg"] - want["cg"]) <= 1
+
+
+def blackbox_paths(dev, n=500):
+    """The ``blackbox:`` phase's paths on 2-D Poisson n^2, b from
+    ``default_rng(0).random``, built on the host with the port's entry
+    points and placed on ``dev``: BB, the hierarchy of
+    ``solver(A, solver_configuration(A))`` in float64, compressed, solved
+    by the blackbox's reuse route ``solve(A, b, tol=1e-10,
+    existing_solver=ml)`` (CG); LL, smoothed aggregation with Lloyd
+    aggregation and ``max_coarse=50`` in float32, compressed; SZ, smoothed
+    aggregation with strength-based Schwarz smoothing, ``keep=True`` and
+    ``max_coarse=50`` in float32, not compressed (Schwarz takes ELL
+    levels).  LL and SZ are solved by ``solve_refined(tol=1e-10,
+    accel="cg", inner_maxiter=60, max_outer=20)``.  Each a dict as
+    ``classical_paths`` gives; BB's with its own ``solve`` and iteration
+    rule."""
+    from pyamg_tpu_torch import solve, solver, solver_configuration
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    A64 = poisson((n, n))
+    A32 = A64.astype(np.float32)
+    S = to_scipy(A64).tocsr()
+    b = np.random.default_rng(0).random(A64.shape[0])
+    schwarz = ("strength_based_schwarz", {})
+    capped = {"accel": "cg", "inner_maxiter": SA_INNER_CAP, "max_outer": 20}
+    specs = [
+        ("BB", lambda: solver(A64, solver_configuration(A64, verb=False)),
+         True, ("dia_spmv", "dia_gs_sweep")),
+        ("LL", lambda: smoothed_aggregation_solver(
+            A32, aggregate=("lloyd", {}), max_coarse=50), True,
+         ("dia_spmv", "dia_gs_sweep", "sell_spmv", "sell_gs_sweep")),
+        ("SZ", lambda: smoothed_aggregation_solver(
+            A32, max_coarse=50, keep=True, presmoother=schwarz,
+            postsmoother=schwarz), False, ())]
+    out = []
+    for name, make, compress, must in specs:
+        t0 = time.perf_counter()
+        ml = make()
+        setup = time.perf_counter() - t0
+        path = {"name": name, "S": S, "b": b, "kw": capped, "A": A64,
+                "setup_s": setup, "by_key": ml.setup_timings(),
+                "must": must}
+        if compress:
+            ml.compress_stencils()
+        path["ml"] = ml.to_device(dev)
+        if name == "BB":
+            def bb_solve(residuals=None, iterations_out=None, ml=ml):
+                res = [] if residuals is None else residuals
+                x = solve(A64, b, tol=1e-10, existing_solver=ml, verb=False,
+                          residuals=res, device=dev)
+                if iterations_out is not None:
+                    iterations_out["cg"] = len(res) - 1
+                return x.cpu().numpy()
+            path.update(solve=bb_solve,
+                        iterations_ok=(cg_near, "within 1 of its CG count"))
+        out.append(path)
+    return out
+
+
+def cycle_profile(path, rng):
+    """One V-cycle of the path's hierarchy from zero, profiled warm: it
+    must read nothing on the host.  Prints its wall, busy time, device
+    operations and host syncs."""
+    import torch
+    ml = path["ml"]
+    A0 = ml.levels[0].A
+    M = ml.aspreconditioner()
+    r = torch.as_tensor(rng.standard_normal(A0.shape[0]),
+                        device=ml.device).to(A0.dtype)
+    M.matvec(r)
+    torch.cuda.synchronize()
+    wall, busy, ops, syncs = profiled(lambda: M.matvec(r))
+    print_profile(f"{path['name']} one V-cycle", wall, busy, ops, syncs,
+                  top=6, phase="blackbox")
+    check(syncs == 0, f"{path['name']}: a cycle read the host {syncs} times")
+
+
+def schwarz_refuses_compressed(dev, n):
+    """SZ's hierarchy at n^2, compressed (its fine level becomes a DIA) and
+    placed: a Schwarz cycle raises the port's TypeError, where the JAX
+    package's stops with an AttributeError."""
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    from pyamg_tpu_torch.gallery import poisson
+    schwarz = ("strength_based_schwarz", {})
+    ml = smoothed_aggregation_solver(
+        poisson((n, n)).astype(np.float32), max_coarse=50, keep=True,
+        presmoother=schwarz, postsmoother=schwarz).compress_stencils()
+    ml.to_device(dev)
+    try:
+        ml.solve(np.ones(n * n), maxiter=1)
+    except TypeError as e:
+        print(f"blackbox: SZ {n}^2 compressed ({type(ml.levels[0].A).__name__}"
+              f" fine level): a Schwarz cycle raises TypeError: {e}")
+        check("uncompressed (ELL) hierarchy" in str(e),
+              f"SZ: the TypeError does not say what Schwarz takes: {e}")
+        return
+    check(False, "SZ: a Schwarz cycle on a compressed hierarchy did not "
+                 "raise")
+
+
+def blackbox_phase(dev, sms, rng, want=None, small=None, n=500, n_small=48,
+                   reps=5):
+    """The ``blackbox:`` phase: build BB, LL and SZ and print their setup
+    by key and hierarchy; gate them against ``want`` (JAX_BLACKBOX) before
+    any solve; hold every K1/K2/K3/K5 case on their operators against the
+    plain versions (K1 and K2 in the level's dtype); drive each path
+    (``drive_path``: SZ must launch no kernel), profile one V-cycle of
+    each (no host read) and check that CG warns on SZ's non-symmetric
+    smoothing; then, at ``n_small`` on ``dev`` and on the CPU, solve all
+    three as above and BB once more fresh to 1e-8 (uncompressed): the
+    hierarchies and iterations of ``small`` (JAX_BLACKBOX_SMALL) on both
+    and solutions within 1e-9, and a compressed Schwarz hierarchy raises
+    the port's TypeError.  Returns ({path: kernel inputs}, {path:
+    launches per operator})."""
+    import warnings
+    from pyamg_tpu_torch import solve
+    want = JAX_BLACKBOX if want is None else want
+    small = JAX_BLACKBOX_SMALL if small is None else small
+    paths = blackbox_paths(dev, n)
+    inputs, per_ops = {}, {}
+    for path in paths:
+        gate_hierarchy("blackbox", path, want[path["name"]])
+        inputs[path["name"]] = path_kernels(dev, path, rng, sms,
+                                            phase="blackbox")
+    for path in paths:
+        _, per_ops[path["name"]], _ = drive_path(
+            path, want[path["name"]], reps, phase="blackbox")
+        cycle_profile(path, rng)
+    sz = paths[2]["ml"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sz.solve(np.ones(sz.levels[0].A.shape[0]), accel="cg", maxiter=1)
+    check(any("non-symmetric" in str(w.message) for w in caught),
+          "SZ: CG did not warn of its non-symmetric preconditioner")
+    print("blackbox: SZ CG warns: Incompatible non-symmetric multigrid "
+          "preconditioner, as the JAX package does")
+    schwarz_refuses_compressed(dev, n_small)
+    # the same small solves on the card and on the CPU (plain versions)
+    got = {}
+    for d in ("cuda", "cpu"):
+        got[d] = []
+        for p in blackbox_paths(d, n_small):
+            it = {}
+            x = p.get("solve", lambda **kw: p["ml"].solve_refined(
+                p["b"], A_fine=p["S"], tol=1e-10, **p["kw"], **kw))(
+                    iterations_out=it)
+            got[d].append((x, it, classical_describe(p["ml"])))
+            if p["name"] == "BB":
+                res = []
+                xf = solve(p["A"], p["b"], tol=1e-8, verb=False,
+                           residuals=res, device=d).cpu().numpy()
+                got[d].append((xf, {"cg": len(res) - 1}, None))
+    refs = {"BB": {"cg": small["BB"]["cg"]},
+            "BB fresh to 1e-8": {"cg": small["BB"]["cg_fresh"]},
+            "LL": {k: small["LL"][k] for k in ("outer", "inner")},
+            "SZ": {k: small["SZ"][k] for k in ("outer", "inner")}}
+    for name, (xc, itc, dc), (xh, ith, _) in zip(refs, got["cuda"],
+                                                  got["cpu"]):
+        ref, ref_it = small[name.split()[0]], refs[name]
+        diff = float(np.linalg.norm(xc - xh) / np.linalg.norm(xh))
+        print(f"blackbox: {name} {n_small}^2 "
+              + (f"rows {dc['rows']} operator_complexity "
+                 f"{dc['operator_complexity']!r}, " if dc else "")
+              + f"solve on the card {itc} CPU {ith} (JAX package {ref_it}), "
+              f"card vs CPU relative difference {diff:.3e} (tol 1e-9)")
+        if dc:
+            check(dc["rows"] == ref["rows"] and
+                  abs(dc["operator_complexity"] - ref["operator_complexity"])
+                  <= 1e-6, f"{name}: the small hierarchy differs from the "
+                           f"JAX package's")
+        ok = cg_near(itc, ref_it) if "cg" in ref_it else \
+            iterations_near(itc, ref_it)
+        check(itc == ith and ok, f"{name}: the small solve's iterations "
+                                 f"differ between card and CPU or from the "
+                                 f"JAX package's")
+        check(diff < 1e-9, f"{name}: the card's small solve disagrees with "
+                           f"the CPU's")
     return inputs, per_ops
 
 
@@ -2241,6 +2485,34 @@ def main():
         plain_reps=2, tag=tag))
     slot_model(S, 4 * n * 4, tag)
     del finputs
+
+    # -- 10. blackbox: the one-call solve, Lloyd and Schwarz on 500^2 -------
+    t0 = time.perf_counter()
+    binputs, bper_op = blackbox_phase(dev, sms, rng)
+    print(f"blackbox: phase before its times {time.perf_counter() - t0:.2f}"
+          f" s")
+    # K1 and K2 on BB A1 (27 diagonals, float64); K3 on LL P1 and R1 (t =
+    # 10; R1 322 passes); K5 on LL A1 (25,000 rows, 128 passes)
+    rows += dia_rows(dev, sms, row, binputs, bper_op, (("BB", "A1"),),
+                     (("BB", "A1"),))
+    for op in ("P1", "R1"):
+        S, S_host, xk, err3 = binputs["LL"][f"K3 {op}"]
+        rows.append(sell_row(
+            f"sell_spmv LL {op}", "pyamg_tpu/ops/sell_kernels.py:29", S,
+            to_scipy(S_host), xk, err3, f"sell_spmv LL {op}",
+            bper_op["LL"]["sell_spmv"][op]))
+    S, xg, bg, Dinv, err5 = binputs["LL"]["K5 A1"]
+    n = S.shape[0]
+    tag = "sell_gs_sweep LL A1 forward"
+    rows.append(row(
+        tag, "pyamg_tpu/ops/sell_kernels.py:241",
+        bper_op["LL"]["sell_gs_sweep"]["A1"], err5,
+        lambda: sk.sell_gs_sweep(S, xg, bg, Dinv, 1.0, "forward"),
+        lambda: sk.sell_gs_sweep_plain(S, xg, bg, Dinv, 1.0, "forward"),
+        None, S.nnz * 8 + 4 * n * 4, 2 * S.nnz + 3 * n, source=sell_src,
+        plain_reps=2, tag=tag))
+    slot_model(S, 4 * n * 4, tag)
+    del binputs
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

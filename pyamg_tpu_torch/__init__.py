@@ -6,6 +6,12 @@ CPU when the caller asks for it.  The banded SpMV and the multicolor
 Gauss-Seidel sweep are hand-written CUDA kernels (``csrc/``), built with
 ``nvcc`` at first use.
 
+The one-call solve picks a smoothed-aggregation configuration for A,
+builds it on the host and solves on the card::
+
+    import pyamg_tpu_torch
+    x = pyamg_tpu_torch.solve(A, b, tol=1e-8)
+
 Main path::
 
     import numpy as np
@@ -32,13 +38,19 @@ Root-node, pairwise and adaptive smoothed aggregation and classical AMG
 
 __version__ = "0.1.0"
 
+from pyamg_tpu_torch import gallery, util
 from pyamg_tpu_torch.aggregation import (adaptive_sa_solver, pairwise_solver,
                                          rootnode_solver,
                                          smoothed_aggregation_solver)
+from pyamg_tpu_torch.blackbox import solve, solver, solver_configuration
 from pyamg_tpu_torch.classical import air_solver, ruge_stuben_solver
-from pyamg_tpu_torch.multilevel import MultilevelSolver
+from pyamg_tpu_torch.multilevel import MultilevelSolver, coarse_grid_solver
 from pyamg_tpu_torch.convert import hierarchy_from_arrays
+from pyamg_tpu_torch.io import load_hierarchy, save_hierarchy
 
 __all__ = ["MultilevelSolver", "adaptive_sa_solver", "air_solver",
-           "hierarchy_from_arrays", "pairwise_solver", "rootnode_solver",
-           "ruge_stuben_solver", "smoothed_aggregation_solver"]
+           "coarse_grid_solver", "gallery", "hierarchy_from_arrays",
+           "load_hierarchy", "pairwise_solver", "rootnode_solver",
+           "ruge_stuben_solver", "save_hierarchy",
+           "smoothed_aggregation_solver", "solve", "solver",
+           "solver_configuration", "util"]

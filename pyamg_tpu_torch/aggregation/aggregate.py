@@ -9,7 +9,8 @@ aggregates fix the hierarchy, so no other method stands in for it.  The
 parallel forms seed aggregates with a distance-2 (standard) or distance-1
 (naive) maximal independent set and grow them by label propagation.
 Pairwise aggregation composes heavy-edge handshake matchings.  Lloyd,
-balanced Lloyd and METIS aggregation are not ported.
+balanced Lloyd and METIS aggregation cluster the strength graph with
+``graph.py``'s rounds.
 """
 
 from __future__ import annotations
@@ -234,11 +235,81 @@ def _one_matching(A: ELL, seed=0):
     return agg.astype(np.int32), int(first.sum())
 
 
+def _weighted(C: ELL, data) -> ELL:
+    """The graph of C's pattern with edge weights ``data`` (0 off it)."""
+    return ELL(C.cols, np.where(C.valid_mask(), data, 0).astype(data.dtype),
+               C.row_nnz, C.shape)
+
+
+def _inverse_magnitudes(C: ELL):
+    """``1 / max(|C|, 1e-300)`` in C's dtype (inf where that floor rounds
+    to 0, off the pattern)."""
+    with np.errstate(divide="ignore"):
+        return 1.0 / np.maximum(np.abs(np.asarray(C.vals)), 1e-300)
+
+
+def lloyd_aggregation(C: ELL, ratio=0.1, distance="unit", maxiter=10,
+                      seed=0):
+    """Lloyd-clustering aggregation of the strength graph C into
+    ``max(1, int(ratio * n))`` aggregates (reference ``aggregate.py:313``):
+    edge lengths 1 (``'unit'``), ``|c_ij|`` (``'abs'``) or ``1 / |c_ij|``
+    (``'inv'``).  The seeds come from ``default_rng(0)`` whatever
+    ``seed`` is, as in the JAX package.  Returns ``(AggOp, Cpts)``, Cpts
+    the final centers."""
+    from pyamg_tpu_torch.graph import lloyd_cluster
+    if distance == "unit":
+        data = np.ones(C.cols.shape)
+    elif distance == "abs":
+        data = np.abs(np.asarray(C.vals))
+    elif distance == "inv":
+        data = _inverse_magnitudes(C)
+    else:
+        raise ValueError(f"unrecognized distance {distance!r}")
+    nagg = max(1, int(ratio * C.shape[0]))
+    clusters, centers = lloyd_cluster(_weighted(C, data), nagg,
+                                      maxiter=maxiter)
+    return _aggop_from_labels(clusters, nagg, C.vals.dtype), centers
+
+
+def balanced_lloyd_aggregation(C: ELL, num_clusters=None, maxiter=5, seed=0):
+    """Balanced Lloyd aggregation (reference ``aggregate.py:424``):
+    balanced Bellman-Ford assignment with edge lengths ``1 / |c_ij|`` and
+    graph-median re-centring, ``num_clusters`` (``sqrt(n)`` by default)
+    seeds from ``default_rng(seed)``.  Returns ``(AggOp, Cpts)``."""
+    from pyamg_tpu_torch.graph import balanced_lloyd_cluster
+    if num_clusters is None:
+        num_clusters = max(1, int(C.shape[0] ** 0.5))
+    clusters, centers = balanced_lloyd_cluster(
+        _weighted(C, _inverse_magnitudes(C)), num_clusters, maxiter=maxiter,
+        seed=seed)
+    return _aggop_from_labels(clusters, num_clusters, C.vals.dtype), centers
+
+
+def metis_aggregation(C: ELL, ratio=0.1, measure=None, seed=0):
+    """Aggregation by a partition of the strength graph into
+    ``max(1, int(ratio * n))`` parts (reference ``aggregate.py:563``):
+    ``graph.metis_partition``, which is balanced Lloyd clustering where
+    ``pymetis`` is not installed.  Edge weights: 1 (``measure`` None or
+    ``'unit'``) or ``round(9 |c_ij|) + 1`` (``'range'``).  Returns
+    ``(AggOp, None)``."""
+    from pyamg_tpu_torch.graph import metis_partition
+    if measure is None or measure == "unit":
+        data = np.ones(C.cols.shape)
+    elif measure == "range":
+        data = np.round(9 * np.abs(np.asarray(C.vals))) + 1
+    else:
+        raise ValueError(f"Unrecognized value measure={measure}")
+    nparts = max(1, int(ratio * C.shape[0]))
+    parts = np.asarray(metis_partition(_weighted(C, data), nparts,
+                                       seed=seed))
+    return _aggop_from_labels(parts, int(parts.max()) + 1,
+                              C.vals.dtype), None
+
+
 def aggregate_dispatch(C, spec, seed=0):
     """Dispatch PyAMG's ``(name, opts)`` aggregation convention:
-    ``'grid'``, ``'standard'``, ``'naive'``, ``'pairwise'`` and
-    ``'predefined'``; ``'lloyd'``, ``'balanced lloyd'`` and ``'metis'``
-    are not ported yet."""
+    ``'grid'``, ``'standard'``, ``'naive'``, ``'pairwise'``, ``'lloyd'``,
+    ``'balanced lloyd'``, ``'metis'`` and ``'predefined'``."""
     from pyamg_tpu_torch.relaxation.smoothing import unpack_arg
     name, opts = unpack_arg(spec)
     if name == "grid":
@@ -249,10 +320,12 @@ def aggregate_dispatch(C, spec, seed=0):
         return naive_aggregation(C, seed=seed, **opts)
     if name == "pairwise":
         return pairwise_aggregation(C, seed=seed, **opts)
+    if name == "lloyd":
+        return lloyd_aggregation(C, seed=seed, **opts)
+    if name == "balanced lloyd":
+        return balanced_lloyd_aggregation(C, seed=seed, **opts)
+    if name == "metis":
+        return metis_aggregation(C, seed=seed, **opts)
     if name == "predefined":
         return opts["AggOp"], opts.get("Cpts")
-    if name in ("lloyd", "balanced lloyd", "metis"):
-        raise NotImplementedError(
-            f"aggregation {name!r} is not ported yet (its clustering, "
-            f"graph.py's Lloyd and Bellman-Ford, comes with the next slice)")
     raise ValueError(f"unrecognized aggregation method {name!r}")

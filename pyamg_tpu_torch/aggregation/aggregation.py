@@ -75,8 +75,9 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     ``symmetry='nonsymmetric'`` R is the adjoint of a P smoothed on A^H
     from the left candidates ``BH`` (B by default).
     ``diagonal_dominance`` (True or ``(True, {'theta': ...})``) keeps
-    strongly diagonally dominant rows on the fine level.  Lloyd, balanced
-    Lloyd and METIS aggregation are not ported.
+    strongly diagonally dominant rows on the fine level.  Every level
+    records ``symmetry``, on which the blackbox ``solve`` picks its Krylov
+    method.
 
     Examples
     --------
@@ -105,6 +106,8 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
                                  keep, symmetry, seed):
             break
 
+    for lvl in levels:
+        lvl.symmetry = symmetry
     ml = MultilevelSolver(levels, coarse_solver=coarse_solver)
     change_smoothers(ml, presmoother, postsmoother)
     return ml

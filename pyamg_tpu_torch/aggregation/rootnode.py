@@ -70,6 +70,8 @@ def rootnode_solver(A, B=None, BH=None, symmetry="hermitian",
                                  keep, symmetry, seed):
             break
 
+    for lvl in levels:
+        lvl.symmetry = symmetry
     ml = MultilevelSolver(levels, coarse_solver=coarse_solver)
     change_smoothers(ml, presmoother, postsmoother)
     return ml

@@ -89,7 +89,7 @@ class Level:
 
 
 RELAXATION_SOLVERS = ("jacobi", "gauss_seidel", "block_jacobi",
-                      "block_gauss_seidel", "none")
+                      "block_gauss_seidel", "schwarz", "none")
 
 
 class CoarseSolver:
@@ -97,9 +97,9 @@ class CoarseSolver:
     called as ``(A, b)``.  Kinds: ``pinv``/``pinv2`` (a dense
     pseudo-inverse), ``lu``/``splu`` (LU factors), ``cholesky``,
     ``none`` (zero), a relaxation (``jacobi``, ``gauss_seidel`` and
-    their block names on a scalar operator; 10 iterations from zero by
-    default), ``cg``/``gmres`` (``maxiter`` fixed steps from zero, 30 by
-    default) or a callable ``fn(A, b)``.  ``params`` holds the arrays
+    their block names on a scalar operator, ``schwarz``; 10 iterations
+    from zero by default), ``cg``/``gmres`` (``maxiter`` fixed steps from
+    zero, 30 by default) or a callable ``fn(A, b)``.  ``params`` holds the arrays
     ``to_device`` moves; ``static`` the Python values the call branches
     on.  The factor-solves are library calls (triangular solves, which read
     nothing on the host): these systems have at most a few thousand rows,
@@ -150,9 +150,6 @@ class CoarseSolver:
                 None, A, (kind, {"iterations": it, **opts}))}
         if kind in ("cg", "gmres"):
             return {"maxiter": int(self.opts.get("maxiter", 30))}
-        if kind == "schwarz":
-            raise NotImplementedError("a Schwarz coarse solve is not "
-                                      "ported yet")
         raise ValueError(f"unknown coarse solver {kind!r}")
 
     def _take(self, f):

@@ -1,5 +1,5 @@
 """Smoothers of the port: Jacobi, Gauss-Seidel/SOR, polynomial,
-normal-equation and Krylov smoothers (no block smoothers, no Schwarz)."""
+normal-equation, block, Schwarz and Krylov smoothers."""
 
 from pyamg_tpu_torch.relaxation import relaxation
 from pyamg_tpu_torch.relaxation.chebyshev import (

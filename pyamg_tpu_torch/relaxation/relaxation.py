@@ -1,5 +1,4 @@
-"""Relaxation sweeps (counterpart of ``pyamg_tpu/relaxation/relaxation.py``
-without Schwarz).
+"""Relaxation sweeps (counterpart of ``pyamg_tpu/relaxation/relaxation.py``).
 
 * Jacobi family: ``jacobi``, ``jacobi_indexed``, ``cf_jacobi``,
   ``fc_jacobi``; each iteration is one product ``A x`` (K1 on a DIA, K3
@@ -22,6 +21,15 @@ without Schwarz).
   pass is one full product ``A x`` (``bspmv``), one batched product with
   ``Dinv`` and a masked update, as in the reference; on tensors these are
   torch ops on their device.
+* ``schwarz``: additive overlapping Schwarz on an ELL operator, the JAX
+  package's method (not PyAMG's multiplicative one): every subdomain's
+  dense block ``A[S, S]`` solves its part of the residual at once, and
+  each node takes the mean of the corrections of the subdomains holding
+  it.  The blocks and the overlap map depend only on A, so the blocks
+  are gathered and LU-factored (partial pivoting) once at setup
+  (``schwarz_params``); a sweep is torch gathers, two batched triangular
+  solves and a gather-sum.  ``torch.linalg.solve_ex`` would factor again
+  on every sweep, and its ``lu_solve`` reads the pivots on the host.
 
 Host (numpy) operands are the setup phase (candidate improvement);
 tensor operands are the solve phase.  No function here reads a tensor
@@ -453,3 +461,101 @@ def fc_block_jacobi(A, x, b, Cpts, Fpts, Dinv=None, iterations=1,
         x = block_jacobi_indexed(A, x, b, Fpts, Dinv, f_iterations, omega)
         x = block_jacobi_indexed(A, x, b, Cpts, Dinv, c_iterations, omega)
     return x
+
+
+# -- overlapping Schwarz -------------------------------------------------------
+
+def _schwarz_operator(A):
+    if not isinstance(A, ELL):
+        raise TypeError(
+            f"the Schwarz smoothers take an uncompressed (ELL) hierarchy, "
+            f"not a {type(A).__name__} level: set them up and solve before "
+            f"compress_stencils, or leave the hierarchy uncompressed")
+
+
+def schwarz_params(A: ELL, subdomain):
+    """The arrays of an additive Schwarz sweep on the host ELL A, from the
+    subdomains' padded member lists ``subdomain`` (ns, ms), -1 padded
+    (setup phase): ``subdomain`` as given and ``pad``; ``lu``, the LU
+    factors with partial pivoting of each subdomain's dense ``A[S, S]``
+    (the identity on its pads), in A's dtype, and ``index``/``pad_rows``,
+    the members (pads at node 0) and pads in the factors' row order;
+    ``owners``, for each node the flat slots ``s * ms + m`` of the
+    subdomains holding it in slot order, padded with the slot ``ns * ms``
+    that holds 0; and ``count``, the number of subdomains holding each
+    node, at least 1, in A's dtype.  A twin in another dtype
+    (``MultilevelSolver.as_dtype``) casts the factors; it does not factor
+    again."""
+    from pyamg_tpu_torch.ops.rowops import ell_dedup, row_lookup
+    _schwarz_operator(A)
+    sub = np.asarray(subdomain)
+    ns, ms = sub.shape
+    pad = sub < 0
+    idx = np.where(pad, 0, sub).astype(np.int64)
+    # column-sorted rows without duplicates, as row_lookup reads them
+    A = ell_dedup(A.cols, A.vals, A.valid_mask(), A.shape)
+    flat = idx.reshape(-1)
+    rows = ELL(np.asarray(A.cols)[flat], np.asarray(A.vals)[flat],
+               np.asarray(A.row_nnz)[flat], (ns * ms, A.shape[1]))
+    blocks = row_lookup(rows, np.repeat(idx, ms, axis=0)).reshape(ns, ms, ms)
+    eye = np.eye(ms, dtype=bool)[None]
+    blocks = np.where(pad[:, :, None] | pad[:, None, :], eye, blocks).astype(
+        A.vals.dtype)
+    lu, piv, _ = torch.linalg.lu_factor_ex(torch.from_numpy(blocks))
+    # LAPACK's row interchanges (1-based, row i swapped with row piv[i]
+    # in order) as a row order: A[S, S][perm] = L U
+    piv = piv.numpy().astype(np.int64) - 1
+    perm = np.broadcast_to(np.arange(ms), (ns, ms)).copy()
+    r = np.arange(ns)
+    for i in range(ms):
+        a, b = perm[r, i].copy(), perm[r, piv[:, i]].copy()
+        perm[r, i], perm[r, piv[:, i]] = b, a
+    slot = np.flatnonzero(~pad.reshape(-1))
+    node = sub.reshape(-1)[slot]
+    order = np.argsort(node, kind="stable")
+    node, slot = node[order], slot[order]
+    counts = np.bincount(node, minlength=A.shape[0])
+    owners = np.full((A.shape[0], max(int(counts.max(initial=0)), 1)),
+                     ns * ms, np.int64)
+    owners[node, np.arange(len(node)) - np.searchsorted(node, node)] = slot
+    return {"subdomain": sub, "pad": pad, "lu": lu.numpy(),
+            "index": np.take_along_axis(idx, perm, axis=1),
+            "pad_rows": np.take_along_axis(pad, perm, axis=1),
+            "owners": owners,
+            "count": np.maximum(counts, 1).astype(A.vals.dtype)}
+
+
+def schwarz(A, x, b, subdomain, subdomain_ptr=None, iterations=1,
+            max_size=None, params=None):
+    """Additive overlapping Schwarz on the ELL A, ``iterations`` times:
+    ``x += mean over the subdomains S holding a node of A[S, S]^-1 r[S]``
+    with ``r = b - A x`` (the JAX package's ``schwarz``; reference
+    ``relaxation.py:157``), each block solved by its LU factors.
+    ``subdomain`` (ns, ms) lists each subdomain's nodes, -1 padded;
+    ``params`` (``schwarz_params``, as the smoother keeps them) saves
+    gathering and factoring the blocks again.  A DIA, SELL or
+    PhaseStencil operator raises ``TypeError``."""
+    _schwarz_operator(A)
+    host = _host(x, b)
+    if params is None:
+        A_host = A if not isinstance(A.cols, torch.Tensor) else ELL(
+            A.cols.cpu().numpy(), A.vals.cpu().numpy(),
+            A.row_nnz.cpu().numpy(), A.shape)
+        params = schwarz_params(A_host, subdomain)
+    if host:
+        A = A.to("cpu")
+        x, b = torch.from_numpy(np.asarray(x)), torch.from_numpy(
+            np.asarray(b))
+    p = {k: torch.as_tensor(v, device=x.device) for k, v in params.items()
+         if k != "subdomain"}
+    zero = torch.zeros((1,), dtype=x.dtype, device=x.device)
+    for _ in range(iterations):
+        r = b - matvec(A, x)
+        rs = torch.where(p["pad_rows"], 0, r[p["index"]])[..., None]
+        y = torch.linalg.solve_triangular(p["lu"], rs, upper=False,
+                                          unitriangular=True)
+        dx = torch.linalg.solve_triangular(p["lu"], y, upper=True)[..., 0]
+        dx = torch.where(p["pad"], 0, dx)
+        upd = torch.cat([dx.reshape(-1), zero])[p["owners"]].sum(dim=1)
+        x = x + upd / p["count"]
+    return x.numpy() if host else x

@@ -1,5 +1,5 @@
 """Smoother setup and application (counterpart of
-``pyamg_tpu/relaxation/smoothing.py`` without Schwarz).
+``pyamg_tpu/relaxation/smoothing.py``).
 
 A smoother is a triple ``(kind, sopts, params)``: ``kind`` and the static
 options ``sopts`` (Python scalars: they choose the code path and the loop
@@ -210,8 +210,36 @@ def setup_fc_block_jacobi(level, A, opts):
             sopts, params)
 
 
+def _subdomains(C: ELL):
+    """One subdomain per row of C: the row's stored columns, -1 padded."""
+    sub = np.asarray(C.cols).astype(np.int32)
+    sub[~C.valid_mask()] = -1
+    return sub
+
+
 def setup_schwarz(level, A, opts):
-    raise NotImplementedError("Schwarz smoothing is not ported yet")
+    """Additive Schwarz over ``subdomain`` (``opts``; by default one
+    subdomain per row of A, its stored columns), its dense blocks gathered
+    and LU-factored here (``rx.schwarz_params``).  A block operator raises ``TypeError``:
+    the JAX package sets Schwarz up on the block graph of a BELL and then
+    fails in the sweep."""
+    subdomain = opts.get("subdomain")
+    if subdomain is None:
+        rx._schwarz_operator(A)
+        subdomain = _subdomains(A)
+    return ("schwarz", {"iterations": int(opts.get("iterations", 1))},
+            rx.schwarz_params(A, subdomain))
+
+
+def setup_strength_based_schwarz(level, A, opts):
+    """Schwarz with one subdomain per row of the level's kept strength of
+    connection ``C`` (``keep=True``), or of A where no C was kept, as in
+    the JAX package (reference ``smoothing.py:531``)."""
+    C = getattr(level, "C", None)
+    if C is None:
+        return setup_schwarz(level, A, opts)
+    return ("schwarz", {"iterations": int(opts.get("iterations", 1))},
+            rx.schwarz_params(A, _subdomains(C)))
 
 
 def setup_gmres(level, A, opts):
@@ -260,7 +288,7 @@ _SETUPS = {
     "cf_block_jacobi": setup_cf_block_jacobi,
     "fc_block_jacobi": setup_fc_block_jacobi,
     "schwarz": setup_schwarz,
-    "strength_based_schwarz": setup_schwarz,
+    "strength_based_schwarz": setup_strength_based_schwarz,
     "gmres": setup_gmres,
     "cg": setup_cg,
     "cgne": setup_cgne,
@@ -391,6 +419,9 @@ def apply_smoother(kind, sopts, params, A, x, b):
                   f_iterations=sopts["f_iterations"],
                   c_iterations=sopts["c_iterations"], omega=params["omega"],
                   Dinv=params["Dinv"])
+    if kind == "schwarz":
+        return rx.schwarz(A, x, b, params["subdomain"],
+                          iterations=sopts["iterations"], params=params)
     if kind.startswith("krylov_"):
         from pyamg_tpu_torch.krylov import inner
         if kind == "krylov_cg":

@@ -1,15 +1,15 @@
-"""Option and operator helpers (counterpart of ``levelize``,
-``filter_matrix_rows``, ``truncate_rows``, ``unamal``, the root-node
-scaffolding ``scale_T`` and ``get_Cpt_params``, ``compute_BtBinv``,
-``filter_operator`` and ``eliminate_diag_dom_nodes`` of
-``pyamg_tpu/util/utils.py``; setup phase, numpy) and the setup clock of
-the solver constructors."""
+"""Option and operator helpers (counterpart of ``pyamg_tpu/util/utils.py``;
+setup phase, numpy): ``levelize``, ``profile_solver``, row and column
+scaling, symmetric rescaling, diagonals, amalgamation, rigid-body modes,
+the row and column filters, the root-node scaffolding, the hierarchy
+spectrum, and the setup clock of the solver constructors."""
 
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
 
 from pyamg_tpu_torch.sparse.matrix import BELL, ELL
 
@@ -29,6 +29,179 @@ def levelize(spec, max_levels):
     k = max(max_levels - 1, 1)
     items = items + [items[-1]] * k
     return items[:k]
+
+
+def profile_solver(ml, accel=None, **kwargs):
+    """The residual history of ``ml.solve`` on a right-hand side drawn by
+    ``default_rng(0).random`` in the fine operator's dtype (reference
+    ``utils.py:51``); ``kwargs`` go to the solve."""
+    A = ml.levels[0].A
+    b = np.asarray(np.random.default_rng(0).random(A.shape[0]),
+                   dtype=_numpy_dtype(A.dtype))
+    residuals = []
+    ml.solve(b, residuals=residuals, accel=accel, **kwargs)
+    return np.asarray(residuals)
+
+
+def _numpy_dtype(dtype):
+    """A numpy dtype for a numpy or torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty((), dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+def scale_rows(A: ELL, v) -> ELL:
+    """diag(v) @ A."""
+    from pyamg_tpu_torch.ops.arith import scale_rows as _scale_rows
+    return _scale_rows(A, np.asarray(v))
+
+
+def scale_columns(A: ELL, v) -> ELL:
+    """A @ diag(v)."""
+    return ELL(A.cols, A.vals * np.asarray(v)[np.asarray(A.cols)],
+               A.row_nnz, A.shape)
+
+
+def symmetric_rescaling(A: ELL):
+    """``(D^1/2, D^-1/2, D^-1/2 A D^-1/2)`` with D the magnitude of A's
+    diagonal (0 in D^-1/2 where the diagonal's real part is 0; reference
+    ``utils.py:296``)."""
+    from pyamg_tpu_torch.ops.spmv import extract_diagonal
+    d = extract_diagonal(A)
+    d_sqrt = np.sqrt(np.abs(d))
+    d_sqrt_inv = np.where(np.real(d) != 0,
+                          1.0 / np.where(d_sqrt == 0, 1, d_sqrt), 0)
+    return d_sqrt, d_sqrt_inv, scale_rows(scale_columns(A, d_sqrt_inv),
+                                          d_sqrt_inv)
+
+
+def symmetric_rescaling_sa(A, B, BH=None):
+    """``(D^-1/2 A D^-1/2, D^1/2 B, D^1/2 BH)``: the rescaled operator and
+    candidates of the same span (reference ``utils.py:371``)."""
+    d_sqrt, _, DAD = symmetric_rescaling(A)
+
+    def scaled(V):
+        V = np.asarray(V)
+        return V * (d_sqrt[:, None] if V.ndim == 2 else d_sqrt)
+
+    return DAD, scaled(B), None if BH is None else scaled(BH)
+
+
+def get_diagonal(A, norm_eq=False, inv=False):
+    """diag(A); with ``norm_eq=1`` diag(A^H A) (the column sums of
+    ``|a|^2``), with ``norm_eq=2`` diag(A A^H) (the row sums); with
+    ``inv`` their inverses, 0 where 0 (reference ``utils.py:541``)."""
+    from pyamg_tpu_torch.ops.spmv import extract_diagonal
+    if norm_eq == 1:
+        sq = np.abs(np.asarray(A.vals)) ** 2
+        d = np.zeros((A.shape[1],), sq.dtype)
+        np.add.at(d, np.asarray(A.cols), sq)
+    elif norm_eq == 2:
+        d = np.sum(np.abs(np.asarray(A.vals)) ** 2, axis=1)
+    else:
+        d = extract_diagonal(A)
+    if inv:
+        return np.where(d != 0, 1.0 / np.where(d == 0, 1, d), 0.0)
+    return d
+
+
+def get_block_diag(A: BELL, blocksize=None, inv_flag=False):
+    """The (nb, br, bc) diagonal blocks of A, pseudo-inverted with
+    ``inv_flag`` (reference ``utils.py:603``)."""
+    from pyamg_tpu_torch.ops.spmv import extract_block_diagonal
+    from pyamg_tpu_torch.util.linalg import pinv_array
+    D = extract_block_diagonal(A)
+    return pinv_array(D) if inv_flag else D
+
+
+def amalgamate(A: ELL, blocksize: int) -> ELL:
+    """The node graph of A's ``blocksize x blocksize`` blocks: 1 where a
+    block holds an entry (reference ``utils.py:695``)."""
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.sparse.matrix import from_scipy, to_scipy
+    As = to_scipy(A).tobsr(blocksize=(blocksize, blocksize))
+    n = As.shape[0] // blocksize
+    return from_scipy(sp.csr_matrix((np.ones(len(As.indices)), As.indices,
+                                     As.indptr), shape=(n, n)))
+
+
+def coord_to_rbm(V):
+    """The rigid-body modes of nodes at 1-, 2- or 3-D coordinates V:
+    translations, then rotations (about z, then y, then x in 3-D), the
+    elasticity near-nullspace (reference ``utils.py:1002``)."""
+    V = np.asarray(V)
+    n, d = V.shape
+    if d == 1:
+        return np.ones((n, 1))
+    if d == 2:
+        B = np.zeros((2 * n, 3))
+        B[0::2, 0] = 1
+        B[1::2, 1] = 1
+        B[0::2, 2] = -V[:, 1]
+        B[1::2, 2] = V[:, 0]
+        return B
+    if d == 3:
+        B = np.zeros((3 * n, 6))
+        for k in range(3):
+            B[k::3, k] = 1
+        B[0::3, 3] = -V[:, 1]
+        B[1::3, 3] = V[:, 0]
+        B[0::3, 4] = V[:, 2]
+        B[2::3, 4] = -V[:, 0]
+        B[1::3, 5] = -V[:, 2]
+        B[2::3, 5] = V[:, 1]
+        return B
+    raise ValueError("coordinates must be 1D/2D/3D")
+
+
+def hierarchy_spectrum(ml, filter_entries=True):
+    """The eigenvalues of every level's A, densified (with
+    ``filter_entries`` its zero rows and their columns dropped), and a
+    printed table of their real and imaginary ranges (reference
+    ``utils.py:912``).  For small hierarchies."""
+    eigs = []
+    for lvl in ml.levels:
+        Ad = _level_scipy(lvl).toarray()
+        if filter_entries:
+            keep = np.abs(Ad).sum(axis=1) != 0
+            Ad = Ad[np.ix_(keep, keep)]
+        eigs.append(np.linalg.eigvals(Ad))
+    print("  lvl     n     min(re)      max(re)      min(im)      max(im)")
+    for i, e in enumerate(eigs):
+        print(f"{i:5d} {e.shape[0]:6d} {e.real.min():12.4e} "
+              f"{e.real.max():12.4e} {e.imag.min():12.4e} "
+              f"{e.imag.max():12.4e}")
+    return eigs
+
+
+def _level_scipy(lvl):
+    """A level's operator as scipy sparse, from its uncompressed original
+    where the level keeps one."""
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
+    A = getattr(lvl, "A_ell", None)
+    A = lvl.A if A is None else A
+    return sell_to_scipy(A) if isinstance(A, SELL) else to_scipy(A)
+
+
+def filter_matrix_columns(A: ELL, theta) -> ELL:
+    """A without the entries ``|a_ij| < theta * max_k |a_kj|``, the largest
+    magnitude of their column (reference ``utils.py:1932``)."""
+    from pyamg_tpu_torch.ops.rowops import ell_dedup
+    cols, vals, valid = np.asarray(A.cols), np.asarray(A.vals), \
+        A.valid_mask()
+    colmax = np.zeros((A.shape[1],))
+    np.maximum.at(colmax, cols, np.where(valid, np.abs(vals), 0))
+    keep = valid & (np.abs(vals) >= theta * colmax[cols])
+    return ell_dedup(cols, np.where(keep, vals, 0), keep, A.shape)
+
+
+def scale_rows_by_largest_entry(A: ELL) -> ELL:
+    """Every row of A divided by its largest magnitude (a zero row kept;
+    reference ``utils.py:1746``)."""
+    from pyamg_tpu_torch.strength import _scale_rows_by_largest_entry
+    return ELL(A.cols, _scale_rows_by_largest_entry(A.vals, A.valid_mask()),
+               A.row_nnz, A.shape, A.grid, A.col_grid)
 
 
 def filter_matrix_rows(A: ELL, theta, diagonal=False, lump=False):

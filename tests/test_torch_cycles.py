@@ -258,8 +258,13 @@ def test_unknown_coarse_solver_raises():
     A = from_scipy(to_scipy(poisson((4, 4))))
     with pytest.raises(ValueError):
         coarse_grid_solver("no_such_solver").setup(A)
-    with pytest.raises(NotImplementedError):
-        coarse_grid_solver("schwarz").setup(A)
+    # Schwarz is ported: it sets up on an ELL and refuses a compressed one
+    cs = coarse_grid_solver("schwarz")
+    cs.setup(A)
+    assert cs.static["smoother"][0] == "schwarz"
+    from pyamg_tpu_torch.sparse.matrix import dia_from_ell
+    with pytest.raises(TypeError):
+        coarse_grid_solver("schwarz").setup(dia_from_ell(A))
 
 
 @pytest.mark.parametrize("kind", COARSE, ids=_coarse_id)

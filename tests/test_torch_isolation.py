@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import pyamg_tpu_torch
-from pyamg_tpu_torch import _device, convert, multilevel
+from pyamg_tpu_torch import _device, blackbox, convert, multilevel
+from pyamg_tpu_torch.gallery import demo as gallery_demo
 from pyamg_tpu_torch.ops import dense, ds
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,13 +76,18 @@ assert not bad, bad
 
 
 NEW_MODULES = ["aggregation.adaptive", "aggregation.energy",
-               "aggregation.pairwise", "aggregation.rootnode"]
+               "aggregation.pairwise", "aggregation.rootnode", "blackbox",
+               "graph", "graph_ref", "io", "util.params", "util.utils",
+               "util.linalg", "gallery.fem", "gallery.mesh",
+               "gallery.random_sparse", "gallery.demo", "gallery.example",
+               "vis.vtk_writer", "vis.vis_coarse", "vis.aggviz"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_walk_covers_the_family_modules(name):
-    """The blocked import below walks the root-node, pairwise, adaptive
-    and energy modules with the rest, and their sources are read above."""
+    """The blocked import below walks the family modules, the blackbox,
+    the graph, checkpoint, utility, gallery and vis modules with the
+    rest, and their sources are read above."""
     walked = {m.name for m in pkgutil.walk_packages(
         pyamg_tpu_torch.__path__, "pyamg_tpu_torch.")}
     assert f"pyamg_tpu_torch.{name}" in walked
@@ -101,7 +107,7 @@ def test_package_imports_with_jax_blocked():
     ds.ds_operator, convert.hierarchy_from_arrays,
     multilevel.MultilevelSolver.collapse_coarse,
     multilevel.MultilevelSolver.enable_ds_refinement,
-    multilevel.MultilevelSolver.to_device,
+    multilevel.MultilevelSolver.to_device, blackbox.solve, gallery_demo,
 ], ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

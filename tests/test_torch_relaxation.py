@@ -214,9 +214,14 @@ def test_make_smoother_raises_like_reference():
     with pytest.raises(ValueError):
         ref_make(None, ref_from_scipy(_matrix(np.float64)),
                  ("no_such_smoother", {}))
+    # Schwarz is ported: a compressed (DIA) or block operator raises
+    from pyamg_tpu_torch.sparse.matrix import dia_from_ell
+    from pyamg_tpu_torch.gallery import linear_elasticity
     for name in ("schwarz", "strength_based_schwarz"):
-        with pytest.raises(NotImplementedError):
-            make_smoother(None, A, (name, {}))
+        assert make_smoother(None, A, (name, {}))[0] == "schwarz"
+        for op in (dia_from_ell(A), linear_elasticity((4, 4))[0]):
+            with pytest.raises(TypeError):
+                make_smoother(None, op, (name, {}))
 
 
 READS = ("__bool__", "__float__", "__int__", "__index__", "item", "tolist",

@@ -89,9 +89,14 @@ def test_strength_measure_matches_reference(spec, operator):
 
 def test_unported_options_raise():
     C = port(ref_strength(ref_poisson((6, 6)), ("symmetric", {})))
-    for name in ("lloyd", "balanced lloyd", "metis"):
-        with pytest.raises(NotImplementedError):
-            aggregate_dispatch(C, name)
+    # Lloyd, balanced Lloyd and METIS are ported; their unknown options
+    # and an unknown method raise
+    with pytest.raises(ValueError):
+        aggregate_dispatch(C, "no such aggregation")
+    with pytest.raises(ValueError):
+        aggregate_dispatch(C, ("lloyd", {"distance": "max"}))
+    with pytest.raises(ValueError):
+        aggregate_dispatch(C, ("metis", {"measure": "max"}))
     with pytest.raises(ValueError):
         strength_measure(C, ("nearest", {}))
     with pytest.raises(ValueError):
