@@ -113,7 +113,27 @@ Phases, each printed on its own lines:
    card against the CPU (BB also fresh to 1e-8, uncompressed), and a
    compressed Schwarz hierarchy raising its TypeError; and time rows for
    K1 and K2 on BB A1 (27 diagonals, float64), K3 on LL P1 and R1 and K5
-   on LL A1.
+   on LL A1;
+11. parallel: the row-sharded solve (``pyamg_tpu_torch.parallel``) in a
+   one-rank NCCL group on the card, float64 SA on 2-D Poisson: the three
+   flows of ``__graft_entry__.dryrun_multichip`` (CG for 3 iterations and
+   2 standalone cycles on the gspmd path, 2 cycles on the halo path) at
+   32^2 (``max_coarse=8``, ``replicate_below=64``) and at 500^2
+   (``max_coarse=10``, ``replicate_below=2048``), the levels and each
+   residual history against the JAX package's 4-device mesh
+   (JAX_PARALLEL; 1e-10 at 32^2, 1e-9 at 500^2) and against the unsharded
+   port in the same call, the halo CG to 1e-8 (the JAX package's
+   iterations within 1, true relative residual below 1e-8) and no K1-K5
+   launch around the sharded solves; at 500^2, for gspmd, halo and the
+   unsharded hierarchy, the warm median of 5 CGs to 1e-8, one profiled,
+   and the collectives per solve (counted by the port's wrappers, held
+   against the NCCL kernels the trace shows), and one sharded V-cycle
+   profiled with no host read, and the host cost of one all-gather and
+   one all-reduce call; then each rank's step at 4 and 8 ranks
+   emulated in one process (the halo product of A0, A1 and A2, the
+   gathered product of P0 and R0) against the unsharded product on the
+   card.  One rank carries no halo: the phase measures the sharded
+   wrappers' own cost, not an exchange.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
@@ -340,6 +360,31 @@ JAX_BLACKBOX_SMALL = {
 }
 # inner CG's cap on both SA paths (bench_suite.py's inner_maxiter), and on
 # the pairwise and adaptive SA paths
+# tests/jax_parallel_reference.py: the JAX package's row-sharded solves on
+# a 4-device mesh (float64 SA, b from default_rng(0).standard_normal): the
+# rows of the levels, the sharded levels, the histories of CG for 3
+# iterations (cg3), of 2 standalone cycles (sa2) and of 2 cycles on the
+# halo path (halo2), and the halo CG's iterations to 1e-8
+JAX_PARALLEL = {
+    32: {"max_coarse": 8, "replicate_below": 64,
+         "rows": [1024, 176, 24, 4], "sharded": [0, 1],
+         "cg3": [31.139468020815205, 2.71430807204457, 0.14257747895192494,
+                 0.01079375929446267],
+         "sa2": [31.139468020815205, 2.221510256686357,
+                 0.36195506102493935],
+         "halo2": [31.139468020815205, 2.221510256686357,
+                   0.36195506102493935],
+         "halo_cg_iters": 7, "rtol": 1e-10},
+    500: {"max_coarse": 10, "replicate_below": 2048,
+          "rows": [250000, 41750, 4704, 532, 65, 9], "sharded": [0, 1, 2],
+          "cg3": [500.47976676684607, 80.87845799227829, 4.066062310906942,
+                  0.42761068265499413],
+          "sa2": [500.47976676684607, 45.69808026534817, 9.310384397884661],
+          "halo2": [500.47976676684607, 45.69808026534817,
+                    9.310384397884661],
+          "halo_cg_iters": 8, "rtol": 1e-9},
+}
+
 SA_INNER_CAP = 60
 # the classical operators whose K3 case also takes an x holding inf and NaN
 CLASSICAL_NON_FINITE = {("RS", "P0"), ("RS", "R0"), ("AIR", "R0")}
@@ -350,6 +395,8 @@ SOLVER_K5_PAIRS = ((1.2, "forward"), (1.2, "backward"))
 # again, after a pause (an empty trace has come back whole after one)
 TRACE_TRIES = 5
 TRACE_PAUSE_S = 0.5
+# small device operations run in a trace before the call it counts
+TRACE_LEAD_IN = 256
 # flushed calls made beyond those timed: a trace can come back without
 # its first operations (up to 21 of them, 7 calls, seen in a trace of
 # kernels that follow a 159,500-operation profile)
@@ -1031,23 +1078,19 @@ def drive_path(path, want, reps=5, phase="classical"):
     every operator of the cycle, and no other.
     Returns (launches per kernel, per operator, warm median seconds)."""
     import torch
-    from pyamg_tpu_torch.ops import dia_kernels as dk
-    from pyamg_tpu_torch.ops import sell_kernels as sk
     tag, ml, S, b, kw = (path[k] for k in ("name", "ml", "S", "b", "kw"))
-    kernels = dk.KERNELS + sk.KERNELS
 
     def refined(**extra):
         return ml.solve_refined(b, A_fine=S, tol=1e-10, **kw, **extra)
 
     solve = path.get("solve", refined)
 
-    dk.reset_launch_counts()
-    sk.reset_launch_counts()
+    reset_kernel_launches()
     it, res = {}, []
     t0 = time.perf_counter()
     x = solve(residuals=res, iterations_out=it)
     cold = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = kernel_launches()
     per_op = path_launches(ml)
     relres = float(np.linalg.norm(b - S @ x) / np.linalg.norm(b))
     walls = []
@@ -1702,6 +1745,306 @@ def dia_rows(dev, sms, row, inputs, per_ops, k1_ops, k2_ops):
             sum(per_color[c] for c in order) * (2 * nd + 3), peak=peak,
             tag=f"dia_gs_sweep {tag} {op} ({len(order)} passes{dt}, {g})"))
     return rows
+
+
+def parallel_build(n, cfg, dev, mesh=None, spmv="gspmd"):
+    """(A, ml): the port's float64 SA hierarchy of 2-D Poisson n^2 with
+    ``cfg``'s ``max_coarse``, sharded over ``mesh`` (``spmv``) or, with no
+    mesh, placed on ``dev`` whole."""
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.parallel import shard_hierarchy
+    A = poisson((n, n))
+    ml = smoothed_aggregation_solver(A, max_coarse=cfg["max_coarse"])
+    if mesh is None:
+        return A, ml.to_device(dev)
+    return A, shard_hierarchy(ml, mesh,
+                              replicate_below=cfg["replicate_below"],
+                              spmv=spmv)
+
+
+def gate_history(tag, got, want, rtol):
+    """A residual history entry by entry within ``rtol`` of ``want``."""
+    err = max((abs(g - w) / abs(w) for g, w in zip(got, want)), default=0.0)
+    print(f"parallel: {tag} residuals {got} (want {want}), max relative "
+          f"difference {err:.3e} (tol {rtol:g})")
+    check(len(got) == len(want) and err <= rtol,
+          f"{tag}: residual history off by {err:.3e} (tol {rtol:g})")
+
+
+def kernel_launches():
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    return {k.__name__: k.launches for k in dk.KERNELS + sk.KERNELS}
+
+
+def reset_kernel_launches():
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    dk.reset_launch_counts()
+    sk.reset_launch_counts()
+
+
+def led_in_ops(fn, dev):
+    """The device operations [(name, start, end)] of one call of ``fn``,
+    traced after TRACE_LEAD_IN one-element additions on ``dev``: a trace
+    taken late in the script loses its first few operations (three of a
+    500^2 gspmd solve's all-gathers, in every retake), and then it loses
+    these instead."""
+    import torch
+    pad = torch.zeros(1, device=dev)
+
+    def body():
+        for _ in range(TRACE_LEAD_IN):
+            pad.add_(1)
+        fn()
+
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in device_events(body, 1)]
+
+
+def nccl_kernels(ops):
+    """{collective: NCCL device operations} among a trace's device
+    operations (``nccl:_all_gather_base`` is an all-gather)."""
+    out = {}
+    for name, _, _ in ops:
+        low = name.lower().replace("_", "")
+        if "nccl" not in low:
+            continue
+        kind = "all_gather" if "allgather" in low else \
+            "all_reduce" if "allreduce" in low else name[:60]
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def parallel_flows(dev, mesh, n, want, reps=5, timed=False):
+    """The dryrun's flows at n^2 on a hierarchy sharded over ``mesh``
+    against the JAX package's (``want``): the levels; CG for 3 iterations
+    and 2 standalone cycles on the gspmd path and 2 cycles on the halo
+    path, each history to ``want['rtol']`` and to the unsharded port's in
+    this call; the halo CG to 1e-8 within 1 of the JAX package's
+    iterations and a true relative residual below 1e-8; no K1-K5 launch
+    around the sharded solves.  With ``timed``: for gspmd, halo and the
+    unsharded hierarchy, the warm median of ``reps`` CGs to 1e-8, one
+    profiled, and the collectives per solve.  Returns the hierarchies."""
+    import torch
+    from pyamg_tpu_torch.parallel import partition
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    tag = f"{n}^2"
+    t0 = time.perf_counter()
+    A, ml0 = parallel_build(n, want, dev)
+    _, mlg = parallel_build(n, want, dev, mesh)
+    _, mlh = parallel_build(n, want, dev, mesh, spmv="halo")
+    print(f"parallel: {tag} setup of three float64 hierarchies (unsharded, "
+          f"gspmd, halo) {time.perf_counter() - t0:.2f} s")
+    S = to_scipy(A)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    rtol = want["rtol"]
+    for name, ml in (("gspmd", mlg), ("halo", mlh)):
+        rows = [int(l.A.shape[0]) for l in ml.levels]
+        sharded = [i for i, l in enumerate(ml.levels)
+                   if isinstance(l.A, partition.RowSharded)]
+        print(f"parallel: {tag} {name} levels {rows}, sharded {sharded}, "
+              f"A {[type(l.A).__name__ for l in ml.levels]}, P/R in-split "
+              f"{[(getattr(l.P, 'in_sharded', None), getattr(l.R, 'in_sharded', None)) for l in ml.levels]}")
+        check(rows == want["rows"] and sharded == want["sharded"],
+              f"{tag} {name}: levels {rows} sharded {sharded}, the JAX "
+              f"package's {want['rows']} {want['sharded']}")
+
+    def run(ml, **kw):
+        res = []
+        x = ml.solve(b, residuals=res, **kw)
+        return res, x
+
+    cg3 = dict(maxiter=3, tol=1e-12, accel="cg")
+    sa2 = dict(maxiter=2, tol=1e-12)
+    cg8 = dict(maxiter=100, tol=1e-8, accel="cg")
+    un = {k: run(ml0, **kw)[0] for k, kw in (("cg3", cg3), ("sa2", sa2))}
+    reset_kernel_launches()
+    got = {"cg3": run(mlg, **cg3), "sa2": run(mlg, **sa2),
+           "halo2": run(mlh, **sa2)}
+    res8, x8 = run(mlh, **cg8)
+    launched = kernel_launches()
+    for key, (res, x) in got.items():
+        gate_history(f"{tag} {key}", res, want[key], rtol)
+        gate_history(f"{tag} {key} against the unsharded port", res,
+                     un["sa2" if key == "halo2" else key], rtol)
+        check(x.shape == (A.shape[0],) and bool(torch.isfinite(x).all()),
+              f"{tag} {key}: x is not a finite vector of the fine size")
+    relres = float(np.linalg.norm(b - S @ x8.cpu().numpy())
+                   / np.linalg.norm(b))
+    it8 = len(res8) - 1
+    print(f"parallel: {tag} halo CG to 1e-8: {it8} iterations (JAX package "
+          f"{want['halo_cg_iters']}), true relative residual {relres:.3e}; "
+          f"kernel launches around the sharded solves {launched}")
+    check(abs(it8 - want["halo_cg_iters"]) <= 1 and relres < 1e-8,
+          f"{tag} halo CG: {it8} iterations, relres {relres:.3e}")
+    check(all(v == 0 for v in launched.values()),
+          f"{tag}: a CUDA kernel launched on the sharded path: {launched}")
+    if not timed:
+        return ml0, mlg, mlh
+    for name, ml in (("unsharded", ml0), ("gspmd", mlg), ("halo", mlh)):
+        def solve(ml=ml):
+            return ml.solve(b, **cg8)
+        solve()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        partition.reset_counts()
+        reset_kernel_launches()
+        solve()
+        per_solve = dict(partition.COUNTS)
+        launched = kernel_launches()
+        print(f"parallel: {tag} {name} CG to 1e-8 warm median of {reps} "
+              f"{statistics.median(walls) * 1e3:.3f} ms (all "
+              f"{[round(w * 1e3, 3) for w in walls]}), collectives per "
+              f"solve {per_solve}, kernel launches {launched}")
+        check(all(v == 0 for v in launched.values()),
+              f"{tag} {name}: a CUDA kernel launched: {launched}")
+        wall, busy, ops, syncs = profiled(solve)
+        print_profile(f"{tag} {name} CG to 1e-8", wall, busy, ops, syncs,
+                      top=8, phase="parallel")
+        nccl = nccl_kernels(led_in_ops(solve, mesh.device))
+        print(f"parallel: {tag} {name} NCCL device operations in a trace of "
+              f"one solve led in by {TRACE_LEAD_IN} small operations {nccl} "
+              f"(collectives {per_solve})")
+        check(all(v == per_solve[kind] for kind, v in nccl.items()
+                  if kind in per_solve),
+              f"{tag} {name}: the NCCL device operations {nccl} do not "
+              f"match the collectives {per_solve}")
+        if name != "unsharded":
+            M = ml.aspreconditioner()
+            r = ml._scatter(b, torch.float64)
+            M.matvec(r)
+            wall, busy, ops, syncs = profiled(lambda: M.matvec(r))
+            print_profile(f"{tag} {name} one V-cycle", wall, busy, ops,
+                          syncs, top=4, phase="parallel")
+            check(syncs == 0, f"{tag} {name}: a sharded cycle read the "
+                              f"host {syncs} times")
+    return ml0, mlg, mlh
+
+
+def collective_costs(mesh, n, reps=200):
+    """Host microseconds a call (host clock around ``reps`` calls, then one
+    synchronize) of the port's collective wrappers on ``mesh``: an
+    all-gather of an (n,) float64 vector and an all-reduce of one scalar,
+    beside a plain copy of the same vector (one torch operation)."""
+    import torch
+    from pyamg_tpu_torch.parallel import partition
+    x = torch.ones(n, dtype=torch.float64, device=mesh.device)
+    s = torch.ones((), dtype=torch.float64, device=mesh.device)
+    out = {}
+    for name, fn in (("all_gather", lambda: partition.all_gather(x, mesh)),
+                     ("all_reduce", lambda: partition.all_reduce(s, mesh)),
+                     ("copy", lambda: x.clone())):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    print(f"parallel: host us a call over {reps} calls (n = {n}, float64): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def emulate_halo(plan, x):
+    """Every rank's halo step of ``plan`` in one process: rank e's send
+    buffer for offset o feeds rank (e + o) % p, which concatenates what it
+    receives in offset order; the ranks' rows laid end to end."""
+    import torch
+    from pyamg_tpu_torch.parallel.halo import halo_local_mv, halo_send
+    p, dev = plan.ndev, x.device
+    xt = x.reshape(p, plan.m_loc)
+    sends = [halo_send(xt[e], [torch.as_tensor(s[e], device=dev).long()
+                               for s in plan.send_idx]) for e in range(p)]
+    ys = []
+    for d in range(p):
+        segs = [sends[(d - o) % p][k] for k, o in enumerate(plan.offsets)]
+        ys.append(halo_local_mv(
+            torch.as_tensor(plan.cols[d], device=dev).long(),
+            torch.as_tensor(plan.vals[d], device=dev), xt[d], segs))
+    return torch.cat(ys)
+
+
+def emulated_steps(dev, ml, ranks=(4, 8)):
+    """Each rank's step at ``ranks`` ranks, emulated in one process on
+    ``dev``: the halo product of A0, A1 and A2 (``build_halo_plan``, A1
+    padded) and the ``ShardedELL`` product of P0 and R0 on the gathered
+    input, laid end to end, against the unsharded product on ``dev``: 0
+    expected (rows are independent and keep their slots' order), gated at
+    1e-14 of the largest entry."""
+    import torch
+    from pyamg_tpu_torch.ops.spmv import spmv
+    from pyamg_tpu_torch.parallel import partition as pt
+    from pyamg_tpu_torch.parallel.halo import build_halo_plan
+    rng = np.random.default_rng(3)
+    lv = ml.levels
+    for p in ranks:
+        for name, A in (("A0", lv[0].A), ("A1", lv[1].A), ("A2", lv[2].A),
+                        ("P0", lv[0].P), ("R0", lv[0].R)):
+            n, m = A.shape
+            x = torch.as_tensor(rng.standard_normal(m), device=dev)
+            want = spmv(A.to(dev), x)
+            if name[0] == "A":
+                plan = build_halo_plan(A, p)
+                xp = torch.zeros(plan.shape[1], dtype=x.dtype, device=dev)
+                xp[:m] = x
+                got = emulate_halo(plan, xp)[:n]
+                how = (f"halo offsets {plan.offsets} segments "
+                       f"{plan.seg_sizes}")
+            else:
+                Ap = pt.pad_matrix_rows(A, p, identity_pad=False)
+                xp = torch.zeros(m + (-m) % p, dtype=x.dtype, device=dev)
+                xp[:m] = x
+                got = torch.cat([pt.shard_matrix(Ap, pt.RowMesh(
+                    None, p, r, dev, tuple(range(p))), in_sharded=False).mv(xp)
+                    for r in range(p)])[:n]
+                how = "gathered input"
+            err, scale = rel_err(got, want)
+            print(f"parallel: emulated {p} ranks {name} ({n} x {m}, {how}) "
+                  f"against the unsharded product: max_abs_err {err:.3e} "
+                  f"(largest entry {scale:.3e}){'' if err == 0 else ' NOT bit for bit'}")
+            check(got.shape == want.shape and err <= 1e-14 * scale,
+                  f"emulated {p} ranks {name}: off by {err:.3e}")
+
+
+def parallel_phase(dev, backend="nccl", sizes=(32, 500), want=None, reps=5):
+    """The ``parallel:`` phase: a one-rank process group (NCCL on the
+    card; no other backend there) on ``dev``; the dryrun's flows at
+    ``sizes[0]`` and at ``sizes[1]`` (timed), against ``want``
+    (JAX_PARALLEL); and each rank's step at 4 and 8 ranks, emulated on
+    ``dev`` at ``sizes[1]``; the host cost of the collectives
+    (``collective_costs``).  The group is destroyed at the end."""
+    import torch
+    import torch.distributed as dist
+    from pyamg_tpu_torch.parallel import make_row_mesh
+    want = JAX_PARALLEL if want is None else want
+    kw = {}
+    if backend == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+        kw = {"device_id": dev}
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1, **kw)
+    try:
+        mesh = make_row_mesh(1, device=dev)
+        print(f"parallel: one-rank {dist.get_backend()} group on "
+              f"{mesh.device}; its exchanges carry nothing, so the card "
+              f"measures the sharded wrappers' own cost")
+        small, full = sizes
+        parallel_flows(dev, mesh, small, want[small], reps)
+        ml0, _, _ = parallel_flows(dev, mesh, full, want[full], reps,
+                                   timed=True)
+        collective_costs(mesh, want[full]["rows"][0])
+    finally:
+        dist.destroy_process_group()
+    emulated_steps(dev, ml0)
 
 
 def main():
@@ -2513,6 +2856,11 @@ def main():
         plain_reps=2, tag=tag))
     slot_model(S, 4 * n * 4, tag)
     del binputs
+
+    # -- 11. parallel: the row-sharded solve on a one-rank NCCL group ------
+    t0 = time.perf_counter()
+    parallel_phase(dev)
+    print(f"parallel: phase {time.perf_counter() - t0:.2f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,8 @@ Root-node, pairwise and adaptive smoothed aggregation and classical AMG
 __version__ = "0.1.0"
 
 from pyamg_tpu_torch import gallery, util
+from pyamg_tpu_torch._tools import PytestTester
+from pyamg_tpu_torch.sparse import BELL, ELL, from_scipy, to_scipy
 from pyamg_tpu_torch.aggregation import (adaptive_sa_solver, pairwise_solver,
                                          rootnode_solver,
                                          smoothed_aggregation_solver)
@@ -48,9 +50,12 @@ from pyamg_tpu_torch.multilevel import MultilevelSolver, coarse_grid_solver
 from pyamg_tpu_torch.convert import hierarchy_from_arrays
 from pyamg_tpu_torch.io import load_hierarchy, save_hierarchy
 
-__all__ = ["MultilevelSolver", "adaptive_sa_solver", "air_solver",
-           "coarse_grid_solver", "gallery", "hierarchy_from_arrays",
-           "load_hierarchy", "pairwise_solver", "rootnode_solver",
-           "ruge_stuben_solver", "save_hierarchy",
+# runs the port's own tests: ``pyamg_tpu_torch.test()``
+test = PytestTester(__name__)
+
+__all__ = ["BELL", "ELL", "MultilevelSolver", "adaptive_sa_solver",
+           "air_solver", "coarse_grid_solver", "from_scipy", "gallery",
+           "hierarchy_from_arrays", "load_hierarchy", "pairwise_solver",
+           "rootnode_solver", "ruge_stuben_solver", "save_hierarchy",
            "smoothed_aggregation_solver", "solve", "solver",
-           "solver_configuration", "util"]
+           "solver_configuration", "test", "to_scipy", "util"]

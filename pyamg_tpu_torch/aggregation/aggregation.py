@@ -67,9 +67,10 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
                                                     None),
                                 max_levels=10, max_coarse=10,
                                 diagonal_dominance=False, keep=False,
-                                coarse_solver="pinv", seed=0):
+                                coarse_solver="pinv", seed=0, **kwargs):
     """Smoothed-aggregation AMG hierarchy of a host ELL, a host BELL or
-    scipy sparse (BSR becomes a BELL).  ``B`` defaults to ones, or on a
+    scipy sparse (BSR becomes a BELL).  Other keyword arguments are
+    accepted and ignored, as the JAX package does.  ``B`` defaults to ones, or on a
     BELL to one candidate per unknown of a block (``kron(ones,
     eye(blocksize))``); ``max_coarse`` counts block rows.  With
     ``symmetry='nonsymmetric'`` R is the adjoint of a P smoothed on A^H

@@ -24,9 +24,10 @@ def pairwise_solver(A,
                     postsmoother=("block_gauss_seidel",
                                   {"sweep": "symmetric"}),
                     max_levels=20, max_coarse=10, coarse_solver="pinv",
-                    seed=0):
+                    seed=0, **kwargs):
     """Pairwise-aggregation AMG hierarchy of a square host ELL or scipy
-    matrix (reference ``pairwise.py:14``); level l matches with seed
+    matrix (reference ``pairwise.py:14``); other keyword arguments are
+    accepted and ignored, as the JAX package does; level l matches with seed
     ``seed + l`` unless ``aggregate`` names one.
 
     Examples

@@ -36,9 +36,10 @@ def rootnode_solver(A, B=None, BH=None, symmetry="hermitian",
                                           "iterations": 4}), None),
                     max_levels=10, max_coarse=10,
                     diagonal_dominance=False, keep=False,
-                    coarse_solver="pinv", seed=0):
+                    coarse_solver="pinv", seed=0, **kwargs):
     """Root-node SA hierarchy of a host ELL, a host BELL or scipy sparse
-    (reference ``rootnode.py:25``).  ``smooth`` is ``'energy'`` (with its
+    (reference ``rootnode.py:25``); other keyword arguments are accepted
+    and ignored, as the JAX package does.  ``smooth`` is ``'energy'`` (with its
     options as ``('energy', {...})``) or None; the coarse candidates are B
     injected at the C-points.  Each level keeps ``Cnodes``, ``Cpts`` and
     ``Fpts``, and with ``keep`` also ``C``, ``AggOp`` and ``T``.

@@ -109,7 +109,12 @@ def _coarse_record(cs, arrays):
 
 def save_hierarchy(ml, path):
     """Write the hierarchy ``ml`` (placed or not) to ``path`` (.npz).  A
-    callable coarse solver or smoother cannot be written."""
+    callable coarse solver or smoother, or a sharded hierarchy, cannot be
+    written."""
+    if getattr(ml, "_mesh", None) is not None:
+        raise TypeError("a sharded hierarchy is not serializable: save it "
+                        "before shard_hierarchy and shard it again after "
+                        "loading")
     cs = ml.coarse_solver
     if callable(cs.kind):
         raise TypeError("callable coarse solvers are not serializable")

@@ -16,6 +16,8 @@ operator (numpy, scipy sparse, a host ELL/BELL/DIA/SELL) goes to
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
@@ -24,6 +26,7 @@ from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            from_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec as sp_matvec
+from pyamg_tpu_torch.parallel.partition import sharded_mesh
 
 CONTAINERS = (DIA, ELL, BELL, PhaseStencil, SELL)
 
@@ -40,6 +43,30 @@ def dot(a, b):
 
 def norm(v):
     return torch.sqrt(torch.real(torch.vdot(v, v)))
+
+
+def dots(V, u):
+    """V^H u: the inner products of u with the rows of V."""
+    return (V.conj() if V.is_complex() else V) @ u
+
+
+class Reduction(NamedTuple):
+    """The inner products a Krylov loop takes: ``dot(a, b)``, ``norm(v)``
+    and ``dots(V, u)``.  ``LOCAL`` is the plain one; a row-sharded level
+    sums each over the ranks (``parallel.partition.ShardedReduction``)."""
+    dot: Callable
+    norm: Callable
+    dots: Callable
+
+
+LOCAL = Reduction(dot, norm, dots)
+
+
+def reduction(A):
+    """The inner products of the vectors A acts on: summed over the ranks
+    where A is row-sharded, else ``LOCAL``."""
+    mesh = sharded_mesh(A)
+    return LOCAL if mesh is None else mesh.reduction
 
 
 def torch_dtype(dtype):

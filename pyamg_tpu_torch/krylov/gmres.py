@@ -22,8 +22,8 @@ from functools import partial
 
 import torch
 
-from pyamg_tpu_torch.krylov.common import (as_precond, finalize, norm,
-                                           prepare, real_dtype)
+from pyamg_tpu_torch.krylov.common import (LOCAL, as_precond, finalize,
+                                           norm, prepare, real_dtype)
 
 TINY = 1e-300      # the reference's breakdown threshold (0 in float32)
 
@@ -99,12 +99,12 @@ class _Work:
             t.zero_()
 
 
-def _cycle(mv, Mv, b, R, w, flexible, orthog, x, rtol, check_start):
+def _cycle(mv, Mv, b, R, w, flexible, orthog, red, x, rtol, check_start):
     """One restart cycle from x: (x, steps, converged), the estimates in
-    ``w.cycres``."""
+    ``w.cycres``; ``red`` takes the inner products."""
     r0 = b - mv(x)
     r = r0 if flexible else Mv(r0)
-    beta = norm(r)
+    beta = red.norm(r)
     w.reset()
     V, Z, H, g = w.V, w.Z, w.H, w.g
     V[0] = torch.where(beta > 0, r / torch.where(beta == 0, 1, beta), 0.0)
@@ -122,17 +122,17 @@ def _cycle(mv, Mv, b, R, w, flexible, orthog, x, rtol, check_start):
         col = torch.zeros((R + 1,), dtype=b.dtype, device=b.device)
         if orthog == "mgs":
             for i in range(j + 1):
-                hi = torch.vdot(V[i], u)
+                hi = red.dot(V[i], u)
                 u = u - hi * V[i]
                 col[i] = hi
         else:
             Vj = V[:j + 1]
-            h1 = _conj(Vj) @ u
+            h1 = red.dots(Vj, u)
             u = u - Vj.T @ h1
-            h2 = _conj(Vj) @ u
+            h2 = red.dots(Vj, u)
             u = u - Vj.T @ h2
             col[:j + 1] = h1 + h2
-        unorm = norm(u)
+        unorm = red.norm(u)
         col[j + 1] = unorm
         V[j + 1] = torch.where(unorm > TINY,
                                u / torch.where(unorm == 0, 1, unorm), 0.0)
@@ -150,7 +150,8 @@ def _cycle(mv, Mv, b, R, w, flexible, orthog, x, rtol, check_start):
     return x + Z[:j].T @ y[:, 0], j, conv
 
 
-def _restarted(cycle, w, mv, pres, x, b, tol, R, max_outer, callback):
+def _restarted(cycle, w, mv, pres, x, b, tol, R, max_outer, callback,
+               norm=norm):
     """The restart loop around ``cycle(x, rtol, check_start)`` (one
     restart cycle on the work ``w``); ``pres`` maps a residual to the
     one the tolerance is on.  Returns ``(x, info, resbuf, nres)``."""
@@ -175,19 +176,23 @@ def _restarted(cycle, w, mv, pres, x, b, tol, R, max_outer, callback):
 
 
 def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
-               orthog="cgs2", callback=None):
+               orthog="cgs2", callback=None, red=LOCAL):
     """Restarted GMRES from x with restart ``R`` and at most ``max_outer``
     cycles: ``(x, info, resbuf, nres)``.  ``resbuf[:nres]`` holds the
     preconditioned residual norms (the residual norms for FGMRES), the
     initial one first; ``info`` is 0 when the final true (preconditioned)
     residual is below ``tol`` times that of b, else the step count.
-    ``callback(x)`` is called after every cycle."""
+    ``callback(x)`` is called after every cycle.  ``red``: the inner
+    products (``common.Reduction``; summed over the ranks on a row-sharded
+    level, whose Hessenberg matrix and stop flags every rank then holds
+    alike)."""
     if orthog not in ("cgs2", "mgs"):
         raise ValueError(f"unknown orthog {orthog!r}")
     w = _Work(R, b, flexible)
-    return _restarted(partial(_cycle, mv, Mv, b, R, w, flexible, orthog), w,
+    return _restarted(partial(_cycle, mv, Mv, b, R, w, flexible, orthog,
+                              red), w,
                       mv, (lambda r: r) if flexible else Mv, x, b, tol, R,
-                      max_outer, callback)
+                      max_outer, callback, norm=red.norm)
 
 
 def _msign(v):

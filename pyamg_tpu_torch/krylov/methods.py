@@ -13,22 +13,23 @@ import torch
 
 from pyamg_tpu_torch._device import as_tensor
 from pyamg_tpu_torch.krylov.common import (
-    as_matvec, as_precond, dot, final_info, finalize, norm, place, prepare,
-    real_dtype, torch_dtype)
+    LOCAL, as_matvec, as_precond, dot, final_info, finalize, norm, place,
+    prepare, real_dtype, torch_dtype)
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec as sp_matvec
 
 
 def _rtol(criteria, tol, normb, normMb, fro, x0norm):
-    """Stopping threshold of ``criteria``."""
+    """Stopping threshold of ``criteria`` (``x0norm()``: ||x0||, taken
+    only for 'rr+')."""
     if criteria == "rr":
         return tol * normb
     if criteria == "rr+":
         if fro is None:
             raise ValueError("criteria 'rr+' needs ||A||_F")
         froA = fro() if callable(fro) else fro
-        return tol * (froA * x0norm + normb)
+        return tol * (froA * x0norm() + normb)
     if criteria == "MrMr":
         return tol * normMb
     if criteria == "rMr":
@@ -37,7 +38,7 @@ def _rtol(criteria, tol, normb, normMb, fro, x0norm):
 
 
 def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
-            stall_window=8, callback=None):
+            stall_window=8, callback=None, red=LOCAL):
     """Preconditioned CG from ``x``: ``(x_best, info, resbuf, nres)``.
 
     ``info`` is 0 on convergence, -1 on a curvature breakdown, and the
@@ -49,20 +50,23 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
     before tight tolerances.  The best iterate seen is returned, because
     the 2-norm residual of CG is not monotone.  0 disables the stall
     test.  ``callback(x)`` is called with the iterate after every
-    iteration.
+    iteration.  ``red``: the inner products (``common.Reduction``;
+    summed over the ranks on a row-sharded level, so that every rank reads
+    the same stop flag).
     """
     rdt = real_dtype(b.dtype)
-    normb = norm(b)
+    normb = red.norm(b)
     normb = torch.where(normb == 0, 1.0, normb)
-    normMb = norm(Mv(b)) if criteria == "MrMr" else None
+    normMb = red.norm(Mv(b)) if criteria == "MrMr" else None
     r = b - mv(x)
     z = Mv(r)
     p = z
-    rz = torch.real(dot(r, z))
-    normr0 = (norm(r) if criteria != "MrMr" else norm(z)).to(rdt)
-    rtol = _rtol(criteria, tol, normb, normMb, fro, norm(x))
+    rz = torch.real(red.dot(r, z))
+    nr0 = red.norm(r)
+    normr0 = (nr0 if criteria != "MrMr" else red.norm(z)).to(rdt)
+    rtol = _rtol(criteria, tol, normb, normMb, fro, lambda: red.norm(x))
     resbuf = torch.zeros((maxiter + 1,), dtype=rdt, device=b.device)
-    resbuf[0] = norm(r)
+    resbuf[0] = nr0
     minr, imp_it, xb = normr0, torch.zeros((), dtype=torch.int32,
                                            device=b.device), x
     info = torch.zeros((), dtype=torch.int32, device=b.device)
@@ -70,24 +74,25 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
     it = 0
     while not done and it < maxiter:
         Ap = mv(p)
-        pAp = torch.real(dot(Ap, p))
+        pAp = torch.real(red.dot(Ap, p))
         bad_A = pAp <= 0.0
         alpha = rz / torch.where(pAp == 0, 1, pAp)
         xn = x + alpha * p
         rn = b - mv(xn) if (it + 1) % 8 == 0 else r - alpha * Ap
         zn = Mv(rn)
-        rzn = torch.real(dot(rn, zn))
+        rzn = torch.real(red.dot(rn, zn))
         bad_M = rzn < 0.0
         beta = rzn / torch.where(rz == 0, 1, rz)
         p = zn + beta * p
         it += 1
+        nrn = red.norm(rn)
         if criteria == "MrMr":
-            normr = norm(zn)
+            normr = red.norm(zn)
         elif criteria == "rMr":
             normr = torch.sqrt(torch.clamp(rzn, min=0.0))
         else:
-            normr = norm(rn)
-        resbuf[it] = norm(rn)
+            normr = nrn
+        resbuf[it] = nrn
         conv = normr < rtol
         better = normr < minr
         xb = torch.where(better, xn, xb)

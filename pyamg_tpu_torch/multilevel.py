@@ -18,6 +18,13 @@ preconditioner of a Krylov method (CG, GMRES, FGMRES or any method of
 ``krylov``).  The cycle, the smoothers and the coarse solvers read
 nothing on the host; the loops around them are Python over tensor ops,
 and the host reads one convergence flag per iteration.
+
+A hierarchy split over the ranks of a process group
+(``parallel.shard_hierarchy``) solves the same way: each rank holds its
+block of a sharded level's vectors and the whole of a replicated one's,
+the sharded operators gather or exchange their input, and each inner
+product of a sharded level is summed over the ranks
+(``krylov.common.reduction``), so every rank reads the same stop flags.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ import numpy as np
 import torch
 
 from pyamg_tpu_torch._device import as_tensor, resolve
-from pyamg_tpu_torch.krylov.common import finalize, norm
+from pyamg_tpu_torch.krylov.common import finalize, reduction
+from pyamg_tpu_torch.parallel.partition import RowSharded, all_gather
 from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
@@ -86,6 +94,10 @@ class Level:
         self.pre = ("none", {}, {})
         self.post = ("none", {}, {})
         self.smoother_specs = None
+
+    @property
+    def nnz(self):
+        return self.A.nnz
 
 
 RELAXATION_SOLVERS = ("jacobi", "gauss_seidel", "block_jacobi",
@@ -342,17 +354,16 @@ class MultilevelSolver:
 
         def amli(lvl, xc, bc):
             Ac = levels[lvl + 1].A
+            dot = reduction(Ac).dot
             ps, bcur = [], bc
             for _ in range(2):
                 p = go(lvl + 1, torch.zeros_like(bc), bcur, "AMLI")
                 for pj in ps:
-                    beta = torch.vdot(pj, matvec(Ac, p)) / \
-                        torch.vdot(pj, matvec(Ac, pj))
+                    beta = dot(pj, matvec(Ac, p)) / dot(pj, matvec(Ac, pj))
                     p = p - beta * pj
                 Ap = matvec(Ac, p)
-                denom = torch.vdot(p, Ap)
-                alpha = torch.vdot(p, bcur) / torch.where(denom == 0, 1,
-                                                          denom)
+                denom = dot(p, Ap)
+                alpha = dot(p, bcur) / torch.where(denom == 0, 1, denom)
                 xc = xc + alpha * p
                 bcur = bcur - alpha * Ap
                 ps.append(p)
@@ -440,7 +451,11 @@ class MultilevelSolver:
 
     def to_device(self, device="cuda"):
         """Move every level's operators and smoother arrays, the coarse
-        inverse and the DS operator onto ``device``; return self."""
+        inverse and the DS operator onto ``device``; return self.  A
+        sharded hierarchy stays on its mesh's devices."""
+        if self._sharded():
+            raise ValueError("a sharded hierarchy lives on its mesh's "
+                             "devices; shard_hierarchy placed it")
         device = resolve(device)
         for lvl in self.levels:
             for attr in ("A", "P", "R"):
@@ -474,6 +489,11 @@ class MultilevelSolver:
         """
         from pyamg_tpu_torch.krylov.methods import cg_loop
         from pyamg_tpu_torch.ops import ds as dsm
+        if self._sharded():
+            raise NotImplementedError(
+                "solve_refined_device on a sharded hierarchy: its "
+                "double-single residual takes the whole fine operator; use "
+                "solve or solve_refined")
         if self.device is None:
             self.to_device()
         if self._ds_op is None:
@@ -539,9 +559,36 @@ class MultilevelSolver:
         return _Preconditioner()
 
     def psolve(self, b):
-        """One V-cycle from zero on b, on the hierarchy's device."""
+        """One V-cycle from zero on b, on the hierarchy's device (on a
+        sharded hierarchy b and the result are whole on every rank)."""
         M = self.aspreconditioner()
-        return M.matvec(as_tensor(b, self.device, M.dtype).reshape(-1))
+        return self._gather(M.matvec(self._scatter(b, M.dtype)))
+
+    # -- sharded hierarchies -------------------------------------------------
+    def _sharded(self):
+        return getattr(self, "_mesh", None) is not None
+
+    def _scatter(self, v, dtype):
+        """``v``, whole, as the fine level's vector on this rank: where the
+        fine level is sharded, padded with zeros to its padded rows and cut
+        to the rank's block."""
+        v = as_tensor(v, self.device, dtype).reshape(-1)
+        A0 = self.levels[0].A
+        if not (isinstance(A0, RowSharded) and A0.out_sharded):
+            return v
+        mesh, n_pad = A0.mesh, A0.shape[0]
+        if v.shape[0] < n_pad:
+            v = torch.cat([v, v.new_zeros(n_pad - v.shape[0])])
+        n_loc = n_pad // mesh.size
+        return v[mesh.rank * n_loc:(mesh.rank + 1) * n_loc].contiguous()
+
+    def _gather(self, x):
+        """The fine level's vector x, whole on every rank (one all-gather
+        where the fine level is sharded), cut to the unpadded rows."""
+        A0 = self.levels[0].A
+        if not (isinstance(A0, RowSharded) and A0.out_sharded):
+            return x
+        return all_gather(x, A0.mesh)[:self._fine_n]
 
     def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
               accel=None, callback=None, residuals=None, return_info=False,
@@ -566,15 +613,22 @@ class MultilevelSolver:
         ``callback(x)`` is called after every cycle or iteration (every
         GMRES cycle); ``residuals`` is filled with the residual norms, the
         initial one first.  Standalone cycling returns ``info`` 0 when it
-        converges on the last allowed cycle."""
+        converges on the last allowed cycle.
+
+        On a sharded hierarchy (``parallel.shard_hierarchy``) every rank
+        passes the whole b (and x0) and gets the whole x back, after one
+        all-gather; ``residuals`` holds the global norms, the same on
+        every rank, and ``callback`` gets the rank's block of x.  CG, GMRES
+        and FGMRES take their inner products over the ranks; the other
+        Krylov methods raise ``NotImplementedError`` there."""
         from pyamg_tpu_torch.krylov.methods import cg_loop
         if self.device is None:
             self.to_device()
         A0 = self.levels[0].A
         dtype = A0.dtype
-        b = as_tensor(b, self.device, dtype).reshape(-1)
-        x = torch.zeros_like(b) if x0 is None else \
-            as_tensor(x0, self.device, dtype).reshape(-1)
+        b = self._scatter(b, dtype)
+        x = torch.zeros_like(b) if x0 is None else self._scatter(x0, dtype)
+        red = reduction(A0)
 
         def mv(v):
             return matvec(A0, v)
@@ -589,16 +643,23 @@ class MultilevelSolver:
                 Mv = self.aspreconditioner(cycle).matvec
                 if accel == "cg":
                     x, info, resbuf, nres = cg_loop(
-                        mv, Mv, x, b, tol, "rr", maxiter, callback=callback)
+                        mv, Mv, x, b, tol, "rr", maxiter, callback=callback,
+                        red=red)
                 else:
                     from pyamg_tpu_torch.krylov.gmres import gmres_loop
                     x, info, resbuf, nres = gmres_loop(
-                        mv, Mv, x, b, tol, min(b.shape[0], int(maxiter)), 1,
-                        flexible=accel == "fgmres", callback=callback)
+                        mv, Mv, x, b, tol, min(A0.shape[0], int(maxiter)), 1,
+                        flexible=accel == "fgmres", callback=callback,
+                        red=red)
                 finalize(residuals, resbuf, nres)
                 if return_info:
                     info = int(info)
             else:
+                if isinstance(A0, RowSharded):
+                    raise NotImplementedError(
+                        f"accel={accel!r} on a sharded hierarchy: only cg, "
+                        f"gmres and fgmres take their inner products over "
+                        f"the ranks")
                 if isinstance(accel, str):
                     from pyamg_tpu_torch import krylov
                     if accel not in krylov.__all__:
@@ -607,25 +668,27 @@ class MultilevelSolver:
                 x, info = accel(A0, b, x0=x, tol=tol, maxiter=maxiter,
                                 M=self.aspreconditioner(cycle),
                                 callback=callback, residuals=residuals)
+            x = self._gather(x)
             return (x, info) if return_info else x
 
         cyc = self._make_cycle(cycle, cycles_per_level)
-        normb = norm(b)
+        normb = red.norm(b)
         rtol = tol * torch.where(normb == 0, 1.0, normb)
-        nr = norm(b - mv(x))
+        nr = red.norm(b - mv(x))
         hist = [nr]
         it = 0
         done = bool(nr < rtol)
         while not done and it < maxiter:
             x = cyc(x, b)
             it += 1
-            nr = norm(b - mv(x))
+            nr = red.norm(b - mv(x))
             hist.append(nr)
             if callback is not None:
                 callback(x)
             done = bool(nr < rtol)         # the one host read of the cycle
         if residuals is not None:
             residuals[:] = torch.stack(hist).tolist()
+        x = self._gather(x)
         return (x, 0 if done else it) if return_info else x
 
     def solve_refined(self, b, A_fine=None, tol=1e-10, inner_tol=1e-5,
@@ -695,7 +758,12 @@ class MultilevelSolver:
         """A twin of this hierarchy with its floating-point data in
         ``dtype``, placed where this one is.  SELL is float32 only, so the
         twin takes each SELL operator's ELL original (``A_ell``, ``P_ell``,
-        ``R_ell``); DIA levels keep K1/K2, which take float64."""
+        ``R_ell``); DIA levels keep K1/K2, which take float64.  A sharded
+        hierarchy has no twin: cast it before ``shard_hierarchy``."""
+        if self._sharded():
+            raise NotImplementedError("as_dtype of a sharded hierarchy: "
+                                      "cast it before shard_hierarchy")
+
         def src(lvl, attr):
             v = getattr(lvl, attr)
             if isinstance(v, SELL):
@@ -722,7 +790,9 @@ class MultilevelSolver:
         it was), and rebuild the fine level's smoothers from the specs
         ``change_smoothers`` kept.  A rebuild that fails raises; the
         float64 twin and the double-single operator of the old matrix are
-        dropped."""
+        dropped.  On a sharded hierarchy a sharded fine level is split
+        over the mesh as the old one was (``ShardedELL`` or ``HaloELL``),
+        and ``_fine_n`` and the mesh stay."""
         from pyamg_tpu_torch.sparse.matrix import asarray_or_ell, dia_from_ell
         from pyamg_tpu_torch.sparse.sell import sell_from_ell
         from pyamg_tpu_torch.relaxation.smoothing import make_smoother
@@ -732,19 +802,31 @@ class MultilevelSolver:
                              "change_smoothers, so there is no spec to "
                              "rebuild them from")
         A = asarray_or_ell(A)
-        if A.shape != lvl.A.shape:
+        sharded = isinstance(lvl.A, RowSharded)
+        shape = (self._fine_n,) * 2 if sharded else lvl.A.shape
+        if A.shape != shape:
             raise ValueError(f"A has shape {A.shape}, the fine level "
-                             f"{lvl.A.shape}")
+                             f"{shape}")
         pre, post = (make_smoother(lvl, A, spec)
                      for spec in lvl.smoother_specs)
         op = A
-        if isinstance(lvl.A, DIA):
+        if sharded:
+            from pyamg_tpu_torch.parallel.halo import HaloELL
+            from pyamg_tpu_torch.parallel.partition import (
+                _check_smoothers, _shard_params, shard_operator)
+            _check_smoothers(0, pre, post)
+            mesh = lvl.A.mesh
+            op = shard_operator(
+                A, mesh, "halo" if isinstance(lvl.A, HaloELL) else "gspmd")
+            pre, post = (sm[:2] + (_shard_params(sm[2], A.shape[0], mesh),)
+                         for sm in (pre, post))
+        elif isinstance(lvl.A, DIA):
             op = dia_from_ell(A) or A
         elif isinstance(lvl.A, SELL):
             op = sell_from_ell(A) or A
-        if op is not A:
+        if op is not A and not sharded:
             lvl.A_ell = A
-        if self.device is not None:
+        if self.device is not None and not sharded:
             op = _put(op, self.device)
             pre, post = (sm[:2] + (_put(sm[2], self.device),)
                          for sm in (pre, post))

@@ -1,7 +1,8 @@
 """Elementwise host ELL algebra used by prolongation smoothing and the
-evolution strength (counterpart of ``scale``, ``scale_rows``, ``add``,
-``sub``, ``add_scaled_identity`` and ``with_diagonal`` in
-``pyamg_tpu/ops/arith.py``; setup phase, numpy)."""
+evolution strength (counterpart of ``pyamg_tpu/ops/arith.py``: ``scale``,
+``scale_rows``, ``scale_cols``, ``add``, ``sub``, ``add_scaled_identity``,
+``with_diagonal``, ``remove_diagonal`` and ``filter_rows_by_mask``; setup
+phase, numpy)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,12 @@ def scale(A: ELL, alpha) -> ELL:
 def scale_rows(A: ELL, d) -> ELL:
     """diag(d) @ A."""
     return ELL(A.cols, A.vals * d[:, None], A.row_nnz, A.shape)
+
+
+def scale_cols(A: ELL, d) -> ELL:
+    """A @ diag(d)."""
+    d = np.asarray(d)
+    return ELL(A.cols, A.vals * d[A.cols], A.row_nnz, A.shape)
 
 
 def add(A: ELL, B: ELL, width=None) -> ELL:
@@ -71,3 +78,16 @@ def with_diagonal(A: ELL, d) -> ELL:
     valid = np.concatenate([A.valid_mask(),
                             np.ones((A.shape[0], 1), bool)], axis=1)
     return ell_dedup(cols, vals, valid, A.shape)
+
+
+def remove_diagonal(A: ELL) -> ELL:
+    """A without its stored diagonal entries."""
+    _, isdiag = _diagonal_slots(A)
+    return ell_dedup(A.cols, A.vals, A.valid_mask() & ~isdiag, A.shape)
+
+
+def filter_rows_by_mask(A: ELL, keep) -> ELL:
+    """A without the stored entries where the (n, W) mask ``keep`` is
+    False, recompacted."""
+    return ell_dedup(A.cols, A.vals, np.asarray(keep) & A.valid_mask(),
+                     A.shape)

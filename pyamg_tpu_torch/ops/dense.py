@@ -59,6 +59,11 @@ def to_dense(A, device="cuda") -> torch.Tensor:
     raise TypeError(f"cannot densify {type(A).__name__}")
 
 
+def inv_device(A, device="cuda"):
+    """The dense inverse of a host container, computed on ``device``."""
+    return torch.linalg.inv(to_dense(A, device))
+
+
 def inv_device_checked(A, device="cuda"):
     """(inverse, max |M @ inv - I|, dense M), all on ``device``."""
     check_matmul_precision()

@@ -1,7 +1,8 @@
 """Row-wise operations on host ELL matrices (setup phase).
 
 Counterpart of the host twins in ``pyamg_tpu/ops/rowops.py``:
-``ell_dedup`` sorts each row's candidate (col, val) pairs by column, sums
+``dedup_rows`` (the host form; the device form comes with the distributed
+setup, which needs it) and ``compact_width``; ``ell_dedup`` sorts each row's candidate (col, val) pairs by column, sums
 duplicate columns and left-compacts (stored entries that sum to zero stay
 stored, as in the reference, because stored-entry counts feed the operator
 complexity); ``row_lookup`` gathers A's entries at given columns row by
@@ -54,15 +55,34 @@ def dedup_rows_host(cols, vals, valid, n_cols: int):
     return out_cols, out_vals, row_nnz
 
 
+def dedup_rows(cols, vals, valid, n_cols: int):
+    """``dedup_rows_host`` of host arrays; the device form of the JAX
+    package's ``dedup_rows`` is not ported yet."""
+    import torch
+    if any(isinstance(v, torch.Tensor) for v in (cols, vals, valid)):
+        raise NotImplementedError(
+            "dedup_rows takes host arrays; its device form comes with the "
+            "distributed setup (parallel/dist_setup.py)")
+    return dedup_rows_host(cols, vals, valid, n_cols)
+
+
+def compact_width(cols, vals, row_nnz, shape, width=None,
+                  min_width=1) -> ELL:
+    """A host ELL of coalesced rows, its width cut to ``width`` (default
+    the largest row, at least ``min_width``)."""
+    if width is None:
+        width = max(int(np.max(np.asarray(row_nnz)))
+                    if np.asarray(row_nnz).shape[0] else 0, min_width)
+    width = min(width, cols.shape[1]) if cols.shape[1] > 0 else min_width
+    return ELL(cols[:, :width], vals[:, :width], row_nnz,
+               (int(shape[0]), int(shape[1])))
+
+
 def ell_dedup(cols, vals, valid, shape, width=None, min_width=1) -> ELL:
     """Coalesced host ELL of the candidate entries, width shrunk to the
     largest row."""
     c, v, rn = dedup_rows_host(cols, vals, valid, shape[1])
-    if width is None:
-        width = max(int(rn.max()) if rn.shape[0] else 0, min_width)
-    width = min(width, c.shape[1]) if c.shape[1] > 0 else min_width
-    return ELL(c[:, :width], v[:, :width], rn,
-               (int(shape[0]), int(shape[1])))
+    return compact_width(c, v, rn, shape, width=width, min_width=min_width)
 
 
 def row_lookup(A: ELL, qcols, qvalid=None):

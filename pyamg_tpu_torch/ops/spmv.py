@@ -5,7 +5,9 @@ Tensor operands are the solve phase: a DIA product is kernel K1 on CUDA
 (``ops/dia_kernels.py``), a SELL product kernel K3/K4
 (``ops/sell_kernels.py``), an ELL product a gather-multiply-reduce, a BELL
 product a gather of x's blocks and one einsum (torch ops on the tensors'
-device: the reference computes it outside any Pallas kernel).
+device: the reference computes it outside any Pallas kernel).  A
+row-sharded operator (``parallel``) computes its rank's rows, gathering
+or exchanging its input across the ranks first.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
+from pyamg_tpu_torch.parallel.partition import RowSharded
 
 
 def _scipy_memo(A):
@@ -35,6 +38,31 @@ def spmv(A: ELL, x):
     if isinstance(x, np.ndarray):
         return _scipy_memo(A) @ x
     return torch.sum(A.vals * x[A.cols], dim=1)
+
+
+def rspmv(A: ELL, x):
+    """y = A^T x without building the transpose: scipy's product for host
+    arrays, a scatter-add of ``vals * x[:, None]`` into the columns for a
+    1-D tensor."""
+    if isinstance(x, np.ndarray):
+        return _scipy_memo(A).T @ x
+    contrib = A.vals * x[:, None]
+    return torch.zeros((A.shape[1],), dtype=contrib.dtype,
+                       device=x.device).index_add_(
+        0, A.cols.reshape(-1).long(), contrib.reshape(-1))
+
+
+def row_max_abs_offdiag(A: ELL):
+    """max_k |A[i, k]| over the stored off-diagonal entries of each row
+    (0 where there is none), in A's array kind."""
+    if isinstance(A.vals, torch.Tensor):
+        rows = torch.arange(A.shape[0], device=A.vals.device)
+        slots = torch.arange(A.width, device=A.vals.device)
+        offd = (A.cols != rows[:, None]) & \
+            (slots[None, :] < A.row_nnz[:, None])
+        return torch.max(torch.where(offd, torch.abs(A.vals), 0), dim=1).values
+    offd = (A.cols != np.arange(A.shape[0])[:, None]) & A.valid_mask()
+    return np.max(np.where(offd, np.abs(A.vals), 0), axis=1)
 
 
 def bspmv(A: BELL, x):
@@ -76,6 +104,8 @@ def matvec(A, x):
         return sell_kernels.sell_spmv(A, x)
     if isinstance(A, ELL):
         return spmv(A, x)
+    if isinstance(A, RowSharded):
+        return A.mv(x)
     raise TypeError(f"no matvec for {type(A).__name__}")
 
 
@@ -100,8 +130,9 @@ def extract_block_diagonal(A: BELL):
 
 def extract_diagonal(A):
     """diag(A) as a dense vector of a DIA, a square SELL, an ELL or a
-    BELL with square blocks."""
-    if isinstance(A, (DIA, SELL)):
+    BELL with square blocks (of a row-sharded operator: the rank's
+    block)."""
+    if isinstance(A, (DIA, SELL, RowSharded)):
         return A.diagonal()
     if isinstance(A, BELL):
         br, bc = A.blocksize

@@ -136,19 +136,46 @@ def fc_jacobi(A, x, b, Cpts, Fpts, iterations=1, f_iterations=1,
 
 # -- multicolor Gauss-Seidel / SOR ---------------------------------------------
 
-def make_coloring(A: ELL):
-    """(colors int32 (n,), ncolors) of the graph of a host ELL: the
-    sequential first-fit coloring of the port's native helper."""
+def _host_graph(A):
+    """A host ELL of the operator A's graph (an ELL, DIA or SELL, its
+    arrays on the host or placed)."""
+    from pyamg_tpu_torch.parallel.partition import host_ell
+    if isinstance(A, ELL):
+        return host_ell(A)
+    if isinstance(A, DIA):
+        data = A.data.cpu().numpy() if isinstance(A.data, torch.Tensor) \
+            else A.data
+        return from_scipy(to_scipy(DIA(data, A.offsets, A.shape)))
+    if isinstance(A, SELL):
+        if isinstance(A.vals, torch.Tensor):
+            raise TypeError("a placed SELL keeps no host plan to color")
+        return from_scipy(sell_to_scipy(A))
+    raise TypeError(f"no graph to color in {type(A).__name__}")
+
+
+def make_coloring(A, method="JP", seed=0):
+    """(colors int32 (n,), ncolors) of the graph of A, as the JAX package
+    colors it: an ELL (host or placed: the reference's arrays are
+    concrete either way) by the port's native sequential first-fit,
+    ignoring ``method``; any other operator (DIA, host SELL) by
+    ``graph.vertex_coloring(method, seed)``.  The colors lie where A's
+    arrays do (numpy, or a tensor on A's device)."""
     from pyamg_tpu_torch import _native
-    if not isinstance(A, ELL) or isinstance(A.cols, torch.Tensor):
-        raise NotImplementedError(
-            "coloring takes a host ELL; the parallel (JP) coloring of other "
-            "containers is not ported yet")
-    n = A.shape[0]
-    row_nnz = np.asarray(A.row_nnz)
-    indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int32)
-    indices = np.asarray(A.cols)[A.valid_mask()].astype(np.int32)
-    return _native.first_fit_coloring(n, indptr, indices)
+    from pyamg_tpu_torch.graph import vertex_coloring
+    G = _host_graph(A)
+    if isinstance(A, ELL):
+        n = A.shape[0]
+        row_nnz = np.asarray(G.row_nnz)
+        indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int32)
+        indices = np.asarray(G.cols)[G.valid_mask()].astype(np.int32)
+        colors, nc = _native.first_fit_coloring(n, indptr, indices)
+    else:
+        colors = vertex_coloring(G, method=method, seed=seed)
+        nc = int(colors.max()) + 1 if colors.shape[0] else 0
+    arr = getattr(A, "data" if isinstance(A, DIA) else "vals")
+    if isinstance(arr, torch.Tensor):
+        colors = torch.as_tensor(colors, device=arr.device)
+    return colors, nc
 
 
 def gs_order(ncolors, sweep="forward", iterations=1, omega=1.0):

@@ -33,8 +33,29 @@ from pyamg_tpu_torch._device import as_tensor
 DIA_TILE = 8192
 
 
+def _astype(a, dtype):
+    """A numpy array or a tensor in ``dtype`` (a numpy or torch dtype)."""
+    if isinstance(a, torch.Tensor):
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+        return a.to(dtype)
+    return a.astype(dtype)
+
+
+class _Shape:
+    """``n_rows`` and ``n_cols`` of a container's ``shape``."""
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+
 @dataclasses.dataclass(frozen=True)
-class ELL:
+class ELL(_Shape):
     """Padded-row sparse matrix: ``cols``/``vals`` ``(n, W)``, ``row_nnz``
     ``(n,)``.  Padding slots hold column 0 and value 0.  ``grid`` and
     ``col_grid`` are optional C-order tensor-grid shapes of the row and
@@ -60,12 +81,40 @@ class ELL:
         """Number of stored entries (explicit zeros included)."""
         return int(self.row_nnz.sum())
 
+    @property
+    def blocksize(self) -> Tuple[int, int]:
+        return (1, 1)
+
     def valid_mask(self):
         """(n, W) bool: True for stored entries (host arrays)."""
         return np.arange(self.width)[None, :] < np.asarray(self.row_nnz)[:, None]
 
+    def mv(self, x):
+        from pyamg_tpu_torch.ops.spmv import spmv
+        return spmv(self, x)
+
+    def __matmul__(self, other):
+        from pyamg_tpu_torch.ops import matmul
+        return matmul(self, other)
+
+    @property
+    def T(self):
+        """The transpose (host arrays)."""
+        from pyamg_tpu_torch.ops.transpose import transpose
+        return transpose(self)
+
+    @property
+    def H(self):
+        """The conjugate transpose (host arrays)."""
+        from pyamg_tpu_torch.ops.transpose import transpose
+        return transpose(self, conjugate=True)
+
+    def diagonal(self):
+        from pyamg_tpu_torch.ops.spmv import extract_diagonal
+        return extract_diagonal(self)
+
     def astype(self, dtype):
-        return dataclasses.replace(self, vals=self.vals.astype(dtype))
+        return dataclasses.replace(self, vals=_astype(self.vals, dtype))
 
     def to(self, device) -> "ELL":
         return dataclasses.replace(
@@ -79,7 +128,7 @@ class ELL:
 
 
 @dataclasses.dataclass(frozen=True)
-class BELL:
+class BELL(_Shape):
     """Padded-row block sparse matrix: ``cols[i, k]`` is the block column
     of the k-th stored block of block row i, ``vals[i, k]`` that dense
     ``(br, bc)`` block, ``row_nnz`` the stored blocks per block row.
@@ -119,8 +168,28 @@ class BELL:
         return np.arange(self.width)[None, :] < \
             np.asarray(self.row_nnz)[:, None]
 
+    def mv(self, x):
+        from pyamg_tpu_torch.ops.spmv import bspmv
+        return bspmv(self, x)
+
+    def __matmul__(self, other):
+        from pyamg_tpu_torch.ops import matmul
+        return matmul(self, other)
+
+    @property
+    def T(self):
+        """The transpose, every block transposed (host arrays)."""
+        from pyamg_tpu_torch.ops.transpose import btranspose
+        return btranspose(self)
+
+    @property
+    def H(self):
+        """The conjugate transpose (host arrays)."""
+        from pyamg_tpu_torch.ops.transpose import btranspose
+        return btranspose(self, conjugate=True)
+
     def astype(self, dtype):
-        return dataclasses.replace(self, vals=self.vals.astype(dtype))
+        return dataclasses.replace(self, vals=_astype(self.vals, dtype))
 
     def to(self, device) -> "BELL":
         return dataclasses.replace(
@@ -134,7 +203,7 @@ class BELL:
 
 
 @dataclasses.dataclass(frozen=True)
-class DIA:
+class DIA(_Shape):
     """Banded sparse matrix; ``data`` is ``(ndiag, npad)`` with
     ``npad % DIA_TILE == 0`` and zeros outside the band and bounds."""
 
@@ -152,6 +221,10 @@ class DIA:
             return int(torch.count_nonzero(self.data))
         return int(np.count_nonzero(self.data))
 
+    @property
+    def blocksize(self) -> Tuple[int, int]:
+        return (1, 1)
+
     def mv(self, x):
         from pyamg_tpu_torch.ops.spmv import dia_spmv
         return dia_spmv(self, x)
@@ -168,7 +241,7 @@ class DIA:
         return np.zeros((n,), self.data.dtype)
 
     def astype(self, dtype):
-        return DIA(self.data.astype(dtype), self.offsets, self.shape)
+        return DIA(_astype(self.data, dtype), self.offsets, self.shape)
 
     def to(self, device) -> "DIA":
         return DIA(as_tensor(self.data, device), self.offsets, self.shape)
@@ -247,8 +320,27 @@ class PhaseStencil:
         return self._nnz
 
     @property
+    def blocksize(self) -> Tuple[int, int]:
+        return (1, 1)
+
+    @property
     def T(self):
         return dataclasses.replace(self, trans=not self.trans)
+
+    @property
+    def H(self):
+        """The adjoint: the transpose of the conjugated arrays."""
+        a = self.arrays[0]
+        if (a.is_complex() if isinstance(a, torch.Tensor)
+                else np.iscomplexobj(a)):
+            return dataclasses.replace(
+                self, arrays=tuple(x.conj() for x in self.arrays),
+                trans=not self.trans)
+        return self.T
+
+    def astype(self, dtype):
+        return dataclasses.replace(
+            self, arrays=tuple(_astype(a, dtype) for a in self.arrays))
 
     def to(self, device) -> "PhaseStencil":
         return dataclasses.replace(
@@ -495,6 +587,52 @@ def to_scipy(A):
         return sp.bsr_matrix((vals[mask], cols[mask], indptr), shape=A.shape,
                              blocksize=A.blocksize)
     return sp.csr_matrix((vals[mask], cols[mask], indptr), shape=A.shape)
+
+
+def ell_from_dia(A: DIA) -> ELL:
+    """A DIA (host or placed) back to a host ELL, its zeros dropped."""
+    data = A.data.cpu().numpy() if isinstance(A.data, torch.Tensor) \
+        else A.data
+    return from_scipy(to_scipy(DIA(data, A.offsets, A.shape)))
+
+
+def eye(n, dtype=np.float32, width: int = 1) -> ELL:
+    """The identity as a host ELL of ``width`` slots a row."""
+    cols = np.zeros((n, width), dtype=np.int32)
+    cols[:, 0] = np.arange(n, dtype=np.int32)
+    vals = np.zeros((n, width), dtype=dtype)
+    vals[:, 0] = 1
+    return ELL(cols, vals, np.ones((n,), np.int32), (n, n))
+
+
+def ell_from_coo(rows, cols, vals, shape, width=None, sum_duplicates=True,
+                 min_width: int = 1) -> ELL:
+    """A host ELL from COO triplets (numpy or tensors) of equal length:
+    entries with ``rows == shape[0]`` are padding and dropped, the rest
+    sorted by (row, column) and, with ``sum_duplicates``, coalesced."""
+    def np_(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+    n = int(shape[0])
+    r, c, v = np_(rows), np_(cols), np_(vals)
+    keep = r < n
+    r, c, v = r[keep], c[keep], v[keep]
+    order = np.lexsort((c, r))
+    r, c, v = r[order], c[order], v[order]
+    if sum_duplicates and len(r):
+        key = r.astype(np.int64) * np.int64(shape[1] + 1) + c
+        head = np.concatenate([[True], key[1:] != key[:-1]])
+        seg = np.cumsum(head) - 1
+        if np.iscomplexobj(v):
+            v = np.bincount(seg, weights=v.real) + \
+                1j * np.bincount(seg, weights=v.imag)
+        else:
+            v = np.bincount(seg, weights=v).astype(v.dtype)
+        r, c = r[head], c[head]
+    counts = np.bincount(r, minlength=n).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    return ell_from_csr_arrays(indptr, c, v, shape, width=width,
+                               min_width=min_width)
 
 
 def asarray_or_ell(A, dtype=None):

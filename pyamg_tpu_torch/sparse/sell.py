@@ -82,6 +82,18 @@ class SELL:
     zero_delta0: bool = False
 
     @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def blocksize(self) -> Tuple[int, int]:
+        return (1, 1)
+
+    @property
     def n_passes(self) -> int:
         return self.vals.shape[0]
 
@@ -114,6 +126,13 @@ class SELL:
 
     def diagonal(self):
         return self.diag
+
+    def astype(self, dtype):
+        """The plan with its values and diagonal in ``dtype`` (the SELL
+        kernels take float32 only)."""
+        from pyamg_tpu_torch.sparse.matrix import _astype
+        return dataclasses.replace(self, vals=_astype(self.vals, dtype),
+                                   diag=_astype(self.diag, dtype))
 
     def to(self, device) -> "SELL":
         vals = as_tensor(self.vals, device, torch.float32)

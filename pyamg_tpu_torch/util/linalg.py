@@ -83,15 +83,23 @@ def _arnoldi(mv, n, maxiter, v0):
 
 
 def approximate_spectral_radius(A, tol=0.01, maxiter=15, restart=5,
-                                seed=0):
+                                symmetric=None, initial_guess=None,
+                                return_vector=False, seed=0):
     """Estimate rho(A): restart from the dominant Ritz vector until the
     eigen-residual estimate ``H[k, k-1] * evect[-1]`` is below ``tol``
-    relative (reference ``util/linalg.py:255``)."""
+    relative (reference ``util/linalg.py:255``).  The start vector is
+    ``initial_guess``, else drawn from ``default_rng(seed)``; with
+    ``return_vector`` returns (rho, the last Ritz vector).  ``symmetric``
+    is accepted and ignored, as the JAX package does (Arnoldi serves
+    both)."""
     mv, n, dtype = _as_matvec(A)
-    rng = np.random.default_rng(seed)
-    v0 = rng.random(n)
-    if np.issubdtype(np.dtype(dtype), np.complexfloating):
-        v0 = v0 + 1j * rng.random(n)
+    if initial_guess is None:
+        rng = np.random.default_rng(seed)
+        v0 = rng.random(n)
+        if np.issubdtype(np.dtype(dtype), np.complexfloating):
+            v0 = v0 + 1j * rng.random(n)
+    else:
+        v0 = np.asarray(initial_guess).reshape(-1)
     vec = np.asarray(v0, dtype=dtype)
     ev_max = 0.0
     for _ in range(restart + 1):
@@ -107,6 +115,8 @@ def approximate_spectral_radius(A, tol=0.01, maxiter=15, restart=5,
         vec = Vm @ np.asarray(evects[:, mi], dtype=Vm.dtype)
         if breakdown or (ev_max > 0 and err / ev_max < tol):
             break
+    if return_vector:
+        return ev_max, vec
     return ev_max
 
 
@@ -142,9 +152,11 @@ def ishermitian(A, fast_check=True, tol=1e-6, seed=0):
     return bool(abs(M - M.conj().T).max() < tol)
 
 
-def pinv_array(blocks):
+def pinv_array(blocks, tol=None):
     """Pseudo-inverses of a batch of small square blocks, (m, k, k) ->
-    (m, k, k); 1 x 1 blocks invert elementwise (0 stays 0)."""
+    (m, k, k); 1 x 1 blocks invert elementwise (0 stays 0).  ``tol`` is
+    accepted and ignored, as the JAX package does (numpy's default
+    cutoff)."""
     blocks = np.asarray(blocks)
     if blocks.shape[-1] == 1:
         d = blocks[..., 0, 0]

@@ -80,14 +80,15 @@ NEW_MODULES = ["aggregation.adaptive", "aggregation.energy",
                "graph", "graph_ref", "io", "util.params", "util.utils",
                "util.linalg", "gallery.fem", "gallery.mesh",
                "gallery.random_sparse", "gallery.demo", "gallery.example",
-               "vis.vtk_writer", "vis.vis_coarse", "vis.aggviz"]
+               "vis.vtk_writer", "vis.vis_coarse", "vis.aggviz",
+               "parallel.partition", "parallel.halo", "_tools._tester"]
 
 
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_walk_covers_the_family_modules(name):
     """The blocked import below walks the family modules, the blackbox,
-    the graph, checkpoint, utility, gallery and vis modules with the
-    rest, and their sources are read above."""
+    the graph, checkpoint, utility, gallery, vis, parallel and tester
+    modules with the rest, and their sources are read above."""
     walked = {m.name for m in pkgutil.walk_packages(
         pyamg_tpu_torch.__path__, "pyamg_tpu_torch.")}
     assert f"pyamg_tpu_torch.{name}" in walked
