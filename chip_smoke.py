@@ -133,7 +133,21 @@ Phases, each printed on its own lines:
    emulated in one process (the halo product of A0, A1 and A2, the
    gathered product of P0 and R0) against the unsharded product on the
    card.  One rank carries no halo: the phase measures the sharded
-   wrappers' own cost, not an exchange.
+   wrappers' own cost, not an exchange;
+12. parallel2: the distributed setup (``parallel/dist_setup.py``) on 2-D
+   Poisson, float32, the power iterations started from ``hashed_start``
+   as in ``tests/jax_dist_setup_reference.py`` (JAX_DIST): the dryrun's
+   SA + CG and classical + FGMRES at 32^2 on 8 ranks in this process
+   (a ``StackedMesh``); SA at 1414^2 on 8 ranks, Jacobi and Chebyshev,
+   CG to 1e-8; the same SA on a one-rank NCCL group (a ``RowMesh``); the
+   classical setup with FGMRES at 500^2 on 8 ranks; each gated exactly
+   where nothing depends on rho and within DIST_TOL elsewhere, with the
+   iterations within 1 and the true relative residual within 2x of the
+   JAX package's, no K1-K5 launch, and, where timed, the setup seconds by
+   level, the peak memory beside the port's ``scale_model``, the warm
+   median of 5 solves, one profiled solve and the collectives; then the
+   one-rank hierarchy built again on a one-rank ``StackedMesh``, which
+   must equal the NCCL one bit for bit.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
@@ -384,6 +398,91 @@ JAX_PARALLEL = {
                     9.310384397884661],
           "halo_cg_iters": 8, "rtol": 1e-9},
 }
+
+# tests/jax_dist_setup_reference.py: the JAX package's distributed setups
+# on virtual CPU devices (float32, the power iterations from hashed_start),
+# with coarsen_until and the solve's arguments: levels, each level's n_loc
+# and widths, margins, aggregates, dropped and stored entries, omega,
+# operator complexity, iterations, relres and the true relative residual
+# (float64, scipy, the unpadded operator)
+JAX_DIST = {
+    "sa32": {"coarsen_until": 64, "solve": {"tol": 1e-5, "maxiter": 40}, "levels":
+        2, "n_loc": [128, 32], "W": [5, 24], "WP": [12], "WR": [48],
+        "margins": [32, 55], "nagg": [169], "dropped": [0], "omega":
+        [0.7299120792911769, 0.6851763592736448], "nnz": [4992, 1832],
+        "operator_complexity": 1.3669871794871795, "coarse_n": 256,
+        "iterations": 6, "relres": 3.5416353512118803e-06, "true_relres":
+        3.5658504082441777e-06},
+    "cl32": {"coarsen_until": 64, "solve": {"tol": 1e-5, "restart": 10,
+        "max_outer": 6}, "levels": 3, "n_loc": [128, 64, 32], "W": [5, 32,
+        40], "WP": [5, 32], "WR": [48, 64], "margins": [32, 60, 61], "nagg":
+        [281, 96], "dropped": [0, 0], "omega": [0.43794724757470616,
+        0.4312774292525311, 0.5790756501841338], "nnz": [4992, 2086, 1014],
+        "operator_complexity": 1.6209935897435896, "coarse_n": 256,
+        "iterations": 20, "relres": 2.5606152576074237e-07, "true_relres":
+        2.121139247838761e-07},
+    "sa1414": {"coarsen_until": 4096, "solve": {"tol": 1e-8, "maxiter": 40},
+        "levels": 5, "n_loc": [249925, 62481, 15620, 3905, 976], "W": [5, 24,
+        32, 40, 48], "WP": [12, 25, 33, 41], "WR": [48, 50, 66, 82],
+        "margins": [1414, 38458, 14271, 3889, 3903], "nagg": [200493, 13741,
+        690, 32], "dropped": [0, 178, 196, 4], "omega": [0.7027992661775955,
+        0.9418935460097873, 0.9545414382683861, 0.9620055697209248,
+        0.8053455400070659], "nnz": [9991328, 2170074, 284627, 40421, 8119],
+        "operator_complexity": 1.2505413694756093, "coarse_n": 7808,
+        "iterations": 27, "relres": 6.316948741869055e-09, "true_relres":
+        4.59244085224111e-05},
+    "cheb1414": {"coarsen_until": 4096, "solve": {"tol": 1e-8, "maxiter": 40},
+        "levels": 5, "n_loc": [249925, 62481, 15620, 3905, 976], "W": [5, 24,
+        32, 40, 48], "WP": [12, 25, 33, 41], "WR": [48, 50, 66, 82],
+        "margins": [1414, 38458, 14271, 3889, 3903], "nagg": [200493, 13741,
+        690, 32], "dropped": [0, 178, 196, 4], "omega": [0.7027992661775955,
+        0.9418935460097873, 0.9545414382683861, 0.9620055697209248,
+        0.8053455400070659], "nnz": [9991328, 2170074, 284627, 40421, 8119],
+        "operator_complexity": 1.2505413694756093, "coarse_n": 7808,
+        "iterations": 20, "relres": 5.805025349303605e-09, "true_relres":
+        3.851168659333261e-05},
+    "sa1414r1": {"coarsen_until": 4096, "solve": {"tol": 1e-8, "maxiter": 40},
+        "levels": 6, "n_loc": [1999396, 499849, 124962, 31240, 7810, 1952],
+        "W": [5, 24, 32, 40, 48, 56], "WP": [12, 25, 33, 41, 49], "WR": [48,
+        50, 66, 82, 98], "margins": [1414, 1040, 366, 74, 13, 2], "nagg":
+        [200493, 13769, 695, 33, 3], "dropped": [0, 138, 197, 1, 0], "omega":
+        [0.7042266001351726, 0.9419561325386013, 0.9566165688167197,
+        0.9609538276136209, 1.1327617946113318, 0.9999095283350937], "nnz":
+        [9991324, 2170075, 284789, 40416, 8129, 1958], "operator_complexity":
+        1.2507542543911097, "coarse_n": 1952, "iterations": 25, "relres":
+        8.919354144154568e-09, "true_relres": 4.465114982042784e-05},
+    "cl500": {"coarsen_until": 4096, "solve": {"tol": 1e-5, "restart": 10,
+        "max_outer": 6}, "levels": 6, "n_loc": [31250, 15625, 7812, 3906,
+        1953, 976], "W": [5, 32, 40, 48, 56, 64], "WP": [5, 32, 40, 48, 56],
+        "WR": [48, 64, 80, 96, 112], "margins": [500, 2514, 4863, 3209, 1824,
+        976], "nagg": [109779, 26736, 7670, 2167, 540], "dropped": [0, 0, 0,
+        0, 0], "omega": [0.41828664744838334, 0.4945851115348472,
+        0.4960165303207894, 0.49771783867691294, 0.5015104156157637,
+        0.6471152961244322], "nnz": [1248000, 997352, 324292, 121722, 42320,
+        14090], "operator_complexity": 2.2017435897435895, "coarse_n": 7808,
+        "iterations": 40, "relres": 8.864345545589458e-06, "true_relres":
+        8.567958577895498e-06},
+}
+
+
+# the parallel2: phase's tolerances on what depends on values
+# (tests/jax_dist_setup_reference.py; PERF.md): the deeper levels'
+# margins (the coarsest level's apart), aggregates, dropped and stored
+# entries as (relative, absolute), either suffices; omega and the
+# operator complexity relative.  Three times the largest deviation from
+# the JAX package's float32 run that this sandbox measured: for SA over
+# seeds 0, 1, 2 of the power iterations at 500^2 and 1414^2 (--spread
+# 500 1414), for the classical setup, whose P reads no rho, between
+# float32 and float64 at 500^2 (--float64 cl500)
+DIST_TOL = {
+    "sa": {"margins": (0.005, 0), "margins_coarsest": (0.75, 0),
+           "nagg": (0.094, 3), "dropped": (0.18, 66), "nnz": (0.0072, 0),
+           "omega": 0.078, "omega_coarsest": 0.26,
+           "operator_complexity": 6.7e-5},
+    "classical": {"margins": (0.012, 0), "margins_coarsest": (0.012, 0),
+                  "nagg": (0.13, 72), "dropped": (0.0, 0),
+                  "nnz": (0.095, 0), "omega": 0.06, "omega_coarsest": 0.045,
+                  "operator_complexity": 4.7e-4}}
 
 SA_INNER_CAP = 60
 # the classical operators whose K3 case also takes an x holding inf and NaN
@@ -2047,6 +2146,285 @@ def parallel_phase(dev, backend="nccl", sizes=(32, 500), want=None, reps=5):
     emulated_steps(dev, ml0)
 
 
+def dist_describe(hier):
+    """The numbers of a ``DistHierarchy`` that the ``parallel2:`` gates read
+    (``tests/jax_dist_setup_reference.describe``)."""
+    lv = hier.levels
+    return {"levels": len(lv), "n_loc": [int(L.n_loc) for L in lv],
+            "W": [int(L.cols.shape[1]) for L in lv],
+            "WP": [int(L.p_cols.shape[1]) for L in lv[:-1]],
+            "WR": [int(L.r_cols.shape[1]) for L in lv[:-1]],
+            "margins": list(hier.diagnostics["margins"]),
+            "nagg": list(hier.diagnostics["nagg"]),
+            "dropped": list(hier.diagnostics["dropped"]),
+            "omega": [float(L.omega) for L in lv],
+            "nnz": [L.nnz() for L in lv],
+            "operator_complexity": hier.operator_complexity(),
+            "coarse_n": int(hier.coarse_n)}
+
+
+def _near(got, want, rel, absolute=0):
+    return abs(got - want) <= max(rel * abs(want), absolute)
+
+
+def gate_dist(tag, got, want, tol):
+    """A distributed hierarchy against the JAX package's (``JAX_DIST``):
+    exactly, what reads no value (levels, each level's n_loc and widths,
+    level 0's margin, aggregates, dropped entries and stored entries, the
+    coarse size); from level 1 on, where rho and rounding move Ac's
+    values, within ``tol`` (a DIST_TOL entry); each omega and the
+    operator complexity within ``tol`` too."""
+    print(f"parallel2: {tag} levels {got['levels']}, n_loc {got['n_loc']}, "
+          f"widths A {got['W']} P {got['WP']} R {got['WR']}, margins "
+          f"{got['margins']}, aggregates {got['nagg']}, dropped "
+          f"{got['dropped']}, nnz {got['nnz']}, omega "
+          f"{[round(w, 6) for w in got['omega']]}, operator complexity "
+          f"{got['operator_complexity']:.7f} (JAX package: margins "
+          f"{want['margins']}, aggregates {want['nagg']}, dropped "
+          f"{want['dropped']}, nnz {want['nnz']}, omega "
+          f"{[round(w, 6) for w in want['omega']]}, operator complexity "
+          f"{want['operator_complexity']:.7f})")
+    for k in ("levels", "n_loc", "W", "WP", "WR", "coarse_n"):
+        check(got[k] == want[k], f"{tag}: {k} {got[k]}, the JAX package's "
+                                 f"{want[k]}")
+    for k in ("margins", "nagg", "dropped", "nnz"):
+        check(len(got[k]) == len(want[k]) and got[k][0] == want[k][0],
+              f"{tag}: level 0 {k} {got[k][:1]}, the JAX package's "
+              f"{want[k][:1]}")
+        for i, (g, w) in enumerate(zip(got[k][1:], want[k][1:]), 1):
+            last = k == "margins" and i == len(got[k]) - 1
+            rel, absolute = tol["margins_coarsest" if last else k]
+            check(_near(g, w, rel, absolute),
+                  f"{tag}: level {i} {k} {g}, the JAX package's {w} (tol "
+                  f"{rel:g} relative or {absolute})")
+    for i, (g, w) in enumerate(zip(got["omega"], want["omega"])):
+        rel = tol["omega_coarsest" if i == len(got["omega"]) - 1
+                  else "omega"]
+        check(_near(g, w, rel), f"{tag}: level {i} omega {g}, the JAX "
+                                f"package's {w} (tol {rel:g} relative)")
+    check(_near(got["operator_complexity"], want["operator_complexity"],
+                tol["operator_complexity"]),
+          f"{tag}: operator complexity {got['operator_complexity']}, the "
+          f"JAX package's {want['operator_complexity']}")
+
+
+def gate_dist_solve(tag, solve, got, want, S, b, x):
+    """Iterations within 1 of the JAX package's (FGMRES: restart cycles
+    within 1), relres below the tolerance where the JAX package reached
+    it (else within 2x of its), and the true relative residual (float64,
+    scipy, the unpadded operator) within 2x of the JAX package's."""
+    it, relres = got
+    n = S.shape[0]
+    xs = x.double().cpu().numpy()[:n]
+    true = float(np.linalg.norm(b[:n] - S @ xs) / np.linalg.norm(b[:n]))
+    tol = want["solve"]["tol"]
+    step = want["solve"].get("restart", 1)
+    print(f"parallel2: {tag} {solve}: {it} iterations, relres {relres:.4e}, "
+          f"true relative residual {true:.4e} (JAX package "
+          f"{want['iterations']}, {want['relres']:.4e}, "
+          f"{want['true_relres']:.4e})")
+    check(abs(it - want["iterations"]) <= step,
+          f"{tag}: {it} iterations, the JAX package's {want['iterations']}")
+    if want["relres"] < tol:
+        check(relres < tol, f"{tag}: relres {relres:.3e} above {tol:g}")
+    else:
+        check(relres <= 2 * want["relres"],
+              f"{tag}: relres {relres:.3e}, the JAX package's "
+              f"{want['relres']:.3e}")
+    check(np.isfinite(true) and true <= 2 * want["true_relres"],
+          f"{tag}: true relative residual {true:.3e}, twice the JAX "
+          f"package's is {2 * want['true_relres']:.3e}")
+    return true
+
+
+def dist_flow(tag, mesh, n, want, setup="sa", smoother="jacobi", reps=5,
+              timed=False, keep=False):
+    """One distributed flow of the ``parallel2:`` phase: 2-D Poisson n^2,
+    float32, on ``mesh``, the power iterations from ``hashed_start`` (as
+    the JAX reference), gated against ``want``; with ``timed`` the setup
+    seconds by level, the warm median of ``reps`` solves, one profiled
+    solve, the peak memory beside the port's model and the collectives
+    per solve.  Returns (hierarchy, b, result of the cold solve)."""
+    import torch
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.parallel import (StackedMesh, dist_stencil_grid,
+                                          distributed_classical_setup,
+                                          distributed_sa_setup, partition,
+                                          scale_model)
+    from pyamg_tpu_torch.parallel.dist_setup import hashed_start
+    dev = mesh.device
+    st = np.array([[0, -1, 0], [-1, 4, -1], [0, -1, 0]], np.float64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    cols, vals, ok, n_loc = dist_stencil_grid(st, (n, n), mesh,
+                                              dtype=torch.float32)
+    cu = want["coarsen_until"]
+    if setup == "sa":
+        hier = distributed_sa_setup(cols, vals, ok, n_loc, mesh,
+                                    coarsen_until=cu, smoother=smoother,
+                                    rho_start=hashed_start)
+    else:
+        hier = distributed_classical_setup(cols, vals, ok, n_loc, mesh,
+                                           coarsen_until=cu,
+                                           rho_start=hashed_start)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    got = dist_describe(hier)
+    secs = hier.diagnostics["seconds"]
+    print(f"parallel2: {tag} setup {t_setup:.3f} s (rows {n * n}, "
+          f"{mesh.size} ranks of {n_loc} rows on {dev}); seconds by level "
+          f"{[round(t, 4) for t in secs]}")
+    line = f"parallel2: {tag} peak device memory of the setup " \
+        f"{peak / 1e9:.3f} GB"
+    if setup == "sa":
+        # the model replays the SA setup's shape laws only
+        model = scale_model.summarize(n * n, 5, mesh.size,
+                                      levels=got["levels"])
+        local = mesh.size if isinstance(mesh, StackedMesh) else 1
+        line += (f"; the port's scale_model predicts "
+                 f"{model['total_setup_gb'] * local:.3f} GB ({local} "
+                 f"rank(s) of {model['total_setup_gb']:.3f} GB: steady "
+                 f"{model['steady_state_gb']:.3f}, setup peak "
+                 f"{model['setup_peak_gb']:.3f}, vectors "
+                 f"{model['solve_vectors_gb']:.3f}; the model leaves out "
+                 f"the sorts' work arrays)")
+    print(line)
+    gate_dist(tag, got, want, DIST_TOL[setup])
+    # the unpadded operator, float64, from the rows of level 0
+    L0 = hier.levels[0]
+    c, v, o = (a.cpu().numpy() for a in (L0.cols, L0.vals, L0.ok))
+    rows = np.repeat(np.arange(c.shape[0]), c.shape[1])
+    m = o.ravel()
+    S = sp.csr_matrix((v.ravel()[m].astype(np.float64),
+                       (rows[m], c.ravel()[m])),
+                      shape=(c.shape[0], L0.n))[:n * n, :n * n]
+    b = np.random.default_rng(0).standard_normal(L0.n)
+    b[n * n:] = 0.0
+    kw = want["solve"]
+    solve_name = "solve_cg" if setup == "sa" else "solve_fgmres"
+
+    def solve():
+        return getattr(hier, solve_name)(b, **kw)
+
+    reset_kernel_launches()
+    partition.reset_counts()
+    x, relres, it = solve()
+    launched = kernel_launches()
+    colls = dict(partition.COUNTS)
+    true = gate_dist_solve(tag, solve_name, (it, relres), want, S, b, x)
+    print(f"parallel2: {tag} kernel launches around the cold solve "
+          f"{launched}; collectives of the solve {colls}")
+    check(all(v == 0 for v in launched.values()),
+          f"{tag}: a CUDA kernel launched on the distributed path: "
+          f"{launched}")
+    if timed:
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"parallel2: {tag} {solve_name} warm median of {reps} "
+              f"{statistics.median(walls) * 1e3:.3f} ms (all "
+              f"{[round(w * 1e3, 3) for w in walls]})")
+        wall, busy, ops, syncs = profiled(solve)
+        print_profile(f"{tag} {solve_name}", wall, busy, ops, syncs, top=8,
+                      phase="parallel2")
+    return hier, b, (x, relres, it, true)
+
+
+def same_dist(tag, h1, r1, h2, r2):
+    """Two hierarchies and their CGs bit for bit: every array of every
+    level, each omega, the coarse pinv, x, relres and iterations."""
+    worst = 0.0
+    fields = ("cols", "vals", "ok", "Dinv", "p_cols", "p_vals", "p_ok",
+              "r_cols", "r_vals", "r_ok", "cheb")
+    check(len(h1.levels) == len(h2.levels),
+          f"{tag}: {len(h1.levels)} and {len(h2.levels)} levels")
+    pairs = [(h1.coarse_dense, h2.coarse_dense), (r1[0], r2[0])]
+    for L1, L2 in zip(h1.levels, h2.levels):
+        check(L1.omega == L2.omega and L1.g == L2.g,
+              f"{tag}: omega or margin differ")
+        for f in fields:
+            a, w = getattr(L1, f), getattr(L2, f)
+            check((a is None) == (w is None), f"{tag}: {f} present in one")
+            if a is not None:
+                pairs.append((a, w))
+    for a, w in pairs:
+        check(a.shape == w.shape and a.dtype == w.dtype,
+              f"{tag}: shapes or types differ")
+        d = (a.double() - w.double()).abs()
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+    print(f"parallel2: {tag}: {len(pairs)} arrays, max_abs_err {worst:.3e}; "
+          f"CG {r1[2]} / {r2[2]} iterations, relres {r1[1]:.6e} / "
+          f"{r2[1]:.6e}")
+    check(worst == 0 and r1[1:3] == r2[1:3],
+          f"{tag}: the two forms differ (max_abs_err {worst:.3e})")
+
+
+def parallel2_phase(dev, want=None, full=1414, cl=500, small=32, reps=5):
+    """The ``parallel2:`` phase, the distributed setup and its solves
+    (``pyamg_tpu_torch.parallel.dist_setup``) on 2-D Poisson, float32,
+    against the JAX package's runs (``want``, JAX_DIST): (1) the dryrun's
+    two flows at ``small``^2 on 8 ranks in this process; (2) SA at
+    ``full``^2 on 8 ranks in this process, Jacobi and Chebyshev, timed;
+    (3) the same SA on a one-rank NCCL group, timed, with its collectives;
+    (4) classical AMG with FGMRES at ``cl``^2 on 8 ranks, timed; (5) flow
+    3 again on a one-rank ``StackedMesh``: bit for bit equal to flow 3.
+    No K1-K5 launch on any."""
+    import torch
+    import torch.distributed as dist
+    from pyamg_tpu_torch.parallel import StackedMesh, make_row_mesh
+    want = JAX_DIST if want is None else want
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    stacked = StackedMesh(8, dev)
+    t0 = time.perf_counter()
+    dist_flow(f"sa{small}", stacked, small, want[f"sa{small}"])
+    dist_flow(f"cl{small}", stacked, small, want[f"cl{small}"],
+              setup="classical")
+    print(f"parallel2: flow 1 {time.perf_counter() - t0:.2f} s")
+    for name, sm in ((f"sa{full}", "jacobi"), (f"cheb{full}", "chebyshev")):
+        t0 = time.perf_counter()
+        dist_flow(name, stacked, full, want[name], smoother=sm, reps=reps,
+                  timed=True)
+        torch.cuda.empty_cache()
+        print(f"parallel2: flow 2 {name} {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    kw = {}
+    if dev.type == "cuda":
+        kw = {"device_id": dev}
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            **kw)
+    try:
+        mesh = make_row_mesh(1, device=dev)
+        print(f"parallel2: one-rank {dist.get_backend()} group on "
+              f"{mesh.device}: the ring carries nothing (no neighbour), "
+              f"the sums gather one partial each")
+        h3, _, r3 = dist_flow(f"sa{full}r1", mesh, full, want[f"sa{full}r1"],
+                              reps=reps, timed=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel2: flow 3 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    h5, _, r5 = dist_flow(f"sa{full}r1", StackedMesh(1, dev), full,
+                          want[f"sa{full}r1"])
+    same_dist(f"flow 5: one-rank NCCL group against one-rank StackedMesh "
+              f"at {full}^2", h3, r3, h5, r5)
+    del h3, h5
+    torch.cuda.empty_cache()
+    print(f"parallel2: flow 5 {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dist_flow(f"cl{cl}", stacked, cl, want[f"cl{cl}"], setup="classical",
+              reps=reps, timed=True)
+    print(f"parallel2: flow 4 {time.perf_counter() - t0:.2f} s")
+
+
 def main():
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -2861,6 +3239,11 @@ def main():
     t0 = time.perf_counter()
     parallel_phase(dev)
     print(f"parallel: phase {time.perf_counter() - t0:.2f} s")
+
+    # -- 12. parallel2: the distributed setup and its solves ---------------
+    t0 = time.perf_counter()
+    parallel2_phase(dev)
+    print(f"parallel2: phase {time.perf_counter() - t0:.2f} s")
 
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

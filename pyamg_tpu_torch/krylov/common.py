@@ -26,7 +26,7 @@ from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            from_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec as sp_matvec
-from pyamg_tpu_torch.parallel.partition import sharded_mesh
+from pyamg_tpu_torch.parallel.partition import RowSharded, sharded_mesh
 
 CONTAINERS = (DIA, ELL, BELL, PhaseStencil, SELL)
 
@@ -80,6 +80,8 @@ def placed_device(A):
     """The device an operator or tensor lives on, None for host data."""
     if isinstance(A, torch.Tensor):
         return A.device
+    if isinstance(A, RowSharded):
+        return A.mesh.device
     arr = {DIA: "data", ELL: "vals", BELL: "vals",
            SELL: "vals"}.get(type(A))
     if arr is not None:

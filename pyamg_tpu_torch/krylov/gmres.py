@@ -23,7 +23,9 @@ from functools import partial
 import torch
 
 from pyamg_tpu_torch.krylov.common import (LOCAL, as_precond, finalize,
-                                           norm, prepare, real_dtype)
+                                           norm, prepare, real_dtype,
+                                           reduction)
+from pyamg_tpu_torch.parallel import partition
 
 TINY = 1e-300      # the reference's breakdown threshold (0 in float32)
 
@@ -201,49 +203,104 @@ def _msign(v):
     return torch.where(a == 0, torch.ones_like(v), v / torch.where(a == 0, 1, a))
 
 
-def _reflect(v, W, ks):
+class _Rows:
+    """Global-row access to the vectors of one process: all of them."""
+
+    def __init__(self, b):
+        self.n = b.shape[0]
+        self.norm, self.dot = norm, torch.vdot
+
+    def elem(self, v, i):
+        return v[i]
+
+    def add_at(self, v, i, val):
+        v = v.clone()
+        v[i] += val
+        return v
+
+    def tail(self, v, j):
+        """(v with its first j + 1 rows zeroed, the norm of the rest)."""
+        u = torch.zeros_like(v)
+        u[j + 1:] = v[j + 1:]
+        return u, norm(v[j + 1:])
+
+    def head(self, v, k):
+        return v[:k]
+
+
+class _SplitRows(_Rows):
+    """Global-row access to vectors split by rows over a ``RowMesh``: a
+    rank holds rows ``[rank n_loc, (rank + 1) n_loc)``; a read of a row,
+    of the leading rows or of a norm is summed over the ranks (one
+    ``all_reduce``; each rank adds zeros for the rows it does not
+    hold)."""
+
+    def __init__(self, b, red):
+        mesh = red.mesh
+        self.mesh = mesh
+        self.n = b.shape[0] * mesh.size
+        self.gidx = mesh.rank * b.shape[0] + torch.arange(b.shape[0],
+                                                          device=b.device)
+        self.norm, self.dot = red.norm, red.dot
+
+    def elem(self, v, i):
+        return partition.all_reduce(torch.sum(torch.where(
+            self.gidx == i, v, 0)), self.mesh)
+
+    def add_at(self, v, i, val):
+        return v + torch.where(self.gidx == i, val, 0)
+
+    def tail(self, v, j):
+        u = torch.where(self.gidx > j, v, 0)
+        return u, self.norm(u)
+
+    def head(self, v, k):
+        out = torch.zeros((k + 1,), dtype=v.dtype, device=v.device)
+        out.index_add_(0, torch.clamp(self.gidx, max=k),
+                       torch.where(self.gidx < k, v, 0))
+        return partition.all_reduce(out, self.mesh)[:k]
+
+
+def _reflect(v, W, ks, dot=torch.vdot):
     """v <- (I - 2 w_k w_k^H) v for k in ``ks``, in that order."""
     for k in ks:
-        v = v - 2.0 * torch.vdot(W[k], v) * W[k]
+        v = v - 2.0 * dot(W[k], v) * W[k]
     return v
 
 
-def _householder_cycle(mv, Mv, b, R, w, x, rtol, check_start):
+def _householder_cycle(mv, Mv, b, R, w, rows, x, rtol, check_start):
     """One restart cycle of Householder GMRES (the contract of
     ``_cycle``): the basis held as a chain of reflectors, the update
-    mapped back by Horner's scheme."""
-    n = b.shape[0]
+    mapped back by Horner's scheme.  ``rows``: global-row access to the
+    vectors (``_Rows``, or ``_SplitRows`` where they are split by rows)."""
+    n = rows.n
     W, H, g = w.V, w.H, w.g
     w.reset()
     r = Mv(b - mv(x))
-    normr0 = norm(r)
-    beta = _msign(r[0]) * normr0
-    w0 = r.clone()
-    w0[0] += beta
-    w0n = norm(w0)
+    normr0 = rows.norm(r)
+    beta = _msign(rows.elem(r, 0)) * normr0
+    w0 = rows.add_at(r, 0, beta)
+    w0n = rows.norm(w0)
     W[0] = torch.where(w0n > TINY, w0 / torch.where(w0n == 0, 1, w0n), 0.0)
     g[0] = -beta
     if check_start and bool(normr0 < rtol):
         return x, 0, True
     j, conv = 0, False
     while j < R:
-        v = (-2.0 * _conj(W[j][j])) * W[j]
-        v[j] += 1.0
-        v = _reflect(v, W, range(j - 1, -1, -1))
-        v = _reflect(Mv(mv(v)), W, range(j + 1))
-        tail = v[j + 1:]
-        tail_norm = norm(tail)
-        u = torch.zeros_like(v)
+        v = (-2.0 * _conj(rows.elem(W[j], j))) * W[j]
+        v = rows.add_at(v, j, 1.0)
+        v = _reflect(v, W, range(j - 1, -1, -1), rows.dot)
+        v = _reflect(Mv(mv(v)), W, range(j + 1), rows.dot)
+        u, tail_norm = rows.tail(v, j)
         if j + 1 < n:
-            alpha = _msign(v[j + 1]) * tail_norm
-            u[j + 1:] = tail
-            u[j + 1] += alpha
-        un = norm(u)
+            alpha = _msign(rows.elem(v, j + 1)) * tail_norm
+            u = rows.add_at(u, j + 1, alpha)
+        un = rows.norm(u)
         W[j + 1] = torch.where(un > TINY, u / torch.where(un == 0, 1, un),
                                0.0)
         # the column: v[:j + 1], then -alpha (0 past the last row)
         col = torch.zeros((R + 1,), dtype=b.dtype, device=b.device)
-        col[:j + 1] = v[:j + 1]
+        col[:j + 1] = rows.head(v, j + 1)
         if j + 1 < n:
             col[j + 1] = -alpha
         normr, rr = _rotate_and_estimate(col, w, j)
@@ -259,16 +316,21 @@ def _householder_cycle(mv, Mv, b, R, w, x, rtol, check_start):
     y = torch.linalg.solve_triangular(Hj, g[:j, None], upper=True)[:, 0]
     u = torch.zeros_like(b)
     for k in range(j - 1, -1, -1):
-        u[k] += y[k]
-        u = u - 2.0 * torch.vdot(W[k], u) * W[k]
+        u = rows.add_at(u, k, y[k])
+        u = u - 2.0 * rows.dot(W[k], u) * W[k]
     return x + u, j, conv
 
 
-def householder_loop(mv, Mv, x, b, tol, R, max_outer, callback=None):
-    """Restarted Householder GMRES: the contract of ``gmres_loop``."""
+def householder_loop(mv, Mv, x, b, tol, R, max_outer, callback=None,
+                     red=LOCAL):
+    """Restarted Householder GMRES: the contract of ``gmres_loop``; on
+    vectors split by rows (``red`` a sharded reduction) the reflectors'
+    leading rows and trailing norms are read by global row index."""
     w = _Work(R, b, False, householder=True)
-    return _restarted(partial(_householder_cycle, mv, Mv, b, R, w), w, mv,
-                      Mv, x, b, tol, R, max_outer, callback)
+    rows = _Rows(b) if red is LOCAL else _SplitRows(b, red)
+    return _restarted(partial(_householder_cycle, mv, Mv, b, R, w, rows), w,
+                      mv, Mv, x, b, tol, R, max_outer, callback,
+                      norm=red.norm)
 
 
 def _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback, residuals,
@@ -282,12 +344,13 @@ def _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback, residuals,
         R = min(int(restart), n)
         max_outer = maxiter if maxiter is not None else max(1, min(
             10000 // max(R, 1), 100))
+    red = reduction(A)
     if method == "householder":
         x, info, resbuf, nres = householder_loop(mv, Mv, x, b, tol, R,
-                                                 max_outer, callback)
+                                                 max_outer, callback, red)
     else:
         x, info, resbuf, nres = gmres_loop(mv, Mv, x, b, tol, R, max_outer,
-                                           flexible, method, callback)
+                                           flexible, method, callback, red)
     finalize(residuals, resbuf, nres)
     return x, int(info)
 

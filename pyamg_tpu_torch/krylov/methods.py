@@ -13,8 +13,9 @@ import torch
 
 from pyamg_tpu_torch._device import as_tensor
 from pyamg_tpu_torch.krylov.common import (
-    LOCAL, as_matvec, as_precond, dot, final_info, finalize, norm, place,
-    prepare, real_dtype, torch_dtype)
+    LOCAL, as_matvec, as_precond, final_info, finalize, place, prepare,
+    real_dtype, reduction, torch_dtype)
+from pyamg_tpu_torch.parallel.partition import sharded_mesh
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec as sp_matvec
@@ -113,11 +114,12 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
     return xb, info, resbuf, it + 1
 
 
-def _criteria_fns(criteria, tol, b, x0, Mv, fro, allowed):
+def _criteria_fns(criteria, tol, b, x0, Mv, fro, allowed, red=LOCAL):
     """(measure(r), rtol) of ``criteria``; raises for criteria a method
-    does not admit."""
+    does not admit.  ``red``: the inner products."""
     if criteria not in allowed:
         raise ValueError(f"invalid stopping criteria {criteria!r}")
+    norm, dot = red.norm, red.dot
     normb = norm(b)
     normb = torch.where(normb == 0, 1.0, normb)
     if criteria == "rr":
@@ -134,10 +136,10 @@ def _criteria_fns(criteria, tol, b, x0, Mv, fro, allowed):
                                              min=0.0))), tol
 
 
-def _resbuf(maxiter, b, r0):
+def _resbuf(maxiter, b, r0, red=LOCAL):
     buf = torch.zeros((maxiter + 1,), dtype=real_dtype(b.dtype),
                       device=b.device)
-    buf[0] = norm(r0)
+    buf[0] = red.norm(r0)
     return buf
 
 
@@ -163,7 +165,7 @@ def cg(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
     A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
     Mv = as_precond(M, b.device)
     x, info, resbuf, nres = cg_loop(mv, Mv, x, b, tol, criteria, maxiter,
-                                    fro, callback=callback)
+                                    fro, callback=callback, red=reduction(A))
     finalize(residuals, resbuf, nres)
     return x, int(info)
 
@@ -173,11 +175,14 @@ def bicgstab(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
     """Preconditioned BiCGStab; ``info`` -1 when a denominator vanishes."""
     A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
     Mv = as_precond(M, b.device)
-    meas, rtol = _criteria_fns(criteria, tol, b, x, Mv, fro, ("rr", "rr+"))
+    red = reduction(A)
+    dot, norm = red.dot, red.norm
+    meas, rtol = _criteria_fns(criteria, tol, b, x, Mv, fro, ("rr", "rr+"),
+                               red)
     r = b - mv(x)
     rstar, p = r, r
     rrstar = dot(rstar, r)
-    resbuf = _resbuf(maxiter, b, r)
+    resbuf = _resbuf(maxiter, b, r, red)
     info = _zero_info(b)
     done = bool(meas(r) < rtol)
     it = 0
@@ -246,12 +251,14 @@ def _normal_equations(A):
 
 class _NormalOp:
     """The operator v -> outer(inner(v)) of the normal equations, with the
-    original A's Frobenius norm for 'rr+'."""
+    original A's Frobenius norm for 'rr+' and its row mesh (None unless A
+    is split by rows)."""
 
-    def __init__(self, outer, inner, n, dtype, fro):
+    def __init__(self, outer, inner, n, dtype, fro, mesh=None):
         self.shape = (n, n)
         self.dtype = dtype
         self.fro = fro
+        self.mesh = mesh
         self.matvec = lambda v: outer(inner(v))
 
 
@@ -271,7 +278,7 @@ def cgne(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
     mvA, mvAH = _normal_equations(A)
     r = b if x0 is None else b - mvA(torch.as_tensor(
         x0, dtype=b.dtype, device=dev).reshape(-1))
-    op = _NormalOp(mvA, mvAH, A.shape[0], b.dtype, fro)
+    op = _NormalOp(mvA, mvAH, A.shape[0], b.dtype, fro, sharded_mesh(A))
     cb = None if callback is None else (lambda y: callback(mvAH(y)))
     y, info = cg(op, r, tol=tol, criteria=criteria, maxiter=maxiter, M=M,
                  callback=cb, residuals=residuals)
@@ -285,7 +292,7 @@ def cgnr(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
     """CG on A^H A x = A^H b."""
     A, dev, fro, b = _placed(A, b, device)
     mvA, mvAH = _normal_equations(A)
-    op = _NormalOp(mvAH, mvA, A.shape[1], b.dtype, fro)
+    op = _NormalOp(mvAH, mvA, A.shape[1], b.dtype, fro, sharded_mesh(A))
     return cg(op, mvAH(b), x0=x0, tol=tol, criteria=criteria,
               maxiter=maxiter, M=M, callback=callback, residuals=residuals)
 
@@ -296,13 +303,15 @@ def cr(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
     of the true residual b - A x."""
     A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
     Mv = as_precond(M, b.device)
+    red = reduction(A)
+    dot, norm = red.dot, red.norm
     meas, rtol = _criteria_fns(criteria, tol, b, x, Mv, fro,
-                               ("rr", "rr+", "MrMr"))
+                               ("rr", "rr+", "MrMr"), red)
     r0 = b - mv(x)
     r = Mv(r0)
     p = r
     rAr = dot(r, mv(r))
-    resbuf = _resbuf(maxiter, b, r0)
+    resbuf = _resbuf(maxiter, b, r0, red)
     info = _zero_info(b)
     done = bool(meas(r0) < rtol)
     it = 0
@@ -332,22 +341,23 @@ def cr(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
 def _descent(A, b, x0, tol, criteria, maxiter, M, callback, residuals,
              device, step):
     """The one-direction methods: x += alpha z with (z, alpha, stop) from
-    ``step(r, Mv, mv)``; ``info`` -1 where ``step`` says so."""
+    ``step(r, Mv, mv, dot)``; ``info`` -1 where ``step`` says so."""
     A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
     Mv = as_precond(M, b.device)
+    red = reduction(A)
     meas, rtol = _criteria_fns(criteria, tol, b, x, Mv, fro,
-                               ("rr", "rr+", "MrMr", "rMr"))
+                               ("rr", "rr+", "MrMr", "rMr"), red)
     r = b - mv(x)
-    resbuf = _resbuf(maxiter, b, r)
+    resbuf = _resbuf(maxiter, b, r, red)
     info = _zero_info(b)
     done = bool(meas(r) < rtol)
     it = 0
     while not done and it < maxiter:
-        z, alpha, brk, bad = step(r, Mv, mv)
+        z, alpha, brk, bad = step(r, Mv, mv, red.dot)
         x = x + alpha * z
         it += 1
         r = b - mv(x)
-        resbuf[it] = norm(r)
+        resbuf[it] = red.norm(r)
         conv = meas(r) < rtol
         info = torch.where(conv, 0, torch.where(bad, -1, info))
         if callback is not None:
@@ -360,7 +370,7 @@ def _descent(A, b, x0, tol, criteria, maxiter, M, callback, residuals,
 def minimal_residual(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None,
                      M=None, callback=None, residuals=None, device=None):
     """Minimal residual iteration: z = M r, alpha = <Az, z> / <Az, Az>."""
-    def step(r, Mv, mv):
+    def step(r, Mv, mv, dot):
         z = Mv(r)
         Az = mv(z)
         d = torch.real(dot(Az, Az))
@@ -375,7 +385,7 @@ def steepest_descent(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None,
                      M=None, callback=None, residuals=None, device=None):
     """Steepest descent: z = M r, alpha = <r, z> / <Az, z>; ``info`` -1
     where <Az, z> <= 0."""
-    def step(r, Mv, mv):
+    def step(r, Mv, mv, dot):
         z = Mv(r)
         d = torch.real(dot(mv(z), z))
         return z, dot(r, z) / torch.where(d == 0, 1, d), d <= 0, d <= 0

@@ -618,9 +618,10 @@ class MultilevelSolver:
         On a sharded hierarchy (``parallel.shard_hierarchy``) every rank
         passes the whole b (and x0) and gets the whole x back, after one
         all-gather; ``residuals`` holds the global norms, the same on
-        every rank, and ``callback`` gets the rank's block of x.  CG, GMRES
-        and FGMRES take their inner products over the ranks; the other
-        Krylov methods raise ``NotImplementedError`` there."""
+        every rank, and ``callback`` gets the rank's block of x.  Every
+        Krylov method takes its inner products over the ranks there
+        (``krylov.common.reduction``); CGNE and CGNR take the product with
+        Aᴴ from the operator's ``rmatvec``."""
         from pyamg_tpu_torch.krylov.methods import cg_loop
         if self.device is None:
             self.to_device()
@@ -655,11 +656,6 @@ class MultilevelSolver:
                 if return_info:
                     info = int(info)
             else:
-                if isinstance(A0, RowSharded):
-                    raise NotImplementedError(
-                        f"accel={accel!r} on a sharded hierarchy: only cg, "
-                        f"gmres and fgmres take their inner products over "
-                        f"the ranks")
                 if isinstance(accel, str):
                     from pyamg_tpu_torch import krylov
                     if accel not in krylov.__all__:

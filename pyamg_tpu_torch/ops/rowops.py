@@ -1,8 +1,8 @@
 """Row-wise operations on host ELL matrices (setup phase).
 
 Counterpart of the host twins in ``pyamg_tpu/ops/rowops.py``:
-``dedup_rows`` (the host form; the device form comes with the distributed
-setup, which needs it) and ``compact_width``; ``ell_dedup`` sorts each row's candidate (col, val) pairs by column, sums
+``dedup_rows`` (the host form, and of tensors the device form that the
+distributed setup runs) and ``compact_width``; ``ell_dedup`` sorts each row's candidate (col, val) pairs by column, sums
 duplicate columns and left-compacts (stored entries that sum to zero stay
 stored, as in the reference, because stored-entry counts feed the operator
 complexity); ``row_lookup`` gathers A's entries at given columns row by
@@ -56,14 +56,42 @@ def dedup_rows_host(cols, vals, valid, n_cols: int):
 
 
 def dedup_rows(cols, vals, valid, n_cols: int):
-    """``dedup_rows_host`` of host arrays; the device form of the JAX
-    package's ``dedup_rows`` is not ported yet."""
+    """Coalesce each row's candidate entries: ``dedup_rows_host`` of host
+    arrays; of tensors, the JAX package's device form
+    (``pyamg_tpu/ops/rowops.py:78``), over the last axis of any leading
+    shape: sort by column (invalid entries carry the ``n_cols`` sentinel
+    and a zero value), take the running sum, move the ends of the
+    equal-column runs to the front with a stable sort, and difference
+    them.  Its values are differences of running sums: they round
+    otherwise than the host twin's direct sums.  The first sort is
+    stable here, where the JAX package's need not be, so duplicates may
+    meet in another order and round in their last bit."""
     import torch
-    if any(isinstance(v, torch.Tensor) for v in (cols, vals, valid)):
-        raise NotImplementedError(
-            "dedup_rows takes host arrays; its device form comes with the "
-            "distributed setup (parallel/dist_setup.py)")
-    return dedup_rows_host(cols, vals, valid, n_cols)
+    if not any(isinstance(v, torch.Tensor) for v in (cols, vals, valid)):
+        return dedup_rows_host(cols, vals, valid, n_cols)
+    W = cols.shape[-1]
+    c = torch.where(valid, cols.to(torch.int64), int(n_cols))
+    v = torch.where(valid, vals, 0)
+    live = c < n_cols
+    if W == 1:
+        return (torch.where(live, c, 0).to(cols.dtype), v,
+                live[..., 0].to(torch.int32))
+    c, order = torch.sort(c, dim=-1, stable=True)
+    v = torch.gather(v, -1, order)
+    neq = c[..., 1:] != c[..., :-1]
+    ones = torch.ones(c.shape[:-1] + (1,), dtype=torch.bool, device=c.device)
+    head = torch.cat([ones, neq], dim=-1) & (c < n_cols)
+    row_nnz = torch.sum(head, dim=-1, dtype=torch.int32)
+    s = torch.cumsum(v, dim=-1)
+    # the ends of the runs, in column order, first
+    islast = torch.cat([neq, ones], dim=-1)
+    order = torch.sort((~islast).to(torch.int8), dim=-1, stable=True).indices
+    c2 = torch.gather(c, -1, order)
+    s2 = torch.gather(s, -1, order)
+    prev = torch.cat([torch.zeros_like(s2[..., :1]), s2[..., :-1]], dim=-1)
+    keep = torch.arange(W, device=c.device) < row_nnz[..., None]
+    return (torch.where(keep, c2, 0).to(cols.dtype),
+            torch.where(keep, s2 - prev, 0), row_nnz)
 
 
 def compact_width(cols, vals, row_nnz, shape, width=None,
@@ -71,8 +99,10 @@ def compact_width(cols, vals, row_nnz, shape, width=None,
     """A host ELL of coalesced rows, its width cut to ``width`` (default
     the largest row, at least ``min_width``)."""
     if width is None:
-        width = max(int(np.max(np.asarray(row_nnz)))
-                    if np.asarray(row_nnz).shape[0] else 0, min_width)
+        # a tensor's largest row is one host read
+        rn = row_nnz.cpu().numpy() if hasattr(row_nnz, "cpu") else \
+            np.asarray(row_nnz)
+        width = max(int(np.max(rn)) if rn.shape[0] else 0, min_width)
     width = min(width, cols.shape[1]) if cols.shape[1] > 0 else min_width
     return ELL(cols[:, :width], vals[:, :width], row_nnz,
                (int(shape[0]), int(shape[1])))

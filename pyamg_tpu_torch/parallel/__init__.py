@@ -11,9 +11,13 @@ halo exchange, ``spmv="halo"``) before a product on a sharded level, and
 one all-reduce for each inner product of a Krylov loop.  The coarse tail
 is whole on every rank.
 
-Not ported yet (the distributed setup): ``distributed_sa_setup``,
-``distributed_classical_setup``, ``dist_stencil_grid``,
-``dist_from_scipy``, ``DistHierarchy`` and ``DistLevel``.
+``dist_setup`` builds a hierarchy rank by rank with no global matrix on
+any host: ``dist_stencil_grid`` and ``dist_from_scipy`` give each rank its
+rows, ``distributed_sa_setup`` and ``distributed_classical_setup`` build
+a ``DistHierarchy`` of ``DistLevel``s through ghost-margin exchanges, and
+its ``solve_cg`` and ``solve_fgmres`` solve.  Their ``mesh`` is a
+``RowMesh`` (one rank a process) or a ``StackedMesh`` (every rank in this
+process).
 """
 
 from pyamg_tpu_torch.parallel.partition import (
@@ -21,8 +25,13 @@ from pyamg_tpu_torch.parallel.partition import (
     shard_hierarchy, shard_matrix, shard_vector)
 from pyamg_tpu_torch.parallel.halo import (
     HaloELL, build_halo, build_halo_plan, extract_diagonal_halo)
+from pyamg_tpu_torch.parallel.dist_setup import (
+    DistHierarchy, DistLevel, StackedMesh, dist_from_scipy,
+    dist_stencil_grid, distributed_classical_setup, distributed_sa_setup)
 
 __all__ = ["make_row_mesh", "pad_matrix_rows", "shard_matrix",
            "shard_hierarchy", "replicate", "HaloELL", "build_halo",
            "RowMesh", "ShardedELL", "shard_vector", "build_halo_plan",
-           "extract_diagonal_halo"]
+           "extract_diagonal_halo", "distributed_sa_setup",
+           "distributed_classical_setup", "dist_stencil_grid",
+           "dist_from_scipy", "DistHierarchy", "DistLevel", "StackedMesh"]

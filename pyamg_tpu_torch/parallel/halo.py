@@ -231,6 +231,26 @@ class HaloELL(RowSharded):
 
     __matmul__ = mv
 
+    def rmatvec(self, v):
+        """This rank's block of Aᴴ v: the rank's rows' part over its local
+        + halo index space, whose halo segments go back to their owners
+        (the exchange reversed) and are added at the rows they were sent
+        from."""
+        out = torch.zeros((self.m_loc + self.halo_width(),) +
+                          tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+        out.index_add_(0, self.cols.reshape(-1),
+                       (self.vals.conj() * v[:, None]).reshape(-1))
+        segs, base = [], self.m_loc
+        for S in self.seg_sizes:
+            segs.append(out[base:base + S])
+            base += S
+        back = exchange(segs, tuple(-o for o in self.offsets),
+                        tuple(s.shape[0] for s in self.send_idx), self.mesh)
+        y = out[:self.m_loc].clone()
+        for idx, seg in zip(self.send_idx, back):
+            y.index_add_(0, idx, seg)
+        return y
+
     def diagonal(self):
         return extract_diagonal_halo(self)
 

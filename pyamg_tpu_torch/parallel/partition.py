@@ -127,9 +127,14 @@ class ShardedReduction:
 
 class RowSharded:
     """Marker of the operators whose rows or input are split over a
-    ``RowMesh`` (``ShardedELL``, ``halo.HaloELL``)."""
+    ``RowMesh`` (``ShardedELL``, ``halo.HaloELL``).  ``matvec`` is the
+    product, ``rmatvec`` the product with Aᴴ (the normal-equation Krylov
+    methods take both)."""
 
     mesh: RowMesh
+
+    def matvec(self, x):
+        return self.mv(x)
 
 
 def _ell_mv(cols, vals, x):
@@ -175,6 +180,19 @@ class ShardedELL(RowSharded):
         return _ell_mv(self.local.cols, self.local.vals, x)
 
     __matmul__ = mv
+
+    def rmatvec(self, v):
+        """The rank's block of Aᴴ v of a square operator split by rows:
+        each rank adds its rows' part into a whole-length vector, one
+        ``all_reduce`` sums the parts, and the rank keeps its block."""
+        if not (self.in_sharded and self.out_sharded):
+            raise TypeError("rmatvec takes a square operator split by rows")
+        A = self.local
+        out = torch.zeros((self.shape[1],), dtype=v.dtype, device=v.device)
+        out.index_add_(0, A.cols.reshape(-1).to(torch.int64),
+                       (A.vals.conj() * v[:, None]).reshape(-1))
+        lo = self.mesh.rank * self.n_loc
+        return all_reduce(out, self.mesh)[lo:lo + self.n_loc]
 
     def diagonal(self):
         """The rank's block of diag(A) of a square operator split by rows
@@ -414,5 +432,7 @@ def shard_hierarchy(ml, mesh: RowMesh, replicate_below=2048, spmv="gspmd"):
 
 
 def sharded_mesh(A):
-    """The mesh of a row-sharded operator, else None."""
-    return A.mesh if isinstance(A, RowSharded) else None
+    """The mesh of a row-sharded operator (or of an operator built on one,
+    which names it as ``mesh``), else None."""
+    mesh = getattr(A, "mesh", None)
+    return mesh if isinstance(mesh, RowMesh) else None

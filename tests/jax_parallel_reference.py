@@ -125,6 +125,26 @@ def halo_cases(ndev=4):
     return out
 
 
+# the Krylov methods besides CG and GMRES, on a sharded hierarchy
+KRYLOV = ("bicgstab", "cr", "minimal_residual", "steepest_descent",
+          "gmres_mgs", "cgne", "cgnr", "gmres_householder")
+
+
+def krylov_cases(ndev=4):
+    """The residual history of ``solve(b, maxiter=3, tol=1e-12,
+    accel=method)`` for each method of ``KRYLOV`` on the dryrun's 32^2
+    hierarchy sharded over ``ndev`` devices (gspmd)."""
+    import jax.numpy as jnp
+    A, ml = sharded(*DRYRUN_ARGS, ndev=ndev)
+    b = jnp.asarray(np.random.default_rng(0).standard_normal(A.shape[0]))
+    out = {}
+    for method in KRYLOV:
+        res = []
+        ml.solve(b, maxiter=3, tol=1e-12, accel=method, residuals=res)
+        out[method] = [float(v) for v in res]
+    return out
+
+
 def main(argv):
     sizes = [32] if "--small" in argv else [32, 500]
     for n in sizes:

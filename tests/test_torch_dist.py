@@ -8,6 +8,13 @@ three 32^2 flows (``__graft_entry__.dryrun_multichip``), the halo CG to
 whose level 1 pads (102 and 70 rows over 4 ranks).  The JAX package's
 histories come from ``jax_parallel_reference`` on ``make_row_mesh(4)``
 over the conftest's virtual devices, in this process.
+
+The ranks also run the eight Krylov methods that PR 11's sharded solve
+refused (``jax_parallel_reference.KRYLOV``), against the JAX package's
+4-device histories, and three distributed setups with their solves
+(``torch_dist_worker.DIST_SETUPS``) on the ``RowMesh`` of the 4
+processes, which must equal, bit for bit, the same setups on a 4-rank
+``StackedMesh`` in this process.
 """
 
 import json
@@ -21,6 +28,7 @@ import numpy as np
 import pytest
 
 import jax_parallel_reference as jref
+import torch_dist_worker as worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_dist_worker.py")
@@ -63,6 +71,8 @@ def ranks(tmp_path_factory):
     for r in range(WORLD):
         with open(out / f"rank{r}.json") as f:
             results.append(json.load(f))
+        with np.load(out / f"rank{r}_levels.npz") as z:
+            results[-1]["levels"] = dict(z)
     return results
 
 
@@ -201,3 +211,70 @@ def test_cg_reduces_once_per_inner_product(ranks):
     cyc = res["cycle_gspmd"]["all_gather"]
     assert res["cg3_counts"]["all_reduce"] == 3 + 3 * 3
     assert res["cg3_counts"]["all_gather"] == 4 * cyc + 4 + 1
+
+
+@pytest.fixture(scope="module")
+def krylov_ref():
+    return jref.krylov_cases(ndev=WORLD)
+
+
+@pytest.mark.parametrize("spmv", ["gspmd", "halo"])
+@pytest.mark.parametrize("method", jref.KRYLOV)
+def test_krylov_methods_match_the_jax_mesh(ranks, krylov_ref, method, spmv):
+    """Each Krylov method for 3 iterations on the sharded 32^2 hierarchy:
+    every rank's residual history to 1e-10 of the JAX package's on its
+    4-device mesh (the halo path against the same history), and the same
+    history and x on every rank."""
+    key = f"{spmv}_{method}"
+    want = krylov_ref[method]
+    for res in ranks:
+        assert len(res[key][0]) == len(want) == 4
+        _close(res[key][0], want, 1e-10)
+        assert res[key] == ranks[0][key]
+
+
+@pytest.fixture(scope="module")
+def stacked():
+    """``DIST_SETUPS`` on a 4-rank ``StackedMesh`` in this process."""
+    import torch
+    from pyamg_tpu_torch.parallel import StackedMesh
+    torch.set_num_threads(1)
+    mesh = StackedMesh(WORLD, "cpu")
+    out = {}
+    for name, kind, n, cu, sk in worker.DIST_SETUPS:
+        hier, (x, relres, it) = worker.dist_setup(name, kind, n, cu, sk,
+                                                  mesh)
+        out[name] = (worker.level_arrays(name, hier), x.numpy(), relres, it,
+                     hier)
+    return out
+
+
+@pytest.mark.parametrize("name", [d[0] for d in worker.DIST_SETUPS])
+def test_dist_setup_ranks_equal_the_stacked_mesh(ranks, stacked, name):
+    """Each rank's block of every array of every level (the whole arrays
+    where every rank holds them: the Chebyshev coefficients and the
+    coarse pinv), its block of x, the relres, the iterations, the
+    diagnostics, each omega and the operator complexity of the 4-process
+    setup equal those of the 4-rank run in one process, bit for bit."""
+    arrays, x, relres, it, hier = stacked[name]
+    for r, res in enumerate(ranks):
+        got = res["levels"]
+        for key, a in list(arrays.items()) + [(f"{name}/x", x)]:
+            whole = key.endswith(("/cheb", "/coarse_dense"))
+            k = a.shape[0] // WORLD
+            want = a if whole else a[r * k:(r + 1) * k]
+            np.testing.assert_array_equal(got[key], want, err_msg=key)
+        rec = res["dist_setup"][name]
+        assert (rec["relres"], rec["iterations"]) == (relres, it)
+        assert rec["diagnostics"] == {k: hier.diagnostics[k] for k in
+                                      ("margins", "nagg", "dropped")}
+        assert rec["omega"] == [L.omega for L in hier.levels]
+        assert rec["oc"] == hier.operator_complexity()
+
+
+def test_dist_setup_exchanges_cross_ranks(ranks, stacked):
+    """The 96^2 SA hierarchy has three sharded levels and a coarse margin
+    wider than a rank's block (a ring exchange of more than one hop)."""
+    hier = stacked["sa96"][4]
+    assert len(hier.levels) >= 3
+    assert any(L.g > L.n_loc for L in hier.levels[1:])

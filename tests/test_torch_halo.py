@@ -236,8 +236,10 @@ def test_sharded_io_and_entry_points_refuse(mesh, tmp_path):
         ml.solve_refined_device(b)
     with pytest.raises(NotImplementedError):
         ml.as_dtype(torch.float32)
-    with pytest.raises(NotImplementedError, match="bicgstab"):
-        ml.solve(b, accel="bicgstab")
+    # the other Krylov methods run there: their inner products are summed
+    # over the ranks
+    x = ml.solve(b, accel="bicgstab", maxiter=2)
+    assert x.shape == (A.shape[0],) and bool(torch.isfinite(x).all())
 
 
 @pytest.mark.parametrize("spmv", ["gspmd", "halo"])

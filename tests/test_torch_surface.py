@@ -21,11 +21,13 @@ import pyamg_tpu_torch
 
 torch.set_num_threads(1)
 
-# parallel/, part 2 (the distributed setup): still to port
-STILL_TO_PORT = {
-    "pyamg_tpu.parallel": ["distributed_sa_setup",
-                           "distributed_classical_setup", "dist_stencil_grid",
-                           "dist_from_scipy", "DistHierarchy", "DistLevel"]}
+# every name of every reference __all__ is ported
+STILL_TO_PORT = {}
+
+# parallel/, part 2 (the distributed setup), the last names ported
+DIST_SETUP_NAMES = ["distributed_sa_setup", "distributed_classical_setup",
+                    "dist_stencil_grid", "dist_from_scipy", "DistHierarchy",
+                    "DistLevel"]
 
 
 def _reference_modules():
@@ -58,12 +60,18 @@ def test_reference_names_resolve_in_the_port(name):
 
 
 def test_names_still_to_port_are_absent_and_listed():
-    """Part 2's names are absent from the port (not stubbed) and listed in
-    its docstring as still to port."""
+    """No name is still to port: part 2's names resolve to the port's own
+    ``parallel.dist_setup`` objects, and the package docstring no longer
+    lists any name as still to port."""
     import pyamg_tpu_torch.parallel as par
-    for n in STILL_TO_PORT["pyamg_tpu.parallel"]:
-        assert not hasattr(par, n)
-        assert n in par.__doc__
+    from pyamg_tpu_torch.parallel import dist_setup
+    assert STILL_TO_PORT == {}
+    for n in DIST_SETUP_NAMES:
+        assert getattr(par, n) is getattr(dist_setup, n)
+        assert getattr(par, n).__module__ == "pyamg_tpu_torch.parallel." \
+            "dist_setup"
+    assert "not ported" not in par.__doc__.lower()
+    assert "to port" not in par.__doc__.lower()
 
 
 def _members(obj):
@@ -170,9 +178,13 @@ def test_rowops_host_forms():
               jr.compact_width(*want, (20, 12)))
     _same_ell(compact_width(*got, (20, 12), width=3, min_width=1),
               jr.compact_width(*want, (20, 12), width=3, min_width=1))
-    with pytest.raises(NotImplementedError, match="distributed setup"):
-        dedup_rows(torch.as_tensor(cols), torch.as_tensor(vals),
-                   torch.as_tensor(valid), 12)
+    # tensors take the device form: the same columns and counts, values
+    # as differences of running sums
+    dc, dv, drn = dedup_rows(torch.as_tensor(cols), torch.as_tensor(vals),
+                             torch.as_tensor(valid), 12)
+    _same(dc, want[0])
+    _same(drn, want[2])
+    np.testing.assert_allclose(dv.numpy(), want[1], rtol=1e-12, atol=1e-14)
 
 
 def test_inv_device():

@@ -3,9 +3,11 @@
     python tests/torch_dist_worker.py RANK WORLD PORT OUTDIR
 
 joins a gloo group of WORLD processes at ``tcp://127.0.0.1:PORT`` (60 s
-timeout), runs every flow of ``flows`` on its rank with the port alone
-(no JAX: a spawned rank does not pay for it) and writes its results to
-``OUTDIR/rank{RANK}.json``.  Not collected by pytest.
+timeout), runs every flow of ``flows`` and ``dist_setup_flows`` on its
+rank with the port alone (no JAX: a spawned rank does not pay for it) and
+writes its results to ``OUTDIR/rank{RANK}.json`` and the distributed
+setup's level arrays to ``OUTDIR/rank{RANK}_levels.npz``.  Not collected
+by pytest.
 """
 
 import json
@@ -121,6 +123,89 @@ def flows(mesh):
     return out
 
 
+# the Krylov methods besides CG and GMRES (jax_parallel_reference.KRYLOV)
+KRYLOV = ("bicgstab", "cr", "minimal_residual", "steepest_descent",
+          "gmres_mgs", "cgne", "cgnr", "gmres_householder")
+
+# the distributed setups held across the two forms of the mesh:
+# (name, kind, n, coarsen_until, solve)
+DIST_SETUPS = (("sa96", "sa", 96, 300, "cg"),
+               ("cheb40", "chebyshev", 40, 64, "cg"),
+               ("cl40", "classical", 40, 64, "fgmres"))
+
+LEVEL_FIELDS = ("cols", "vals", "ok", "Dinv", "p_cols", "p_vals", "p_ok",
+                "r_cols", "r_vals", "r_ok", "cheb")
+
+STENCIL = ((0, -1, 0), (-1, 4, -1), (0, -1, 0))
+
+
+def krylov_flows(mesh):
+    """Each method of ``KRYLOV`` for 3 iterations on the dryrun's 32^2
+    hierarchy, on the gspmd and the halo path."""
+    out = {}
+    n, mc, rb = DRYRUN
+    for spmv in ("gspmd", "halo"):
+        A, ml = sharded(n, mc, rb, mesh, spmv=spmv)
+        b = np.random.default_rng(0).standard_normal(A.shape[0])
+        for method in KRYLOV:
+            out[f"{spmv}_{method}"] = solve(ml, b, maxiter=3, tol=1e-12,
+                                            accel=method)
+    return out
+
+
+def dist_setup(name, kind, n, coarsen_until, solve_kind, mesh):
+    """(hierarchy, (x, relres, iterations)) of one of ``DIST_SETUPS`` on
+    ``mesh`` (a RowMesh or a StackedMesh): float64, default start
+    vectors, b = default_rng(3) with the pad rows zeroed."""
+    import torch
+    from pyamg_tpu_torch.parallel import (dist_stencil_grid,
+                                          distributed_classical_setup,
+                                          distributed_sa_setup)
+    cols, vals, ok, n_loc = dist_stencil_grid(np.asarray(STENCIL), (n, n),
+                                              mesh, dtype=torch.float64)
+    if kind == "classical":
+        hier = distributed_classical_setup(cols, vals, ok, n_loc, mesh,
+                                           coarsen_until=coarsen_until)
+    else:
+        hier = distributed_sa_setup(
+            cols, vals, ok, n_loc, mesh, coarsen_until=coarsen_until,
+            smoother="chebyshev" if kind == "chebyshev" else "jacobi")
+    b = np.random.default_rng(3).standard_normal(n_loc * mesh.size)
+    b[n * n:] = 0.0
+    if solve_kind == "cg":
+        res = hier.solve_cg(b, tol=1e-8, maxiter=40)
+    else:
+        res = hier.solve_fgmres(b, tol=1e-8, restart=10, max_outer=4)
+    return hier, res
+
+
+def level_arrays(name, hier):
+    """Every array of every level of ``hier``, keyed ``name/l/field``."""
+    out = {}
+    for i, L in enumerate(hier.levels):
+        for f in LEVEL_FIELDS:
+            a = getattr(L, f)
+            if a is not None:
+                out[f"{name}/{i}/{f}"] = a.cpu().numpy()
+    out[f"{name}/coarse_dense"] = hier.coarse_dense.cpu().numpy()
+    return out
+
+
+def dist_setup_flows(mesh):
+    """(JSON results, level arrays) of ``DIST_SETUPS`` on this rank."""
+    out, arrays = {}, {}
+    for name, kind, n, cu, sk in DIST_SETUPS:
+        hier, (x, relres, it) = dist_setup(name, kind, n, cu, sk, mesh)
+        out[name] = {"relres": relres, "iterations": it,
+                     "diagnostics": {k: hier.diagnostics[k] for k in
+                                     ("margins", "nagg", "dropped")},
+                     "omega": [L.omega for L in hier.levels],
+                     "oc": hier.operator_complexity()}
+        arrays.update(level_arrays(name, hier))
+        arrays[f"{name}/x"] = x.cpu().numpy()
+    return out, arrays
+
+
 def main(argv):
     rank, world, port, outdir = int(argv[0]), int(argv[1]), int(argv[2]), \
         argv[3]
@@ -130,9 +215,13 @@ def main(argv):
                             timeout=timedelta(seconds=60))
     try:
         from pyamg_tpu_torch.parallel import make_row_mesh
-        out = flows(make_row_mesh(world, device="cpu"))
+        mesh = make_row_mesh(world, device="cpu")
+        out = flows(mesh)
+        out.update(krylov_flows(mesh))
+        out["dist_setup"], arrays = dist_setup_flows(mesh)
     finally:
         dist.destroy_process_group()
+    np.savez(os.path.join(outdir, f"rank{rank}_levels.npz"), **arrays)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
