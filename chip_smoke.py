@@ -149,6 +149,22 @@ Phases, each printed on its own lines:
    one-rank hierarchy built again on a one-rank ``StackedMesh``, which
    must equal the NCCL one bit for bit.
 
+Every solve of phases 3-10 but S5 (BiCGStab, which stays op by op)
+replays CUDA graphs (``pyamg_tpu_torch/_graph.py``); each prints
+``capture:`` lines beside its phase's (``capture_gate``): the same solve
+op by op (``_graph.eager()``) must equal the captured cold solve bit for
+bit (x, residual history, iterations) with equal launches per kernel,
+operator and color pass; then the graphs captured and their capture
+time, the captured and op-by-op warm medians (of 3 op by op where one
+solve takes over a second), one profiled op-by-op solve and
+``profile_cycle`` beside the captured median per iteration.  Phase 2 also
+replays a graph of 4 K2 sweeps 3 times with eager sweeps between, on
+the graph's exchange and on the stream's (``k2_replay_gate``; 500^2
+level 0 staged, 64^3 A0), each to 0; phase 5
+gates ``profile_cycle`` on 500^2 (positive, below the captured solve's
+time an iteration) and ``trace_cycle``, whose trace
+(``pyamg_tpu_torch/_build/cycle_trace``) must show K2's kernel.
+
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
 non-zero before printing a result.
@@ -156,6 +172,7 @@ non-zero before printing a result.
 
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -788,8 +805,8 @@ def print_profile(tag, wall_us, busy, ops, syncs, top=12, phase="times"):
 
 def solver_paths(dev, N2=500, N3=64):
     """The paths of the ``solvers:`` phase: [(name, what it runs, run,
-    scipy A, b, tol, kernels it must launch, M)], ``run(residuals)``
-    returning (x, info).  The true relative residual is checked below tol,
+    scipy A, b, tol, kernels it must launch, M, (hierarchy, cycle) of a
+    captured solve or None)], ``run(residuals)`` returning (x, info).  The true relative residual is checked below tol,
     except S1's: GMRES stops on the preconditioned residual, and a true
     relative residual below 1e-6 is not what it promises (the JAX
     package's own S1 stops at 4.7e-5), so S1's is checked through its
@@ -840,27 +857,28 @@ def solver_paths(dev, N2=500, N3=64):
         ("S1", "GMRES around a W-cycle, symmetric GS, dense coarse tail",
          lambda res: s1.solve(b, tol=1e-6, accel="gmres", cycle="W",
                               residuals=res, return_info=True),
-         S2, b, 1e-6, dia, s1_precond),
+         S2, b, 1e-6, dia, s1_precond, (s1, "W")),
         ("S2", "FGMRES around an F-cycle, SOR omega 1.2, LU coarse solve",
          lambda res: s2.solve(b, tol=1e-6, accel="fgmres", cycle="F",
                               residuals=res, return_info=True),
-         S2, b, 1e-6, dia, None),
+         S2, b, 1e-6, dia, None, (s2, "F")),
         ("S3", "CG around a V-cycle, Chebyshev degree 3, Cholesky coarse "
          "solve", lambda res: s3.solve(b, tol=1e-6, accel="cg",
                                        residuals=res, return_info=True),
-         S2, b, 1e-6, ("dia_spmv",), None),
+         S2, b, 1e-6, ("dia_spmv",), None, (s3, "V")),
         ("S4", "standalone AMLI cycling, Jacobi omega 4/3 twice",
          lambda res: s4.solve(b, tol=1e-6, cycle="AMLI", maxiter=60,
                               residuals=res, return_info=True),
-         S2, b, 1e-6, ("dia_spmv",), None),
+         S2, b, 1e-6, ("dia_spmv",), None, (s4, "AMLI")),
+        # BiCGStab is one of the Krylov methods that stay op by op
         ("S5", "krylov.bicgstab preconditioned by S1's V-cycle",
          lambda res: krylov.bicgstab(s1.levels[0].A, b, tol=1e-6,
                                      M=s1.aspreconditioner("V"),
                                      residuals=res),
-         S2, b, 1e-6, dia, None),
+         S2, b, 1e-6, dia, None, None),
         ("S6", "solve_refined GMRES around a W-cycle, SOR omega 1.2 forward "
          "and backward", s6_run, S3, b3, 1e-10,
-         dia + ("sell_spmv", "sell_gs_sweep"), None),
+         dia + ("sell_spmv", "sell_gs_sweep"), None, (s6, "W")),
     ]
 
 
@@ -878,7 +896,7 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
     from pyamg_tpu_torch.ops import sell_kernels as sk
     kernels = dk.KERNELS + sk.KERNELS
     out = {}
-    for name, what, run, S, b, tol, must, M in paths:
+    for name, what, run, S, b, tol, must, M, captured in paths:
         dk.reset_launch_counts()
         sk.reset_launch_counts()
         res = []
@@ -888,6 +906,8 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
             x, info = run(res)
             torch.cuda.synchronize()
             cold = time.perf_counter() - t0
+        counts = counters()
+        x_cold = x
         launches = {k.__name__: k.launches for k in kernels}
         per_op = {k.__name__: dict(getattr(k, "by_op", None) or k.by_plan)
                   for k in kernels if k.launches}
@@ -912,7 +932,20 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
               f"{statistics.median(walls) * 1e3:.3f} ms (all "
               f"{[round(w * 1e3, 3) for w in walls]}), launches per solve "
               f"{launches}, per operator {per_op}")
-        print_profile(name, *profiled(lambda: run([])), phase="solvers")
+        print_profile(f"{name} captured", *profiled(lambda: run([])),
+                      phase="solvers")
+        if captured is not None:
+            def replayed(run=run):
+                r = []
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    xr, i = run(r)
+                return xr, r, i if name == "S6" else (i, len(r) - 1)
+
+            capture_gate("solvers", name, captured[0], replayed,
+                         (x_cold, res, info if name == "S6" else
+                          (info, len(res) - 1)), counts,
+                         statistics.median(walls), captured[1], reps)
         want = jax_counts[name]
         if name == "S6":
             check(its[0] == want[0] and len(its[1]) == len(want[1]) and
@@ -933,6 +966,148 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
         check(name != "S3" or not warned, f"{name} raised a warning")
         out[name] = launches
     return out
+
+
+def counters():
+    """Every kernel wrapper's counters: {kernel: (launches, per operator,
+    color passes)}."""
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    return {k.__name__: (k.launches, dict(k.by_op if hasattr(k, "by_op")
+                                          else k.by_plan),
+                         dict(getattr(k, "passes", {})))
+            for k in dk.KERNELS + sk.KERNELS}
+
+
+def total_iterations(it):
+    """The Krylov iterations or cycles of one solve, from what its path
+    reports: ``{'inner': [...]}`` or ``{'inner': n}``, ``{'cg': n}``, an
+    (outer, inner counts) pair or an (info, iterations) pair."""
+    if isinstance(it, dict):
+        inner = it.get("inner", it.get("cg"))
+        return sum(inner) if isinstance(inner, (list, tuple)) else inner
+    if isinstance(it, tuple):
+        return sum(it[1]) if isinstance(it[1], (list, tuple)) else it[1]
+    return it
+
+
+def capture_gate(phase, tag, ml, run, captured, counts, median_s, cycle="V",
+                 reps=5):
+    """Replay against dispatch on one path.  ``run()`` solves once and
+    returns (x, residual history, iterations); ``captured`` is what the
+    path's captured cold solve returned and ``counts`` the kernels'
+    counters read around it (set to 0 just before).  The same solve op by
+    op (``_graph.eager()``, counters set to 0 around it) must give the
+    same x, history and iterations bit for bit and the same launches per
+    kernel, operator and color pass.  Then the op-by-op warm median (of
+    ``reps``, 3 where one solve takes over a second), one profiled
+    op-by-op solve, the graphs the hierarchy captured and their capture
+    time, and ``profile_cycle(cycle)`` beside the captured median over the
+    iterations.  Returns (op-by-op median seconds, profile_cycle
+    seconds)."""
+    import torch
+    from pyamg_tpu_torch import _graph
+    reset_kernel_launches()
+    with _graph.eager():
+        t0 = time.perf_counter()
+        xe, re, ie = run()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    ce = counters()
+    xc, rc, ic = captured
+    xc, xe = (np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+              for v in (xc, xe))
+    diff = float(np.max(np.abs(xc - xe))) if xc.shape == xe.shape else \
+        float("inf")
+    print(f"capture: {phase} {tag} op by op: x max |captured - op by op| "
+          f"{diff:.3e}, residuals equal {rc == re}, iterations {ic} / {ie}, "
+          f"launches equal {ce == counts}")
+    check(xc.shape == xe.shape and np.array_equal(xc, xe) and rc == re and
+          ic == ie, f"{tag}: the captured solve differs from the op-by-op "
+                    f"one")
+    check(ce == counts, f"{tag}: the captured solve's launches {counts} "
+                        f"differ from the op-by-op solve's {ce}")
+    reps = 3 if cold > 1.0 else reps
+    walls = []
+    with _graph.eager():
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print_profile(f"{tag} op by op", *profiled(run), phase=phase)
+    graphs, capture_s = ml._graphs().captured()
+    t_cycle = ml.profile_cycle(cycle)
+    iters = total_iterations(ic)
+    eager_s = statistics.median(walls)
+    print(f"capture: {phase} {tag} graphs {graphs} captured in "
+          f"{capture_s:.3f} s (paid once); warm median captured "
+          f"{median_s * 1e3:.3f} ms, op by op {eager_s * 1e3:.3f} ms (median "
+          f"of {reps}: {[round(w * 1e3, 3) for w in walls]}), "
+          f"{eager_s / median_s:.2f}x; profile_cycle({cycle}) "
+          f"{t_cycle * 1e3:.4f} ms, captured median / {iters} iterations "
+          f"{median_s / max(iters, 1) * 1e3:.4f} ms")
+    return eager_s, t_cycle
+
+
+def k2_replay_gate(dev, name, D, colors, nc, Dinv):
+    """K2 in a CUDA graph: one graph of 4 symmetric sweeps (omega 1) on
+    ``D``, replayed 3 times on new x.  After each replay two eager K2
+    sweeps run on the same stream: one in the warm-up of a new step of the
+    same program (so on the exchange the graph recorded, as when GMRES
+    records its next Arnoldi step between replays), one outside any
+    program (the stream's exchange).  Every replay and every eager sweep
+    must equal the plain version bit for bit."""
+    import torch
+    from pyamg_tpu_torch import _graph
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.relaxation.relaxation import gs_order
+    n = D.shape[0]
+    data = torch.as_tensor(D.data, device=dev).float()
+    col = torch.as_tensor(colors, device=dev)
+    Di = torch.as_tensor(Dinv, device=dev).float()
+    order = gs_order(nc, "symmetric", 1, 1.0)
+    rng = np.random.default_rng(SEED)
+    b = torch.as_tensor(rng.standard_normal(n), device=dev).float()
+
+    def plain(x, sweeps):
+        for _ in range(sweeps):
+            x = dk.dia_gs_sweep_plain(data, D.offsets, n, x, b, Di, col,
+                                      order, 1.0)
+        return x
+
+    def step(s):
+        x = s["x"]
+        for _ in range(4):
+            x = dk.dia_gs_sweep(data, D.offsets, n, x, b, Di, col, order)
+        return {"y": x}
+
+    def one(s):
+        return {"e": dk.dia_gs_sweep(data, D.offsets, n, s["x"], b, Di, col,
+                                     order)}
+
+    prog = _graph.Cache().transient(dev)
+    errs = []
+    with torch.cuda.stream(prog.stream):
+        prog.put("x", torch.as_tensor(rng.standard_normal(n),
+                                      device=dev).float())
+        prog.run("sweeps", step)
+        for k in range(3):
+            x = torch.as_tensor(rng.standard_normal(n), device=dev).float()
+            prog.put("x", x)
+            prog.run("sweeps", step)
+            errs.append(float((prog.state["y"] - plain(x, 4)).abs().max()))
+            prog.run(("one", k), one)      # its warm-up: an eager sweep
+            errs.append(float((prog.state["e"] - plain(x, 1)).abs().max()))
+            e = dk.dia_gs_sweep(data, D.offsets, n, x, b, Di, col, order)
+            errs.append(float((e - plain(x, 1)).abs().max()))
+        torch.cuda.synchronize()
+    g = dk.gs_geometry(n, len(D.offsets), max(abs(o) for o in D.offsets), 4)
+    print(f"capture: K2 replay {name} ({len(order)} passes, {g}): graph of 4 "
+          f"sweeps replayed 3 times, each followed by an eager sweep on the "
+          f"graph's exchange and one on the stream's, max_abs_err {errs}")
+    check(all(e == 0 for e in errs), f"K2 {name}: a replayed or eager sweep "
+                                     f"disagrees with its plain version")
 
 
 def kernel_row(flush, skip, name, replaces, launches, err, fn, plain, library,
@@ -1191,6 +1366,7 @@ def drive_path(path, want, reps=5, phase="classical"):
     cold = time.perf_counter() - t0
     launches = kernel_launches()
     per_op = path_launches(ml)
+    counts = counters()
     relres = float(np.linalg.norm(b - S @ x) / np.linalg.norm(b))
     walls = []
     for _ in range(reps):
@@ -1206,7 +1382,14 @@ def drive_path(path, want, reps=5, phase="classical"):
           f"{statistics.median(walls) * 1e3:.3f} ms (all "
           f"{[round(w * 1e3, 3) for w in walls]}), launches per solve "
           f"{launches}, per operator {per_op}")
-    print_profile(tag, *profiled(solve), phase=phase)
+    print_profile(f"{tag} captured", *profiled(solve), phase=phase)
+
+    def run():
+        r, i = [], {}
+        return solve(residuals=r, iterations_out=i), r, i
+
+    capture_gate(phase, tag, ml, run, (x, res, it), counts,
+                 statistics.median(walls), kw.get("cycle", "V"), reps)
     check(x.shape == b.shape and np.isfinite(x).all(),
           f"{tag}: x is not a finite vector of the right shape")
     ok, rule = path.get("iterations_ok", (iterations_near, "within 1"))
@@ -2611,6 +2794,11 @@ def main():
     for name, op in k2_ops.items():
         kernel_inputs[f"K2 {name}"] = k2_case(name, *op)
 
+    # K2 recorded in a CUDA graph and replayed, eager launches between the
+    # replays, in both launch regimes (staged; the band read each pass)
+    for name in ("500^2 level 0", "64^3 A0"):
+        k2_replay_gate(dev, name, *k2_ops[name])
+
     def k2_pairs(name, D, colors, nc, Dinv, pairs):
         """K2 for each (omega, sweep) of ``pairs`` in float32 and float64
         against the plain version to 0, with its launch shape."""
@@ -2858,11 +3046,13 @@ def main():
     t_setup = time.perf_counter() - t0
     b = np.random.default_rng(SEED).standard_normal(A64.shape[0])
     it, res = {}, []
+    reset_kernel_launches()
     t0 = time.perf_counter()
     x = ml.solve_refined_device(b, tol=1e-10, inner_tol=1e-5,
                                 inner_maxiter=30, max_outer=10,
                                 residuals=res, iterations_out=it)
     t_cold = time.perf_counter() - t0
+    main_cold, main_counts = (x, res, it), counters()
     launches = {k.__name__: k.launches for k in dk.KERNELS}
     As = to_scipy(A64)
     relres = float(np.linalg.norm(b - As @ x) / np.linalg.norm(b))
@@ -2926,6 +3116,7 @@ def main():
     x3 = ml3.solve_refined(b3, A_fine=S3, tol=1e-10, accel="cg",
                            residuals=res3, iterations_out=it3)
     t_cold3 = time.perf_counter() - t0
+    sa3d_cold, sa3d_counts = (x3, res3, it3), counters()
     launches3 = {k.__name__: k.launches for k in dk.KERNELS + sk.KERNELS}
     relres3 = float(np.linalg.norm(b3 - S3 @ x3) / np.linalg.norm(b3))
     print(f"sa3d: cold solve_refined {t_cold3:.3f} s, outer {it3['outer']} "
@@ -2978,7 +3169,31 @@ def main():
         t0 = time.perf_counter()
         ml.solve_refined_device(b)
         walls.append(time.perf_counter() - t0)
-    print_profile("500^2", *profiled(lambda: ml.solve_refined_device(b)))
+    print_profile("500^2 captured",
+                  *profiled(lambda: ml.solve_refined_device(b)))
+
+    def main_run():
+        r, i = [], {}
+        return ml.solve_refined_device(b, residuals=r, iterations_out=i), r, i
+
+    main_median = statistics.median(walls)
+    _, t_cycle = capture_gate("times", "500^2", ml, main_run, main_cold,
+                              main_counts, main_median)
+    per_iteration = main_median / main_cold[2]["inner"]
+    check(0 < t_cycle < per_iteration,
+          f"500^2: profile_cycle {t_cycle:.3e} s is not positive and below "
+          f"the captured solve's {per_iteration:.3e} s an iteration")
+    trace_dir = ml.trace_cycle(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "pyamg_tpu_torch",
+        "_build", "cycle_trace"))
+    with open(os.path.join(trace_dir, "cycle_trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k2_events = [k for k in kernels if "dia_gs_" in k]
+    print(f"capture: trace_cycle wrote {trace_dir}/cycle_trace.json: "
+          f"{len(events)} events, {len(kernels)} kernels, {len(k2_events)} "
+          f"of K2 ({sorted(set(k[:60] for k in k2_events))})")
+    check(k2_events, "trace_cycle's trace holds no K2 (dia_gs_sweep) kernel")
 
     cyc = ml._make_cycle("V")
     rv = torch.as_tensor(rng.standard_normal(A64.shape[0]),
@@ -3066,8 +3281,16 @@ def main():
     print(f"times: 64^3 warm solve_refined median of 5 "
           f"{statistics.median(walls3) * 1e3:.3f} ms (all "
           f"{[round(w * 1e3, 3) for w in walls3]})")
-    print_profile("64^3", *profiled(lambda: ml3.solve_refined(
+    print_profile("64^3 captured", *profiled(lambda: ml3.solve_refined(
         b3, A_fine=S3, tol=1e-10, accel="cg")), top=16)
+
+    def sa3d_run():
+        r, i = [], {}
+        return ml3.solve_refined(b3, A_fine=S3, tol=1e-10, accel="cg",
+                                 residuals=r, iterations_out=i), r, i
+
+    capture_gate("times", "64^3", ml3, sa3d_run, sa3d_cold, sa3d_counts,
+                 statistics.median(walls3))
 
     sell_src = "pyamg_tpu_torch/csrc/sell_kernels.cu"
 

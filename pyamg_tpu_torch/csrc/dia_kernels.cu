@@ -60,9 +60,9 @@
 //       float64), then does the interior while they travel.  A reader
 //       polls the words it needs until their tag is the pass it waits
 //       for: the data carries its own flag, so no fence and no separate
-//       counter sit between two passes.  Tags are epoch + pass; the
-//       caller raises `epoch` past every tag of a launch, so the words
-//       never need clearing.
+//       counter sit between two passes.  Tags are epoch + pass, and
+//       every launch raises the epoch past every tag it wrote (see
+//       below), so the words never need clearing.
 //   (b) device: the band does not fit in the resident blocks' shared
 //       memory, or reaches past the next block (then every row of a
 //       staged block would be exchanged each pass, which measured slower
@@ -98,6 +98,19 @@
 // rows by color so that a pass runs whole warps of its color (the sort and
 // the indirection cost more than the idle lanes), and two rows a thread
 // computed without a branch.
+//
+// The epoch lives in device memory, ctl[0], beside a count of the
+// launch's finished blocks, ctl[1]: every block reads the epoch as it
+// starts, and the last block to finish (the count reaching gridDim.x,
+// after every block read it) raises it by n_order + 1 and clears the
+// count.  So a launch recorded in a CUDA graph takes a new epoch on every
+// replay: with the epoch baked into the launch, a replay would poll for
+// the tags of the replay before it, find that replay's words still
+// carrying them and read them before their writer wrote, and would find
+// the pass counters already at the values it waits for.  Eager launches
+// and replays that share an exchange take turns on one ctl.  The host
+// counts the same epochs and starts counters, words and epoch afresh well
+// before the epoch could pass 2**32 (ops/dia_kernels._Exchange).
 //
 // Arithmetic equals the plain versions' bit for bit: each product is
 // rounded (mul_rn), the terms are added in diagonal order starting from
@@ -217,6 +230,21 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p,
                                            unsigned long long v) {
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
                : "memory");
+}
+
+// the end of a K2 launch: the last block to finish raises the epoch past
+// every tag and counter value the launch wrote and clears the count of
+// finished blocks (see the note at the top)
+__device__ __forceinline__ void finish_launch(unsigned* ctl, unsigned epoch,
+                                              int n_order) {
+  __syncthreads();              // every thread of the block has finished
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(ctl + 1, 1u) == gridDim.x - 1) {
+      ctl[1] = 0u;
+      ctl[0] = epoch + static_cast<unsigned>(n_order) + 1u;
+    }
+  }
 }
 
 // a value as kWords 64-bit words, each a 32-bit piece of it below a 32-bit
@@ -429,9 +457,10 @@ dia_gs_staged_kernel(const T* __restrict__ data, long long npad, int ndiag,
                      const int* __restrict__ colors,
                      const int* __restrict__ order, int n_order, T omega,
                      const T* __restrict__ x0, T* __restrict__ out,
-                     unsigned long long* words, unsigned epoch, int rows,
+                     unsigned long long* words, unsigned* ctl, int rows,
                      int halo) {
   constexpr int kW = Tagged<T>::kWords;
+  const unsigned epoch = __ldcg(ctl);
   extern __shared__ __align__(16) unsigned char smem[];
   const int r0 = blockIdx.x * rows;
   const int cnt = min(rows, n - r0);
@@ -597,6 +626,7 @@ dia_gs_staged_kernel(const T* __restrict__ data, long long npad, int ndiag,
     xs = xn;
     xn = t;
   }
+  finish_launch(ctl, epoch, n_order);
 }
 
 // regime (b): see the note at the top
@@ -608,7 +638,7 @@ dia_gs_device_kernel(const T* __restrict__ data, long long npad, int ndiag,
                      const int* __restrict__ colors,
                      const int* __restrict__ order, int n_order, T omega,
                      const T* x0, T* out, T* scratch, unsigned* flags,
-                     unsigned epoch, int rows, int reach, int halo) {
+                     unsigned* ctl, int rows, int reach, int halo) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int blk = blockIdx.x;
   const int r0 = blk * rows;
@@ -617,6 +647,7 @@ dia_gs_device_kernel(const T* __restrict__ data, long long npad, int ndiag,
   const int last = n_order - 1;
   int* soffs = reinterpret_cast<int*>(smem);          // [ndiag] offsets
   const Visit vis(cnt, halo);
+  const unsigned epoch = __ldcg(ctl);
 
   int c_next = __ldg(order);
   for (int d = tid; d < ndiag; d += nt) soffs[d] = offsets[d];
@@ -657,6 +688,7 @@ dia_gs_device_kernel(const T* __restrict__ data, long long npad, int ndiag,
     }
     __syncthreads();              // the neighbours' pass p is visible
   }
+  finish_launch(ctl, epoch, n_order);
 }
 
 // how many blocks of `kernel` fit on the card at once, with `threads`
@@ -783,7 +815,8 @@ int dia_spmv(const T* data, int ndiag, long long npad,
 }
 
 // staged: `words` holds 2 * n * Tagged<T>::kWords words; device regime:
-// `scratch` holds n values and `flags` kMaxFlagBlocks (when n_order > 1).
+// `scratch` holds n values and `flags` kMaxFlagBlocks (when n_order > 1);
+// both: `ctl` holds the epoch and the count of finished blocks (0).
 // A device-regime launch of one pass waits for no block, so it is an
 // ordinary launch of any number of blocks.
 template <typename T>
@@ -791,12 +824,13 @@ int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
                  int n, const T* b, const T* dinv, const int* colors,
                  const int* order, int n_order, T omega, const T* x0, T* out,
                  T* scratch, unsigned long long* words, unsigned* flags,
-                 unsigned epoch, int staged, int blocks, int threads,
+                 unsigned* ctl, int staged, int blocks, int threads,
                  int rows, int reach, int halo, int smem, void* stream) {
   if (n <= 0) return 0;
   const bool waits = n_order > 1;
   const bool bad =
       ndiag < 1 || npad < n || n_order < 1 || blocks < 1 || rows < 1 ||
+      ctl == nullptr ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
       static_cast<long long>(blocks) * rows < n ||
       static_cast<long long>(blocks - 1) * rows >= n || halo < 0 ||
@@ -815,7 +849,7 @@ int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
     auto run = [&](auto kernel, int* allowed_k) {
       return launch(kernel, true, allowed_k, blocks, threads, smem, stream,
                     data, npad, ndiag, offsets, n, b, dinv, colors, order,
-                    n_order, omega, x0, out, words, epoch, rows, halo);
+                    n_order, omega, x0, out, words, ctl, rows, halo);
     };
 #ifndef PYAMG_DIA_GS_GENERIC   // a build for a timing probe: any width
     if (ndiag == 5) return run(dia_gs_staged_kernel<T, 5>, &allowed[1]);
@@ -825,7 +859,7 @@ int dia_gs_sweep(const T* data, int ndiag, long long npad, const int* offsets,
   static int allowed = 48 * 1024;
   return launch(dia_gs_device_kernel<T>, waits, &allowed, blocks, threads,
                 smem, stream, data, npad, ndiag, offsets, n, b, dinv, colors,
-                order, n_order, omega, x0, out, scratch, flags, epoch, rows,
+                order, n_order, omega, x0, out, scratch, flags, ctl, rows,
                 reach, halo);
 }
 
@@ -857,12 +891,12 @@ int pyamg_dia_gs_sweep_f32(const float* data, int ndiag, long long npad,
                            const int* order, int n_order, float omega,
                            const float* x0, float* out, float* scratch,
                            unsigned long long* words, unsigned* flags,
-                           unsigned epoch, int staged, int blocks,
+                           unsigned* ctl, int staged, int blocks,
                            int threads, int rows, int reach, int halo,
                            int smem, void* stream) {
   return dia_gs_sweep<float>(data, ndiag, npad, offsets, n, b, dinv, colors,
                              order, n_order, omega, x0, out, scratch, words,
-                             flags, epoch, staged, blocks, threads, rows,
+                             flags, ctl, staged, blocks, threads, rows,
                              reach, halo, smem, stream);
 }
 
@@ -872,12 +906,12 @@ int pyamg_dia_gs_sweep_f64(const double* data, int ndiag, long long npad,
                            const int* order, int n_order, double omega,
                            const double* x0, double* out, double* scratch,
                            unsigned long long* words, unsigned* flags,
-                           unsigned epoch, int staged, int blocks,
+                           unsigned* ctl, int staged, int blocks,
                            int threads, int rows, int reach, int halo,
                            int smem, void* stream) {
   return dia_gs_sweep<double>(data, ndiag, npad, offsets, n, b, dinv, colors,
                               order, n_order, omega, x0, out, scratch, words,
-                              flags, epoch, staged, blocks, threads, rows,
+                              flags, ctl, staged, blocks, threads, rows,
                               reach, halo, smem, stream);
 }
 

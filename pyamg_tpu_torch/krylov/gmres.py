@@ -8,8 +8,9 @@ Arnoldi step orthogonalizes by classical Gram-Schmidt applied twice
 ``MultilevelSolver.solve(accel="gmres")`` uses) or by sequential modified
 Gram-Schmidt (``"mgs"``, the default of ``gmres``).
 
-The loops are Python over tensor ops.  The basis is allocated once per
-call as ``(restart + 1, n)``; the Hessenberg matrix, the Givens rotations
+The loops are Python over tensor ops (``gmres_loop``'s as steps of a
+``_graph.Program``, which ``MultilevelSolver`` captures as CUDA graphs).
+The basis is allocated once per call as ``(restart + 1, n)``; the Hessenberg matrix, the Givens rotations
 and the residual estimate stay on the device.  The host reads the
 estimate's stop flags once per Arnoldi step, once when a later restart
 begins (its true preconditioned residual may already be below the
@@ -22,6 +23,7 @@ from functools import partial
 
 import torch
 
+from pyamg_tpu_torch._graph import Program
 from pyamg_tpu_torch.krylov.common import (LOCAL, as_precond, finalize,
                                            norm, prepare, real_dtype,
                                            reduction)
@@ -70,7 +72,8 @@ def _rotate_and_estimate(col, w, j):
     G, g = w.G, w.g
     _rotate(col, G, j)
     c, s, rr = _givens(col[j], col[j + 1])
-    col[j], col[j + 1] = rr, 0.0
+    col[j] = rr
+    col[j + 1].zero_()       # a Python 0.0 would be a host-to-device copy
     G[j, 0], G[j, 1] = c, s
     gj = g[j].clone()
     g[j] = c * gj
@@ -101,27 +104,91 @@ class _Work:
             t.zero_()
 
 
-def _cycle(mv, Mv, b, R, w, flexible, orthog, red, x, rtol, check_start):
-    """One restart cycle from x: (x, steps, converged), the estimates in
-    ``w.cycres``; ``red`` takes the inner products."""
-    r0 = b - mv(x)
-    r = r0 if flexible else Mv(r0)
-    beta = red.norm(r)
-    w.reset()
+def _restarted(cycle, w, mv, pres, x, b, tol, R, max_outer, callback,
+               red=LOCAL, program=None):
+    """The restart loop around ``cycle(prog, check_start)``, one restart
+    cycle on the work ``w`` from the state's x (it leaves the new x there
+    and returns ``(steps, converged)``); ``pres`` maps a residual to the
+    one the tolerance is on.  The head and tail are the steps ``init`` and
+    ``final`` of ``program`` (a ``_graph.Program``, by default an eager
+    one).  Returns ``(x, info, resbuf, nres)``."""
+    prog = Program() if program is None else program
+    prog.put("x", x)
+    prog.put("b", b)
+    st = prog.state
+
+    def init(s):
+        x, b = s["x"], s["b"]
+        normMb = red.norm(pres(b))
+        rtol = tol * torch.where(normMb == 0, 1.0, normMb)
+        npr0 = red.norm(pres(b - mv(x)))
+        resbuf = torch.zeros((max_outer * R + 1,),
+                             dtype=real_dtype(b.dtype), device=b.device)
+        resbuf[0] = npr0
+        return {"rtol": rtol, "resbuf": resbuf, "stop": npr0 < rtol}
+
+    def final(s):
+        return {"final_ok": red.norm(pres(s["b"] - mv(s["x"]))) < s["rtol"]}
+
+    prog.run("init", init)
+    it, nres, outer = 0, 1, 0
+    done = bool(st["stop"])
+    while not done and outer < max_outer:
+        j, conv = cycle(prog, outer > 0)
+        st["resbuf"][nres:nres + j] = w.cycres[:j]
+        it, nres, outer = it + j, nres + j, outer + 1
+        if callback is not None:
+            callback(st["x"])
+        done = conv or j == 0
+    prog.run("final", final)
+    info = torch.where(st["final_ok"], 0, it).to(torch.int32)
+    return st["x"], info, st["resbuf"], nres
+
+
+def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
+               orthog="cgs2", callback=None, red=LOCAL, program=None):
+    """Restarted GMRES from x with restart ``R`` and at most ``max_outer``
+    cycles: ``(x, info, resbuf, nres)``.  ``resbuf[:nres]`` holds the
+    preconditioned residual norms (the residual norms for FGMRES), the
+    initial one first; ``info`` is 0 when the final true (preconditioned)
+    residual is below ``tol`` times that of b, else the step count.
+    ``callback(x)`` is called after every cycle.  ``red``: the inner
+    products (``common.Reduction``; summed over the ranks on a row-sharded
+    level, whose Hessenberg matrix and stop flags every rank then holds
+    alike).
+
+    The loop runs steps of ``program`` (a ``_graph.Program``, by default
+    an eager one): ``init``; for each restart cycle ``begin``, the
+    Arnoldi step ``("arnoldi", j)`` for each j it reaches (the
+    orthogonalisation against the j + 1 vectors so far makes each j a
+    step of its own) and ``("update", j)``; then ``final``.  A captured
+    program returns its static x and history, which its next run
+    overwrites."""
+    if orthog not in ("cgs2", "mgs"):
+        raise ValueError(f"unknown orthog {orthog!r}")
+    prog = Program() if program is None else program
+    w = prog.static(("work", R, flexible), lambda: _Work(R, b, flexible))
     V, Z, H, g = w.V, w.Z, w.H, w.g
-    V[0] = torch.where(beta > 0, r / torch.where(beta == 0, 1, beta), 0.0)
-    g[0] = beta
-    if check_start and bool(beta < rtol):
-        return x, 0, True
-    stall = torch.zeros((), dtype=torch.int32, device=b.device)
-    j, conv = 0, False
-    while j < R:
+    dev = b.device
+
+    def begin(s):
+        r0 = s["b"] - mv(s["x"])
+        r = r0 if flexible else Mv(r0)
+        beta = red.norm(r)
+        w.reset()
+        V[0] = torch.where(beta > 0, r / torch.where(beta == 0, 1, beta),
+                           0.0)
+        g[0] = beta
+        return {"beta": beta, "start_ok": beta < s["rtol"],
+                "stall": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def arnoldi(j, s):
         if flexible:
             Z[j] = Mv(V[j])
             u = mv(Z[j])
         else:
             u = Mv(mv(V[j]))
-        col = torch.zeros((R + 1,), dtype=b.dtype, device=b.device)
+        col = torch.zeros((R + 1,), dtype=b.dtype, device=dev)
         if orthog == "mgs":
             for i in range(j + 1):
                 hi = red.dot(V[i], u)
@@ -141,60 +208,35 @@ def _cycle(mv, Mv, b, R, w, flexible, orthog, red, x, rtol, check_start):
         normr, _ = _rotate_and_estimate(col, w, j)
         # the estimate does not rise: no real drop over 4 steps is the
         # rounding floor
-        prev = w.cycres[j - 1] if j > 0 else beta
-        stall = torch.where(normr > 0.999 * prev, stall + 1, 0)
-        hit = normr < rtol
-        j += 1
-        conv, done = _read_flags(hit, hit | (unorm <= TINY) | (stall >= 4))
-        if done:
-            break
-    y = torch.linalg.solve_triangular(H[:j, :j], g[:j, None], upper=True)
-    return x + Z[:j].T @ y[:, 0], j, conv
+        prev = w.cycres[j - 1] if j > 0 else s["beta"]
+        stall = torch.where(normr > 0.999 * prev, s["stall"] + 1, 0)
+        hit = normr < s["rtol"]
+        done = hit | (unorm <= TINY) | (stall >= 4)
+        return {"stall": stall,
+                "flags": hit.to(torch.int32) + 2 * done.to(torch.int32)}
 
+    def update(j, s):
+        y = torch.linalg.solve_triangular(H[:j, :j], g[:j, None], upper=True)
+        return {"x": s["x"] + Z[:j].T @ y[:, 0]}
 
-def _restarted(cycle, w, mv, pres, x, b, tol, R, max_outer, callback,
-               norm=norm):
-    """The restart loop around ``cycle(x, rtol, check_start)`` (one
-    restart cycle on the work ``w``); ``pres`` maps a residual to the
-    one the tolerance is on.  Returns ``(x, info, resbuf, nres)``."""
-    normMb = norm(pres(b))
-    rtol = tol * torch.where(normMb == 0, 1.0, normMb)
-    npr0 = norm(pres(b - mv(x)))
-    resbuf = torch.zeros((max_outer * R + 1,), dtype=real_dtype(b.dtype),
-                         device=b.device)
-    resbuf[0] = npr0
-    it, nres, outer = 0, 1, 0
-    done = bool(npr0 < rtol)
-    while not done and outer < max_outer:
-        x, j, conv = cycle(x, rtol, outer > 0)
-        resbuf[nres:nres + j] = w.cycres[:j]
-        it, nres, outer = it + j, nres + j, outer + 1
-        if callback is not None:
-            callback(x)
-        done = conv or j == 0
-    final = norm(pres(b - mv(x)))
-    info = torch.where(final < rtol, 0, it).to(torch.int32)
-    return x, info, resbuf, nres
+    def cycle(prog, check_start):
+        st = prog.state
+        prog.run("begin", begin)
+        if check_start and bool(st["start_ok"]):
+            return 0, True
+        j, conv = 0, False
+        while j < R:
+            prog.run(("arnoldi", j), partial(arnoldi, j))
+            j += 1
+            flags = int(st["flags"])       # the one host read of a step
+            conv = bool(flags & 1)
+            if flags & 2:
+                break
+        prog.run(("update", j), partial(update, j))
+        return j, conv
 
-
-def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
-               orthog="cgs2", callback=None, red=LOCAL):
-    """Restarted GMRES from x with restart ``R`` and at most ``max_outer``
-    cycles: ``(x, info, resbuf, nres)``.  ``resbuf[:nres]`` holds the
-    preconditioned residual norms (the residual norms for FGMRES), the
-    initial one first; ``info`` is 0 when the final true (preconditioned)
-    residual is below ``tol`` times that of b, else the step count.
-    ``callback(x)`` is called after every cycle.  ``red``: the inner
-    products (``common.Reduction``; summed over the ranks on a row-sharded
-    level, whose Hessenberg matrix and stop flags every rank then holds
-    alike)."""
-    if orthog not in ("cgs2", "mgs"):
-        raise ValueError(f"unknown orthog {orthog!r}")
-    w = _Work(R, b, flexible)
-    return _restarted(partial(_cycle, mv, Mv, b, R, w, flexible, orthog,
-                              red), w,
-                      mv, (lambda r: r) if flexible else Mv, x, b, tol, R,
-                      max_outer, callback, norm=red.norm)
+    return _restarted(cycle, w, mv, (lambda r: r) if flexible else Mv, x, b,
+                      tol, R, max_outer, callback, red, prog)
 
 
 def _msign(v):
@@ -269,8 +311,8 @@ def _reflect(v, W, ks, dot=torch.vdot):
 
 
 def _householder_cycle(mv, Mv, b, R, w, rows, x, rtol, check_start):
-    """One restart cycle of Householder GMRES (the contract of
-    ``_cycle``): the basis held as a chain of reflectors, the update
+    """One restart cycle of Householder GMRES from x: ``(x, steps,
+    converged)``, the estimates in ``w.cycres``; the basis held as a chain of reflectors, the update
     mapped back by Horner's scheme.  ``rows``: global-row access to the
     vectors (``_Rows``, or ``_SplitRows`` where they are split by rows)."""
     n = rows.n
@@ -328,9 +370,15 @@ def householder_loop(mv, Mv, x, b, tol, R, max_outer, callback=None,
     leading rows and trailing norms are read by global row index."""
     w = _Work(R, b, False, householder=True)
     rows = _Rows(b) if red is LOCAL else _SplitRows(b, red)
-    return _restarted(partial(_householder_cycle, mv, Mv, b, R, w, rows), w,
-                      mv, Mv, x, b, tol, R, max_outer, callback,
-                      norm=red.norm)
+
+    def cycle(prog, check_start):
+        st = prog.state
+        st["x"], j, conv = _householder_cycle(mv, Mv, b, R, w, rows, st["x"],
+                                              st["rtol"], check_start)
+        return j, conv
+
+    return _restarted(cycle, w, mv, Mv, x, b, tol, R, max_outer, callback,
+                      red)
 
 
 def _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback, residuals,

@@ -5,13 +5,19 @@ The reference runs each iteration as one ``lax.while_loop``.  Here it is
 a Python loop over tensor ops: every scalar stays on the device, and the
 host reads one flag per iteration to decide whether to go on (and the
 final ``info`` once).  ``callback(x)`` is called after every iteration.
+``cg_loop`` is written as steps of a ``_graph.Program``, which
+``MultilevelSolver`` captures as CUDA graphs; the other methods run op by
+op.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from pyamg_tpu_torch._device import as_tensor
+from pyamg_tpu_torch._graph import Program
 from pyamg_tpu_torch.krylov.common import (
     LOCAL, as_matvec, as_precond, final_info, finalize, place, prepare,
     real_dtype, reduction, torch_dtype)
@@ -39,7 +45,7 @@ def _rtol(criteria, tol, normb, normMb, fro, x0norm):
 
 
 def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
-            stall_window=8, callback=None, red=LOCAL):
+            stall_window=8, callback=None, red=LOCAL, program=None):
     """Preconditioned CG from ``x``: ``(x_best, info, resbuf, nres)``.
 
     ``info`` is 0 on convergence, -1 on a curvature breakdown, and the
@@ -54,38 +60,55 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
     iteration.  ``red``: the inner products (``common.Reduction``;
     summed over the ranks on a row-sharded level, so that every rank reads
     the same stop flag).
+
+    The loop runs three steps of ``program`` (a ``_graph.Program``, by
+    default an eager one): ``start``, and one iteration in two forms,
+    ``plain`` and ``true`` (every 8th, the true residual); the iteration
+    count and the history index live on the device.  A captured program
+    returns its static tensors, which its next run overwrites.
     """
-    rdt = real_dtype(b.dtype)
-    normb = red.norm(b)
-    normb = torch.where(normb == 0, 1.0, normb)
-    normMb = red.norm(Mv(b)) if criteria == "MrMr" else None
-    r = b - mv(x)
-    z = Mv(r)
-    p = z
-    rz = torch.real(red.dot(r, z))
-    nr0 = red.norm(r)
-    normr0 = (nr0 if criteria != "MrMr" else red.norm(z)).to(rdt)
-    rtol = _rtol(criteria, tol, normb, normMb, fro, lambda: red.norm(x))
-    resbuf = torch.zeros((maxiter + 1,), dtype=rdt, device=b.device)
-    resbuf[0] = nr0
-    minr, imp_it, xb = normr0, torch.zeros((), dtype=torch.int32,
-                                           device=b.device), x
-    info = torch.zeros((), dtype=torch.int32, device=b.device)
-    done = bool(normr0 < rtol)
-    it = 0
-    while not done and it < maxiter:
+    prog = Program() if program is None else program
+    prog.put("x", x)
+    prog.put("b", b)
+    st = prog.state
+
+    def start(s):
+        x, b = s["x"], s["b"]
+        rdt = real_dtype(b.dtype)
+        normb = red.norm(b)
+        normb = torch.where(normb == 0, 1.0, normb)
+        normMb = red.norm(Mv(b)) if criteria == "MrMr" else None
+        r = b - mv(x)
+        z = Mv(r)
+        rz = torch.real(red.dot(r, z))
+        nr0 = red.norm(r)
+        normr0 = (nr0 if criteria != "MrMr" else red.norm(z)).to(rdt)
+        rtol = _rtol(criteria, tol, normb, normMb, fro, lambda: red.norm(x))
+        resbuf = torch.zeros((maxiter + 1,), dtype=rdt, device=b.device)
+        resbuf[0] = nr0
+        zero = torch.zeros((), dtype=torch.int32, device=b.device)
+        return {"r": r, "z": z, "p": z, "rz": rz, "normr0": normr0,
+                "rtol": rtol if isinstance(rtol, torch.Tensor) else
+                torch.full((), rtol, dtype=rdt, device=b.device),
+                "resbuf": resbuf, "minr": normr0, "imp_it": zero, "xb": x,
+                "info": zero.clone(), "it": zero.clone(),
+                "stop": normr0 < rtol}
+
+    def iteration(true_residual, s):
+        x, b, r, p, rz, minr = (s[k] for k in ("x", "b", "r", "p", "rz",
+                                               "minr"))
+        it = s["it"] + 1
         Ap = mv(p)
         pAp = torch.real(red.dot(Ap, p))
         bad_A = pAp <= 0.0
         alpha = rz / torch.where(pAp == 0, 1, pAp)
         xn = x + alpha * p
-        rn = b - mv(xn) if (it + 1) % 8 == 0 else r - alpha * Ap
+        rn = b - mv(xn) if true_residual else r - alpha * Ap
         zn = Mv(rn)
         rzn = torch.real(red.dot(rn, zn))
         bad_M = rzn < 0.0
         beta = rzn / torch.where(rz == 0, 1, rz)
         p = zn + beta * p
-        it += 1
         nrn = red.norm(rn)
         if criteria == "MrMr":
             normr = red.norm(zn)
@@ -93,25 +116,38 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
             normr = torch.sqrt(torch.clamp(rzn, min=0.0))
         else:
             normr = nrn
-        resbuf[it] = nrn
-        conv = normr < rtol
+        s["resbuf"].index_copy_(0, it.reshape(1).long(),
+                                nrn.reshape(1).to(s["resbuf"].dtype))
+        conv = normr < s["rtol"]
         better = normr < minr
-        xb = torch.where(better, xn, xb)
         improved = normr < 0.99 * minr
+        imp_it = torch.where(improved, it, s["imp_it"])
         minr = torch.where(better, normr, minr)
-        imp_it = torch.where(improved, it, imp_it)
-        stalled = (it - imp_it >= stall_window) & (minr < 0.1 * normr0) \
-            if stall_window > 0 else torch.zeros_like(conv)
-        stop = conv | bad_A | bad_M | stalled
-        info = torch.where(bad_A | bad_M, -1, torch.where(conv, 0, info))
-        x = torch.where(bad_A, x, xn)
+        stalled = (it - imp_it >= stall_window) & \
+            (minr < 0.1 * s["normr0"]) if stall_window > 0 else \
+            torch.zeros_like(conv)
+        info = torch.where(bad_A | bad_M, -1,
+                           torch.where(conv, 0, s["info"]))
+        return {"x": torch.where(bad_A, x, xn), "r": rn, "z": zn, "p": p,
+                "rz": rzn, "minr": minr, "imp_it": imp_it,
+                "xb": torch.where(better, xn, s["xb"]), "info": info,
+                "it": it, "stop": conv | bad_A | bad_M | stalled}
+
+    prog.run("start", start)
+    done = bool(st["stop"])
+    it = 0
+    while not done and it < maxiter:
+        true_residual = (it + 1) % 8 == 0
+        prog.run("true" if true_residual else "plain",
+                 partial(iteration, true_residual))
+        it += 1
         if callback is not None:
-            callback(x)
-        r, z, rz = rn, zn, rzn
-        done = bool(stop)          # the one host read of the iteration
+            callback(st["x"])
+        done = bool(st["stop"])          # the one host read of the iteration
+    info = st["info"]
     if not done and it >= maxiter and int(info) == 0:
         info = torch.full_like(info, it)
-    return xb, info, resbuf, it + 1
+    return st["xb"], info, st["resbuf"], it + 1
 
 
 def _criteria_fns(criteria, tol, b, x0, Mv, fro, allowed, red=LOCAL):

@@ -19,6 +19,16 @@ preconditioner of a Krylov method (CG, GMRES, FGMRES or any method of
 nothing on the host; the loops around them are Python over tensor ops,
 and the host reads one convergence flag per iteration.
 
+On a CUDA hierarchy, with no callback, the standalone loop, CG, GMRES,
+FGMRES and the double-single outer steps replay CUDA graphs (the JAX
+package's compiled solve programs, ``_get_accel_run``,
+``_get_standalone_run`` and ``_get_ds_refined_run``): each step of a
+loop is captured once per hierarchy and solve configuration and cached
+on the hierarchy (``_graph.py``); the host still reads one flag a step.
+The graphs read the hierarchy's tensors in place, so every method that
+replaces them drops the cache.  With a callback, on the CPU, on a sharded
+hierarchy and for the other Krylov methods the loops run op by op.
+
 A hierarchy split over the ranks of a process group
 (``parallel.shard_hierarchy``) solves the same way: each rank holds its
 block of a sharded level's vectors and the whole of a replicated one's,
@@ -35,6 +45,7 @@ import warnings
 import numpy as np
 import torch
 
+from pyamg_tpu_torch import _graph
 from pyamg_tpu_torch._device import as_tensor, resolve
 from pyamg_tpu_torch.krylov.common import finalize, reduction
 from pyamg_tpu_torch.parallel.partition import RowSharded, all_gather
@@ -262,6 +273,27 @@ class MultilevelSolver:
         self.device = None
         self._ds_op = None
 
+    # -- captured solves -----------------------------------------------------
+    def _graphs(self):
+        """The hierarchy's captured programs (``_graph.Cache``)."""
+        cache = self.__dict__.get("_graph_cache")
+        if cache is None:
+            cache = self._graph_cache = _graph.Cache()
+        return cache
+
+    def _program(self, key, captured=True):
+        """The program of solve configuration ``key``: captured on a CUDA
+        hierarchy (unless ``captured`` is False or a sharded hierarchy),
+        else a fresh eager one."""
+        return self._graphs().program(key, self.device,
+                                      captured and not self._sharded())
+
+    def _drop_graphs(self):
+        """Forget the captured programs: the tensors they read changed."""
+        cache = self.__dict__.get("_graph_cache")
+        if cache is not None:
+            cache.drop()
+
     # -- complexity ----------------------------------------------------------
     def operator_complexity(self):
         return sum(l.A.nnz for l in self.levels) / self.levels[0].A.nnz
@@ -389,6 +421,7 @@ class MultilevelSolver:
                                                    phase_stencil_from_ell)
         from pyamg_tpu_torch.sparse.sell import sell_from_ell
         from pyamg_tpu_torch.ops.transpose import transpose
+        self._drop_graphs()
         for lvl in self.levels:
             if isinstance(lvl.A, ELL):
                 D = dia_from_ell(lvl.A, max_diags=max_diags)
@@ -428,6 +461,7 @@ class MultilevelSolver:
                   if l.A.shape[0] <= max_n), len(self.levels) - 1)
         if k == 0 or k >= len(self.levels) - 1:
             return self
+        self._drop_graphs()
         Ak = self.levels[k].A
         op, err, M = inv_device_checked(Ak, device)
         if not bool(torch.isfinite(err)) or float(err) > 1e-2:
@@ -446,6 +480,7 @@ class MultilevelSolver:
         if A_fine64 is None:
             A = getattr(self.levels[0], "A_ell", self.levels[0].A)
             A_fine64 = A.astype(np.float64)
+        self._drop_graphs()
         self._ds_op = ds_operator(A_fine64, device=device)
         return self
 
@@ -457,6 +492,7 @@ class MultilevelSolver:
             raise ValueError("a sharded hierarchy lives on its mesh's "
                              "devices; shard_hierarchy placed it")
         device = resolve(device)
+        self._drop_graphs()
         for lvl in self.levels:
             for attr in ("A", "P", "R"):
                 setattr(lvl, attr, _put(getattr(lvl, attr), device))
@@ -485,7 +521,8 @@ class MultilevelSolver:
 
         ``residuals``: filled with the outer residual norms.
         ``iterations_out``: filled with ``{'outer': k, 'inner': total CG
-        iterations}``.
+        iterations}``.  On a CUDA hierarchy the outer step and the inner
+        CG replay CUDA graphs (``_graph.py``).
         """
         from pyamg_tpu_torch.krylov.methods import cg_loop
         from pyamg_tpu_torch.ops import ds as dsm
@@ -510,31 +547,60 @@ class MultilevelSolver:
         def Mv(r):
             return cyc(torch.zeros_like(r), r)
 
-        normb = torch.linalg.vector_norm(bhi)
-        normb = torch.where(normb == 0, 1.0, normb)
-        nr = torch.linalg.vector_norm(bhi)
-        hist = [nr]
-        zeros = torch.zeros_like(bhi)
-        xhi, xlo, rhi, rlo = zeros, zeros, bhi, blo
-        k = itot = 0
-        done = bool(nr <= tol * normb)
-        while not done and k < max_outer:
-            r32 = rhi / torch.where(nr == 0, 1, nr)
-            e, _, _, nit = cg_loop(mv, Mv, zeros, r32, inner_tol, "rr",
-                                   inner_maxiter)
-            xhi, xlo = dsm.ds_add_f32(xhi, xlo, nr * e)
-            rhi, rlo = dsm.ds_residual(A_ds, xhi, xlo, bhi, blo)
+        cycle = str(cycle).upper()
+        inner = self._program(("ds-cg", cycle, float(inner_tol),
+                               int(inner_maxiter)))
+        prog = self._program(("ds", cycle, float(tol), float(inner_tol),
+                              int(inner_maxiter), int(max_outer)))
+        prog.put("bhi", bhi)
+        prog.put("blo", blo)
+        st = prog.state
+
+        def start(s):
+            bhi, blo = s["bhi"], s["blo"]
+            normb = torch.linalg.vector_norm(bhi)
+            normb = torch.where(normb == 0, 1.0, normb)
+            nr = torch.linalg.vector_norm(bhi)
+            hist = torch.zeros((max_outer + 1,), dtype=nr.dtype,
+                               device=bhi.device)
+            hist[0] = nr
+            zeros = torch.zeros_like(bhi)
+            return {"normb": normb, "nr": nr, "hist": hist, "xhi": zeros,
+                    "xlo": zeros, "rhi": bhi, "rlo": blo,
+                    "r32": bhi / torch.where(nr == 0, 1, nr),
+                    "k": torch.zeros((), dtype=torch.int32,
+                                     device=bhi.device),
+                    "stop": nr <= tol * normb}
+
+        def outer(s):
+            # the inner solve's best iterate, where the CG program left it
+            e = inner.state["xb"]
+            xhi, xlo = dsm.ds_add_f32(s["xhi"], s["xlo"], s["nr"] * e)
+            rhi, rlo = dsm.ds_residual(A_ds, xhi, xlo, s["bhi"], s["blo"])
             nr = torch.linalg.vector_norm(rhi)
+            k = s["k"] + 1
+            s["hist"].index_copy_(0, k.reshape(1).long(), nr.reshape(1))
+            return {"xhi": xhi, "xlo": xlo, "rhi": rhi, "rlo": rlo, "nr": nr,
+                    "r32": rhi / torch.where(nr == 0, 1, nr), "k": k,
+                    "stop": nr <= tol * s["normb"]}
+
+        prog.run("start", start)
+        zeros = torch.zeros_like(bhi)
+        k = itot = 0
+        done = bool(st["stop"])
+        while not done and k < max_outer:
+            _, _, _, nit = cg_loop(mv, Mv, zeros, st["r32"], inner_tol, "rr",
+                                   inner_maxiter, program=inner)
+            prog.run("outer", outer)
             k += 1
             itot += nit - 1
-            hist.append(nr)
-            done = bool(nr <= tol * normb)
+            done = bool(st["stop"])
         if residuals is not None:
-            residuals[:] = torch.stack(hist).tolist()
+            residuals[:] = st["hist"][:k + 1].tolist()
         if iterations_out is not None:
             iterations_out["outer"] = k
             iterations_out["inner"] = itot
-        return dsm.ds_to_f64(xhi, xlo)
+        return dsm.ds_to_f64(st["xhi"], st["xlo"])
 
     def aspreconditioner(self, cycle="V"):
         """One ``cycle`` from a zero guess, as a linear operator with
@@ -615,6 +681,11 @@ class MultilevelSolver:
         initial one first.  Standalone cycling returns ``info`` 0 when it
         converges on the last allowed cycle.
 
+        On a CUDA hierarchy with no ``callback``, standalone cycling, CG,
+        GMRES and FGMRES replay CUDA graphs captured at their first solve
+        of this configuration (``_graph.py``): the same result bit for
+        bit, one graph launch and one flag read a step.
+
         On a sharded hierarchy (``parallel.shard_hierarchy``) every rank
         passes the whole b (and x0) and gets the whole x back, after one
         all-gather; ``residuals`` holds the global norms, the same on
@@ -630,9 +701,17 @@ class MultilevelSolver:
         b = self._scatter(b, dtype)
         x = torch.zeros_like(b) if x0 is None else self._scatter(x0, dtype)
         red = reduction(A0)
+        cycle = str(cycle).upper()
+        captured = callback is None
 
         def mv(v):
             return matvec(A0, v)
+
+        def out(prog, x):
+            """x whole, owned by the caller (a captured program's x is
+            overwritten by its next run)."""
+            x = self._gather(x)
+            return x.clone() if prog.captured else x
 
         if accel is not None:
             if accel == "cg" and not self.symmetric_smoothing:
@@ -642,50 +721,141 @@ class MultilevelSolver:
                     "CG requires SPD preconditioner, not just SPD matrix.")
             if accel in ("cg", "gmres", "fgmres"):
                 Mv = self.aspreconditioner(cycle).matvec
+                prog = self._program((accel, cycle, float(tol), int(maxiter)),
+                                     captured)
                 if accel == "cg":
                     x, info, resbuf, nres = cg_loop(
                         mv, Mv, x, b, tol, "rr", maxiter, callback=callback,
-                        red=red)
+                        red=red, program=prog)
                 else:
                     from pyamg_tpu_torch.krylov.gmres import gmres_loop
                     x, info, resbuf, nres = gmres_loop(
                         mv, Mv, x, b, tol, min(A0.shape[0], int(maxiter)), 1,
                         flexible=accel == "fgmres", callback=callback,
-                        red=red)
+                        red=red, program=prog)
                 finalize(residuals, resbuf, nres)
+                x = out(prog, x)
                 if return_info:
-                    info = int(info)
-            else:
-                if isinstance(accel, str):
-                    from pyamg_tpu_torch import krylov
-                    if accel not in krylov.__all__:
-                        raise ValueError(f"unknown accel {accel!r}")
-                    accel = getattr(krylov, accel)
-                x, info = accel(A0, b, x0=x, tol=tol, maxiter=maxiter,
-                                M=self.aspreconditioner(cycle),
-                                callback=callback, residuals=residuals)
+                    return x, int(info)
+                return x
+            if isinstance(accel, str):
+                from pyamg_tpu_torch import krylov
+                if accel not in krylov.__all__:
+                    raise ValueError(f"unknown accel {accel!r}")
+                accel = getattr(krylov, accel)
+            x, info = accel(A0, b, x0=x, tol=tol, maxiter=maxiter,
+                            M=self.aspreconditioner(cycle),
+                            callback=callback, residuals=residuals)
             x = self._gather(x)
             return (x, info) if return_info else x
 
         cyc = self._make_cycle(cycle, cycles_per_level)
-        normb = red.norm(b)
-        rtol = tol * torch.where(normb == 0, 1.0, normb)
-        nr = red.norm(b - mv(x))
-        hist = [nr]
+        prog = self._program(("standalone", cycle, int(cycles_per_level),
+                              float(tol), int(maxiter)), captured)
+        prog.put("x", x)
+        prog.put("b", b)
+        st = prog.state
+
+        def start(s):
+            b = s["b"]
+            normb = red.norm(b)
+            rtol = tol * torch.where(normb == 0, 1.0, normb)
+            nr = red.norm(b - mv(s["x"]))
+            hist = torch.zeros((maxiter + 1,), dtype=nr.dtype,
+                               device=b.device)
+            hist[0] = nr
+            return {"rtol": rtol, "hist": hist, "stop": nr < rtol,
+                    "it": torch.zeros((), dtype=torch.int32,
+                                      device=b.device)}
+
+        def one_cycle(s):
+            x = cyc(s["x"], s["b"])
+            it = s["it"] + 1
+            nr = red.norm(s["b"] - mv(x))
+            s["hist"].index_copy_(0, it.reshape(1).long(), nr.reshape(1))
+            return {"x": x, "it": it, "stop": nr < s["rtol"]}
+
+        prog.run("start", start)
         it = 0
-        done = bool(nr < rtol)
+        done = bool(st["stop"])
         while not done and it < maxiter:
-            x = cyc(x, b)
+            prog.run("cycle", one_cycle)
             it += 1
-            nr = red.norm(b - mv(x))
-            hist.append(nr)
             if callback is not None:
-                callback(x)
-            done = bool(nr < rtol)         # the one host read of the cycle
+                callback(st["x"])
+            done = bool(st["stop"])        # the one host read of the cycle
         if residuals is not None:
-            residuals[:] = torch.stack(hist).tolist()
-        x = self._gather(x)
+            residuals[:] = st["hist"][:it + 1].tolist()
+        x = out(prog, st["x"])
         return (x, 0 if done else it) if return_info else x
+
+    def _cycles(self, cycle, iterations):
+        """(program, step): ``iterations`` cycles from zero on b = 1, as
+        one step of a program of its own (not cached on the hierarchy)."""
+        if self.device is None:
+            self.to_device()
+        if self._sharded():
+            raise NotImplementedError("profile_cycle and trace_cycle of a "
+                                      "sharded hierarchy")
+        cyc = self._make_cycle(cycle)
+        A0 = self.levels[0].A
+        prog = self._graphs().transient(self.device)
+        prog.put("b", torch.ones((A0.shape[0],), dtype=A0.dtype,
+                                 device=self.device))
+
+        def step(s):
+            x = torch.zeros_like(s["b"])
+            for _ in range(iterations):
+                x = cyc(x, s["b"])
+            return {"x": x}
+
+        return prog, step
+
+    def profile_cycle(self, cycle="V", k1=10, k2=60):
+        """Wall seconds of one cycle, by the JAX package's two-point
+        measurement ``(t(k2) - t(k1)) / (k2 - k1)``, which leaves out the
+        fixed cost of a launch and its read.  Each t is the best of 3
+        replays of one captured graph of K cycles from zero (on b = 1),
+        each timed up to a synchronise; on the CPU the same loops run op
+        by op."""
+        import time as _time
+        cuda = self.device is not None and self.device.type == "cuda"
+
+        def timed(K):
+            prog, step = self._cycles(cycle, K)
+            prog.run("cycles", step)           # capture outside the timing
+            ts = []
+            for _ in range(3):
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+                t0 = _time.perf_counter()
+                prog.run("cycles", step)
+                float(prog.state["x"][0])
+                ts.append(_time.perf_counter() - t0)
+            return min(ts)
+
+        return (timed(k2) - timed(k1)) / (k2 - k1)
+
+    def trace_cycle(self, path, cycle="V", iterations=10):
+        """Record one replay of a captured graph of ``iterations`` cycles
+        (from zero, on b = 1) under ``torch.profiler`` (CPU and, on a card,
+        CUDA activity) and write it as a Chrome trace, ``cycle_trace.json``,
+        into the directory ``path`` (view it in Perfetto or
+        chrome://tracing).  Returns ``path``.  On the CPU the cycles run op
+        by op."""
+        import os
+        from torch.profiler import ProfilerActivity, profile
+        prog, step = self._cycles(cycle, iterations)
+        prog.run("cycles", step)               # capture outside the trace
+        cuda = self.device.type == "cuda"
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
+                                         else [])
+        with profile(activities=acts) as prof:
+            prog.run("cycles", step)
+            float(prog.state["x"][0])
+        os.makedirs(path, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(path, "cycle_trace.json"))
+        return path
 
     def solve_refined(self, b, A_fine=None, tol=1e-10, inner_tol=1e-5,
                       inner_maxiter=30, max_outer=10, cycle="V", accel="cg",
@@ -710,7 +880,7 @@ class MultilevelSolver:
             A_fine = getattr(self.levels[0], "A_ell", self.levels[0].A)
         if not sp.issparse(A_fine):
             A_fine = to_scipy(A_fine)
-        As = A_fine.astype(np.float64)
+        As = A_fine.astype(np.float64, copy=False)
         if self.device is None:
             self.to_device()
         b64 = np.asarray(b, np.float64).reshape(-1)
@@ -826,6 +996,9 @@ class MultilevelSolver:
             op = _put(op, self.device)
             pre, post = (sm[:2] + (_put(sm[2], self.device),)
                          for sm in (pre, post))
+        self._drop_graphs()
+        if getattr(self, "_f64_twin", None) is not None:
+            self._f64_twin._drop_graphs()
         lvl.A, lvl.pre, lvl.post = op, pre, post
         self._ds_op = None
         self._f64_twin = None

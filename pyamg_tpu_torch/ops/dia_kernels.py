@@ -41,7 +41,8 @@ raises; given CPU tensors it runs the plain version.  Each wrapper's
 ``launches`` counts the kernels it launched (one per K1 product and one
 per K2 sweep and column of x), and its ``by_op`` the same per operator,
 keyed by ``(n, ndiag)``; ``dia_gs_sweep.passes`` counts the color passes
-K2 ran, keyed the same.
+K2 ran, keyed the same.  The counts go through ``_graph.on_replay``, so
+a launch recorded in a CUDA graph counts on every replay of the graph.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ import os
 
 import torch
 
+from .. import _graph
 from .._native.build import cuda_library
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
@@ -88,8 +90,7 @@ def bind(path):
     entry points typed for ctypes, and ``spmv_capacity``: the most
     offsets a K1 launch takes by value."""
     lib = ctypes.CDLL(path)
-    vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_uint)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         spmv = getattr(lib, f"pyamg_dia_spmv_{suffix}")
         spmv.restype = i32
@@ -98,7 +99,7 @@ def bind(path):
         gs = getattr(lib, f"pyamg_dia_gs_sweep_{suffix}")
         gs.restype = i32
         gs.argtypes = [vp, i32, i64, vp, i32, vp, vp, vp, vp, i32, real,
-                       vp, vp, vp, vp, vp, u32, i32, i32, i32, i32, i32,
+                       vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                        i32, i32, vp]
     lib.pyamg_dia_spmv_capacity.restype = i32
     lib.pyamg_dia_spmv_capacity.argtypes = []
@@ -249,9 +250,13 @@ def dia_spmv(data, offsets, n, x):
         data.data_ptr(), len(offs), data.shape[1], _host_ints(offs), far, n,
         k, x.data_ptr(), y.data_ptr(), g.threads, g.blocks, _stream(dev)),
         "dia_spmv")
-    dia_spmv.launches += 1
-    dia_spmv.by_op[(n, len(offs))] += 1
+    _graph.on_replay(functools.partial(_count_spmv, (n, len(offs))))
     return y
+
+
+def _count_spmv(key):
+    dia_spmv.launches += 1
+    dia_spmv.by_op[key] += 1
 
 
 dia_spmv.launches = 0
@@ -358,41 +363,80 @@ def gs_geometry(n, ndiag, halo, itemsize, sms=SM_COUNT, max_smem=MAX_SMEM):
     return _gs_shape(n, sms, ndiag, halo, itemsize, False)
 
 
-class _Exchange:
-    """What K2's launches on one stream share: the pass counters
-    (``FLAG_BLOCKS`` int32), the tagged words (grown to the largest need
-    seen, zeroed when made) and the epoch, which every launch raises past
-    all the counter values and tags it writes."""
+EPOCH_RESTART = 1 << 31     # the host's epoch at which K2 starts afresh
 
-    def __init__(self, device):
+
+class _Exchange:
+    """What K2's launches share: the pass counters (``FLAG_BLOCKS``
+    int32), the tagged words (grown to the largest need seen, zeroed when
+    made) and ``ctl``, two int32 in device memory: the epoch and the count
+    of a launch's blocks that finished.  A launch reads its epoch from
+    ``ctl`` and its last block raises it past every counter value and tag
+    the launch wrote, so a launch recorded in a CUDA graph takes a new
+    epoch on every replay, and eager launches and replays can take turns.
+
+    ``epoch`` is the host's count of the same: every launch, eager or
+    replayed, reserves its epochs first (``reserve``), and once the count
+    reaches ``EPOCH_RESTART`` the counters, words and epoch start afresh
+    (between two launches, on the stream).  A replay reserves its launches
+    one by one before it starts, while the device's epoch rises by all of
+    them; so a restart among those reservations leaves the host's count
+    behind the device's by one graph's passes at most, and restarting at
+    2**31 keeps the device's epoch far below 2**32.
+
+    ``keep``: the exchange of a hierarchy's graphs (``_graph.owned``), whose
+    graphs hold the addresses of every words buffer they recorded: one that
+    the words outgrow is kept (and cleared on a restart), not freed."""
+
+    def __init__(self, device, keep=False):
         self.device = device
         self.flags = torch.zeros(FLAG_BLOCKS, dtype=torch.int32,
                                  device=device)
         self.words = torch.zeros(0, dtype=torch.int64, device=device)
+        self.retired = [] if keep else None
+        self.ctl = torch.zeros(2, dtype=torch.int32, device=device)
+        self.ctl[0] = 1
         self.epoch = 1
 
     def words_for(self, count):
         if self.words.numel() < count:
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "K2's tagged words would grow during a CUDA graph "
+                    "capture; run the step once before capturing it")
+            if self.retired is not None and self.words.numel():
+                self.retired.append(self.words)
             self.words = torch.zeros(count, dtype=torch.int64,
                                      device=self.device)
         return self.words
 
-    def begin(self, passes):
-        """The epoch of a launch of ``passes`` passes; the next launch's
-        lies past every counter value and tag this one writes."""
-        if self.epoch + passes + 1 >= 1 << 32:     # start afresh
+    def reserve(self, passes):
+        """Account for a launch of ``passes`` passes before it runs: the
+        device's epoch will rise by ``passes + 1``."""
+        if self.epoch + passes + 1 >= EPOCH_RESTART:     # start afresh
             self.flags.zero_()
-            self.words.zero_()
+            for words in [self.words] + (self.retired or []):
+                words.zero_()
+            self.ctl.zero_()
+            self.ctl[0] = 1
             self.epoch = 1
-        epoch = self.epoch
         self.epoch += passes + 1
-        return epoch
 
 
 _EXCHANGES = {}
 
 
 def _exchange(device, stream):
+    """The exchange of a launch on ``stream``: while a hierarchy's program
+    warms up or records a graph, the one its cache owns (kept as long as
+    its graphs, shared by nothing else); otherwise the stream's."""
+    owned = _graph.owned()
+    if owned is not None:
+        key = ("dia_gs_exchange", device)
+        if key not in owned:
+            owned[key] = _Exchange(device, keep=True)
+        return owned[key]
     key = (device, stream)
     if key not in _EXCHANGES:
         _EXCHANGES[key] = _Exchange(device)
@@ -427,6 +471,7 @@ def _gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega,
     elif len(order) > 1:
         scratch = torch.empty_like(x)
     fn = getattr(lib or _lib(), f"pyamg_dia_gs_sweep_{_suffix(data.dtype)}")
+    _graph.on_replay(functools.partial(ex.reserve, len(order)))
     rc = fn(data.data_ptr(), len(offsets), data.shape[1],
             _device_ints(offsets, dev).data_ptr(), n, b.data_ptr(),
             Dinv.data_ptr(), colors.data_ptr(),
@@ -434,7 +479,7 @@ def _gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega,
             x.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             None if words is None else words.data_ptr(),
-            ex.flags.data_ptr(), ex.begin(len(order)), int(g.staged),
+            ex.flags.data_ptr(), ex.ctl.data_ptr(), int(g.staged),
             g.blocks, g.threads, g.rows, g.reach, g.halo, g.smem, stream)
     _check(rc, "dia_gs_sweep")
     return out
@@ -463,12 +508,16 @@ def dia_gs_sweep(data, offsets, n, x, b, Dinv, colors, order, omega=1.0):
     def one(xc, bc):
         out = _gs_launch(g, data, offsets, n, xc, bc, Dinv, colors, order,
                          omega)
-        dia_gs_sweep.launches += 1          # one kernel per sweep
-        dia_gs_sweep.by_op[key] += 1
-        dia_gs_sweep.passes[key] += len(order)
+        _graph.on_replay(functools.partial(_count_gs, key, len(order)))
         return out
 
     return _columns(one, x, b)
+
+
+def _count_gs(key, passes):
+    dia_gs_sweep.launches += 1          # one kernel per sweep
+    dia_gs_sweep.by_op[key] += 1
+    dia_gs_sweep.passes[key] += passes
 
 
 @functools.cache

@@ -36,7 +36,8 @@ wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version.  ``sell_spmv.launches`` counts one per
 product, ``sell_gs_sweep.launches`` one per directional sweep; each
 wrapper's ``by_plan`` counts the same launches per plan, keyed by
-``plan_key``.
+``plan_key``; both count through ``_graph.on_replay``, so a launch
+recorded in a CUDA graph counts on every replay.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import os
 import numpy as np
 import torch
 
+from .. import _graph
 from .._native.build import cuda_library
 from ..sparse.sell import LANE, SELL
 
@@ -328,9 +330,13 @@ def sell_spmv(A, x):
         x.data_ptr(), y.data_ptr(), g.slabs, g.groups, g.cluster, g.chunk, g.rounds,
         g.buffers, g.smem, torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(rc, "sell_spmv")
-    sell_spmv.launches += 1
-    sell_spmv.by_plan[plan_key(A)] += 1
+    _graph.on_replay(functools.partial(_count, sell_spmv, plan_key(A)))
     return y
+
+
+def _count(kernel, key):
+    kernel.launches += 1
+    kernel.by_plan[key] += 1
 
 
 sell_spmv.launches = 0
@@ -394,8 +400,8 @@ def sell_gs_sweep(A, x, b, Dinv, omega=1.0, sweep="forward"):
             float(omega), reverse, out.data_ptr(), g.tiles, g.groups,
             g.chunk, g.stages, int(g.x_shared), g.smem, stream)
         _launch_check(rc, "sell_gs_sweep")
-        sell_gs_sweep.launches += 1       # one kernel per direction
-        sell_gs_sweep.by_plan[plan_key(A)] += 1
+        # one kernel per direction
+        _graph.on_replay(functools.partial(_count, sell_gs_sweep, plan_key(A)))
     return out[:A.shape[0]]
 
 

@@ -395,6 +395,7 @@ def shard_hierarchy(ml, mesh: RowMesh, replicate_below=2048, spmv="gspmd"):
     returns ml."""
     if spmv not in ("gspmd", "halo"):
         raise ValueError(f"unknown spmv {spmv!r}: 'gspmd' or 'halo'")
+    ml._drop_graphs()
     levels = ml.levels
     sharded = [l.A.shape[0] > replicate_below and isinstance(l.A, ELL)
                for l in levels]

@@ -343,7 +343,10 @@ def smoothing_is_symmetric(levels):
 def change_smoothers(ml, presmoother, postsmoother):
     """Attach smoother descriptors to every level but the coarsest, keep
     each level's specs in ``smoother_specs``, and set
-    ``ml.symmetric_smoothing``."""
+    ``ml.symmetric_smoothing``; the hierarchy's captured solves, which read
+    the old smoothers, are dropped."""
+    if hasattr(ml, "_drop_graphs"):
+        ml._drop_graphs()
     npre = len(ml.levels) - 1
     if npre == 0:
         ml.symmetric_smoothing = True

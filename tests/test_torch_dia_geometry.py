@@ -18,6 +18,17 @@ its own rows and, as of the previous pass, the rows it polls (staged) or
 those of the blocks it waits for (device), and NaN from every other row.
 The result must equal ``dia_gs_sweep_plain`` bit for bit.
 
+Across launches: K2's tagged words and pass counters outlive a launch,
+and a CUDA graph replays its launches as it recorded them.  The exchange
+memory is emulated over a sequence of launches (each block runs as far as
+its waits let it, in block order): one recorded launch replayed twice,
+with eager launches on a smaller operator between the replays.  With the
+epoch read from device memory and raised by each launch (the kernel's
+``ctl``), no stale word or counter is read and every launch equals
+``dia_gs_sweep_plain`` bit for bit; with the epoch baked into the
+recorded launch, the same sequence reads words and counters that the
+previous replay or an eager launch left, in both regimes.
+
 The Ruge-Stuben path on 2-D Poisson 500^2 runs K2 on bands no SA path
 has: its DIA levels are built here at full size from the port's own
 hierarchy, and their launch shapes checked; level 1 (125,000 rows, 11
@@ -283,6 +294,233 @@ def test_blocked_sweep_equals_plain(operators, op, omega, dtype):
     for g in shapes:
         got = _emulate(g, D, x, b, Dinv, colors, order, omega)
         assert torch.equal(got, want), (name, g)
+
+
+# -- the exchange across launches: replayed epochs ---------------------------
+
+class _Memory:
+    """K2's exchange memory as launches leave it: the tagged words of the
+    two buffers (row -> (tag, value, writer)), the pass counters (block ->
+    value), the epoch in device memory (``ctl``), and each operator's x
+    buffers of the regime that reads the band each pass (name -> buffer ->
+    row -> (value, writer); a graph's buffers keep their addresses)."""
+
+    def __init__(self):
+        self.words = ({}, {})
+        self.flags = {}
+        self.epoch = 1
+        self.x = {}
+
+
+def _launch(mem, g, op, x0, b, order, omega, epoch, writer):
+    """Emulate one K2 launch of geometry g on operator ``op`` (name, DIA,
+    colors, Dinv) at ``epoch``: each block, in block order, runs every pass
+    its waits allow; a staged block polls its words until their tag is
+    ``epoch + pass``, a block of the other regime waits until each
+    neighbour's counter has reached ``epoch + pass``.  Returns (x, the
+    stale reads: words or rows that the launch took as its own but an
+    earlier launch or pass wrote)."""
+    name, D, colors, Dinv = op
+    n, last = D.shape[0], len(order) - 1
+    ranges = [g.row_range(k, n) for k in range(g.blocks)]
+    cur = [x0[lo:hi].clone() for lo, hi in ranges]
+    bufs = mem.x.setdefault(name, ({}, {}))
+    done = [0] * g.blocks
+    out = torch.empty_like(x0)
+    stale = []
+
+    def view_of(k, q):
+        """The x block k computes pass q from, or None while it waits."""
+        lo, hi = ranges[k]
+        view = torch.full_like(x0, float("nan"))
+        if g.staged:
+            view[lo:hi] = cur[k]
+            for a, e in dk.staged_reads(D.offsets, lo, hi, g.halo, n):
+                for r in range(a, e):
+                    if q == 0:
+                        view[r] = x0[r]
+                        continue
+                    tag, value, who = mem.words[q & 1].get(r, (0, 0.0, None))
+                    if tag != epoch + q:
+                        return None
+                    if who != (writer, q):
+                        stale.append(("word", r, q))
+                    view[r] = value
+            return view
+        if q == 0:
+            return x0.clone()
+        for j in g.waits_for(k):
+            diff = (mem.flags.get(j, 0) - (epoch + q)) & 0xFFFFFFFF
+            if diff >= 1 << 31:                 # signed: still behind
+                return None
+        src = bufs[(last - q + 1) & 1]
+        for j in [k] + g.waits_for(k):
+            a, e = ranges[j]
+            for r in range(a, e):
+                value, who = src.get(r, (0.0, None))
+                if who != (writer, q - 1):
+                    stale.append(("row", r, q))
+                view[r] = value
+        return view
+
+    progress = True
+    while min(done) <= last and progress:
+        progress = False
+        for k in range(g.blocks):
+            while done[k] <= last:
+                q = done[k]
+                view = view_of(k, q)
+                if view is None:
+                    break
+                lo, hi = ranges[k]
+                new = dk.dia_gs_sweep_plain(D.data, D.offsets, n, view, b,
+                                            Dinv, colors, [order[q]],
+                                            omega)[lo:hi]
+                cur[k] = new
+                if q == last:
+                    out[lo:hi] = new
+                elif g.staged:
+                    for r in range(lo, hi):
+                        if r < lo + g.halo or r >= hi - g.halo:
+                            mem.words[(q + 1) & 1][r] = (
+                                epoch + q + 1, float(new[r - lo]),
+                                (writer, q + 1))
+                else:
+                    dst = bufs[(last - q) & 1]
+                    for r in range(lo, hi):
+                        dst[r] = (float(new[r - lo]), (writer, q))
+                    mem.flags[k] = epoch + q + 1
+                done[k] += 1
+                progress = True
+    assert min(done) > last, f"no block can go on at passes {done}"
+    return out, stale
+
+
+def _replayed_sequence(staged, scheme, order):
+    """A recorded launch on a 2304-row band replayed twice, with two eager
+    launches on a 1152-row band between the replays, on one exchange.
+    ``scheme``: 'device' (each launch reads and raises the epoch in
+    device memory) or 'baked' (the recorded launch keeps the epoch the
+    host gave it while it was recorded); ``order``: the color passes.
+    Returns (every launch's x against the plain version, the stale
+    reads)."""
+    offsets = (-48, -1, 0, 1, 48)
+    big, small = _band(2304, offsets, 3), _band(1152, offsets, 4)
+    ops = {"big": big, "small": small}
+    geo = {"big": dk._gs_shape(2304, 8, 5, 48, 4, staged),
+           "small": dk._gs_shape(1152, 4, 5, 48, 4, staged)}
+    mem = _Memory()
+    host = [1]                       # the host's epoch (eager launches)
+
+    def run(which, seed, recorded=None):
+        _, D, colors, _, Dinv = ops[which]
+        n = D.shape[0]
+        rng = np.random.default_rng(seed)
+        x0 = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+        b = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+        if scheme == "device":
+            epoch = mem.epoch
+            mem.epoch += len(order) + 1
+        elif recorded is not None:
+            epoch = recorded
+        else:
+            epoch = host[0]
+            host[0] += len(order) + 1
+        got, stale = _launch(mem, geo[which], (which, D, colors, Dinv), x0,
+                             b, order, 1.0, epoch, object())
+        want = dk.dia_gs_sweep_plain(D.data, D.offsets, n, x0, b, Dinv,
+                                     colors, order, 1.0)
+        return torch.equal(got, want), stale
+
+    results, stale = [], []
+    run("big", 0)                    # the warm-up before the capture
+    recorded = host[0]               # the epoch the capture would bake
+    host[0] += len(order) + 1
+    for seed in (1, 2):              # replay, eager, eager, replay
+        for which, s, rec in (("big", seed, recorded),
+                              ("small", 10 + seed, None),
+                              ("small", 20 + seed, None)):
+            ok, st = run(which, s, rec)
+            results.append(ok)
+            stale += st
+    return results, stale
+
+
+# a symmetric sweep of 2 colors (3 passes, as on 500^2 level 0) and of 4
+ORDERS = ([0, 1, 0], [0, 1, 2, 3, 2, 1, 0])
+
+
+@pytest.mark.parametrize("order", ORDERS, ids=len)
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "device"])
+def test_replayed_launches_read_no_stale_word_or_counter(staged, order):
+    results, stale = _replayed_sequence(staged, "device", order)
+    assert stale == [] and all(results)
+
+
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "device"])
+def test_baked_epochs_read_stale_words_and_counters(staged):
+    """Without the epoch in device memory, the harness sees the hazard:
+    the second replay takes the first replay's words (staged; with 3
+    passes a word's last tag is one a replay polls for again) or passes
+    counters an earlier launch raised (the other regime)."""
+    _, stale = _replayed_sequence(staged, "baked", ORDERS[0])
+    assert stale, "the harness did not see a stale read"
+
+
+def test_exchange_starts_afresh_before_the_epoch_wraps():
+    ex = dk._Exchange(torch.device("cpu"))
+    assert ex.epoch == 1 and ex.ctl.tolist() == [1, 0]
+    ex.words_for(16).fill_(7)
+    ex.flags.fill_(5)
+    ex.reserve(7)
+    assert ex.epoch == 9 and ex.words.sum() > 0
+    ex.epoch = dk.EPOCH_RESTART - 5
+    ex.ctl[0] = 123
+    ex.reserve(7)                      # reaches the restart: start afresh
+    assert ex.epoch == 9 and ex.ctl.tolist() == [1, 0]
+    assert not ex.words.any() and not ex.flags.any()
+
+
+def test_a_restart_within_a_replay_keeps_the_device_below_2_32():
+    """A replay reserves its launches one by one before it starts, and a
+    restart among them sets the device's epoch to 1 before the whole
+    replay: the device then runs ahead of the host's count by the passes
+    reserved before the restart, at most one graph's, which the restart
+    point leaves room for."""
+    ex = dk._Exchange(torch.device("cpu"))
+    passes = [3, 7, 1] * 400               # one graph's K2 launches
+    total = sum(p + 1 for p in passes)
+    ex.epoch = device = dk.EPOCH_RESTART - total // 2
+    restarts = 0
+    for _ in range(4):
+        ex.ctl[0] = 5                      # the device's epoch, not 1
+        for p in passes:
+            ex.reserve(p)
+        if int(ex.ctl[0]) == 1:            # restarted before the replay
+            device, restarts = 1, restarts + 1
+        device += total                    # what the replay's launches add
+        assert device - ex.epoch <= total and device + total < 1 << 32
+    assert restarts == 1
+
+
+def test_outgrown_words_of_a_recorded_exchange_are_kept():
+    """Growth after a capture frees no buffer a graph recorded: the
+    exchange of a hierarchy's graphs keeps what its words outgrow and
+    clears it on a restart; the stream's exchange lets it go."""
+    ex = dk._Exchange(torch.device("cpu"), keep=True)
+    small = ex.words_for(8)
+    small.fill_(3)
+    big = ex.words_for(32)
+    assert big is not small and len(ex.retired) == 1
+    assert ex.retired[0] is small and bool((small == 3).all())
+    big.fill_(4)
+    ex.epoch = dk.EPOCH_RESTART - 2
+    ex.reserve(1)
+    assert not small.any() and not big.any()
+    ex = dk._Exchange(torch.device("cpu"))
+    ex.words_for(8)
+    ex.words_for(32)
+    assert ex.retired is None
 
 
 # -- the Ruge-Stuben 500^2 path's DIA levels ----------------------------------
