@@ -150,26 +150,46 @@ Phases, each printed on its own lines:
    must equal the NCCL one bit for bit.
 
 Every solve of phases 3-10 but S5 (BiCGStab, which stays op by op)
-replays CUDA graphs (``pyamg_tpu_torch/_graph.py``); each prints
-``capture:`` lines beside its phase's (``capture_gate``): the same solve
-op by op (``_graph.eager()``) must equal the captured cold solve bit for
-bit (x, residual history, iterations) with equal launches per kernel,
-operator and color pass; then the graphs captured and their capture
-time, the captured and op-by-op warm medians (of 3 op by op where one
-solve takes over a second), one profiled op-by-op solve and
-``profile_cycle`` beside the captured median per iteration.  Phase 2 also
-replays a graph of 4 K2 sweeps 3 times with eager sweeps between, on
-the graph's exchange and on the stream's (``k2_replay_gate``; 500^2
-level 0 staged, 64^3 A0), each to 0; phase 5
-gates ``profile_cycle`` on 500^2 (positive, below the captured solve's
-time an iteration) and ``trace_cycle``, whose trace
-(``pyamg_tpu_torch/_build/cycle_trace``) must show K2's kernel.
+replays CUDA graphs (``pyamg_tpu_torch/_graph.py``): standalone cycling,
+CG and the double-single refined solve as one graph with their loops on
+the device (a WHILE node; one host read a solve), GMRES and FGMRES one
+graph a step.  Each prints ``capture:`` lines beside its phase's
+(``capture_gate``): the same solve op by op (``_graph.eager()``) and one
+graph a step (``_graph.per_step()``) must equal the captured cold solve
+bit for bit (x, residual history, iterations) with equal launches per
+kernel, operator and color pass; a device-stopped solve must make one
+host sync (each inner solve of ``solve_refined`` one); then the graphs
+captured and their capture time, the warm medians of the three forms,
+one profiled op-by-op solve and ``profile_cycle`` beside the captured
+median per iteration.  The phases' own profiles of a captured solve run
+it one graph a step, since the profiler may not see the kernels inside a
+conditional node's body.  Phase 2 also replays a graph of 4 K2 sweeps 3
+times with eager sweeps between, on the graph's exchange and on the
+stream's, and a device loop of K2 sweeps (K2 inside a WHILE body)
+stopped after 3, 8 and 5 sweeps, an eager sweep after each
+(``k2_replay_gate``; 500^2 level 0 staged, 64^3 A0), each to 0, the
+host's epoch at or above the device's; phase 5 gates ``profile_cycle``
+on 500^2 (positive, below the captured solve's time an iteration) and
+``trace_cycle``, whose trace (``pyamg_tpu_torch/_build/cycle_trace``)
+must show K2's kernel.
+
+Phase 10b, ``classical2:`` (``classical2_phase``), builds block AIR on
+2-D linear elasticity 100^2 (BSR 2 x 2) and complex RS and AIR on
+Poisson 256^2 times 1 + 0.5i (complex128), uncompressed, gates their
+rows, blocksizes, layouts and operator complexity against
+``JAX_CLASSICAL2`` (``tests/jax_classical2_reference.py``), and solves
+each by GMRES to 1e-8 (block AIR with its default F/C Jacobi and with
+block Jacobi, the JAX package's reference) and by 10 device-stopped
+standalone cycles: every solve the same bit for bit in its three forms,
+no K1-K5 launch, iterations within 1 of the JAX package's, the true
+relative residual of the complex paths at most twice its.
 
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
 non-zero before printing a result.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -501,6 +521,32 @@ DIST_TOL = {
                   "nnz": (0.095, 0), "omega": 0.06, "omega_coarsest": 0.045,
                   "operator_complexity": 4.7e-4}}
 
+# the JAX package's block and complex classical paths (JAX_PLATFORMS=cpu
+# PYTHONPATH=.:tests python tests/jax_classical2_reference.py): block AIR
+# on 2-D linear elasticity 100^2 (BSR 2 x 2, float64, block Jacobi
+# post-smoothing: the JAX package's fc_jacobi raises on a block level),
+# complex RS and AIR on poisson((256, 256)) * (1 + 0.5j) in complex128;
+# GMRES to 1e-8 from b = default_rng(0)
+_ELL3 = ["ELL", "ELL", "ELL"]
+_ELL_LAST = ["ELL", "NoneType", "NoneType"]
+JAX_CLASSICAL2 = {
+    "BAIR": {"rows": [20000, 5000, 3052, 1356, 622, 327, 164, 77, 37, 18],
+             "blocksizes": [[2, 2]] + [[1, 1]] * 9,
+             "operator_complexity": 3.3205120264852934,
+             "layouts": [["BELL", "BELL", "BELL"]] + [_ELL3] * 8 +
+             [_ELL_LAST],
+             "iterations": 99, "true_relres": 1.0163236464198251e-07},
+    "CRS": {"rows": [65536, 32768, 8252, 2080, 527, 135, 27, 6],
+            "blocksizes": [[1, 1]] * 8,
+            "operator_complexity": 2.196931940634796,
+            "layouts": [_ELL3] * 7 + [_ELL_LAST],
+            "iterations": 6, "true_relres": 1.6633950397547912e-08},
+    "CAIR": {"rows": [65536, 32768, 8258, 2081, 548, 217, 99, 47, 23, 8],
+             "blocksizes": [[1, 1]] * 10,
+             "operator_complexity": 2.5652919278996866,
+             "layouts": [_ELL3] * 9 + [_ELL_LAST],
+             "iterations": 37, "true_relres": 1.4164101800200272e-08}}
+
 SA_INNER_CAP = 60
 # the classical operators whose K3 case also takes an x holding inf and NaN
 CLASSICAL_NON_FINITE = {("RS", "P0"), ("RS", "R0"), ("AIR", "R0")}
@@ -711,13 +757,16 @@ def non_finite(x):
 
 
 def build_kernels():
-    """Build every CUDA source of the port at once (one nvcc each)."""
+    """Build every CUDA source of the port at once (one nvcc each): the
+    kernels and the conditional graph nodes of the device loops."""
     from concurrent.futures import ThreadPoolExecutor
+    from pyamg_tpu_torch import _graph
     from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
-    with ThreadPoolExecutor(2) as pool:
-        futures = [(m.__name__.rsplit(".", 1)[-1], pool.submit(m.build))
-                   for m in (dia_kernels, sell_kernels)]
-        return {name: f.result() for name, f in futures}
+    builds = {"dia_kernels": dia_kernels.build,
+              "sell_kernels": sell_kernels.build, "graph_cond": _graph.build}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in builds.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def build_sa3d(N, **kw):
@@ -763,9 +812,14 @@ def csr_on(S, device, dtype=None):
 
 def profiled(fn):
     """Run ``fn`` once under torch.profiler: (wall us, device busy us,
-    device ops [(name, start, end)], host syncs)."""
+    device ops [(name, start, end)], host syncs).  A host sync is an
+    ``aten::_local_scalar_dense`` (a flag or scalar read) or a solve
+    loop's one read of its result (``_graph.READ_SCOPE``).  The profiler
+    may not see the kernels that run inside a conditional node's body (a
+    device-stopped loop): busy time is then that of the rest alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from pyamg_tpu_torch._graph import READ_SCOPE
     for k in range(TRACE_TRIES):    # as device_events: a trace with no
         if k:                       # device operation is taken again
             time.sleep(TRACE_PAUSE_S)
@@ -779,7 +833,7 @@ def profiled(fn):
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 ops.append((e.name, e.time_range.start, e.time_range.end))
-            elif e.name == "aten::_local_scalar_dense":
+            elif e.name in ("aten::_local_scalar_dense", READ_SCOPE):
                 syncs += 1
         if ops:
             break
@@ -932,8 +986,8 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
               f"{statistics.median(walls) * 1e3:.3f} ms (all "
               f"{[round(w * 1e3, 3) for w in walls]}), launches per solve "
               f"{launches}, per operator {per_op}")
-        print_profile(f"{name} captured", *profiled(lambda: run([])),
-                      phase="solvers")
+        print_profile(f"{name} captured per step",
+                      *profiled(per_step(lambda: run([]))), phase="solvers")
         if captured is not None:
             def replayed(run=run):
                 r = []
@@ -945,7 +999,8 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
             capture_gate("solvers", name, captured[0], replayed,
                          (x_cold, res, info if name == "S6" else
                           (info, len(res) - 1)), counts,
-                         statistics.median(walls), captured[1], reps)
+                         statistics.median(walls), captured[1], reps,
+                         (lambda it: 1) if name in ("S3", "S4") else None)
         want = jax_counts[name]
         if name == "S6":
             check(its[0] == want[0] and len(its[1]) == len(want[1]) and
@@ -991,63 +1046,107 @@ def total_iterations(it):
     return it
 
 
+def per_step(fn):
+    """``fn`` run with a captured solve's loops on the host, one graph a
+    step (``_graph.per_step()``), as the solves ran before their stop
+    moved onto the device."""
+    from pyamg_tpu_torch import _graph
+
+    def run(*args, **kwargs):
+        with _graph.per_step():
+            return fn(*args, **kwargs)
+    return run
+
+
 def capture_gate(phase, tag, ml, run, captured, counts, median_s, cycle="V",
-                 reps=5):
+                 reps=5, reads=None):
     """Replay against dispatch on one path.  ``run()`` solves once and
     returns (x, residual history, iterations); ``captured`` is what the
-    path's captured cold solve returned and ``counts`` the kernels'
-    counters read around it (set to 0 just before).  The same solve op by
-    op (``_graph.eager()``, counters set to 0 around it) must give the
-    same x, history and iterations bit for bit and the same launches per
-    kernel, operator and color pass.  Then the op-by-op warm median (of
-    ``reps``, 3 where one solve takes over a second), one profiled
-    op-by-op solve, the graphs the hierarchy captured and their capture
-    time, and ``profile_cycle(cycle)`` beside the captured median over the
-    iterations.  Returns (op-by-op median seconds, profile_cycle
-    seconds)."""
+    path's captured cold solve (its default form: device-stopped where
+    the solve's loops are CG, standalone cycling or the double-single
+    refined solve) returned and ``counts`` the kernels' counters read
+    around it (set to 0 just before).  The same solve op by op
+    (``_graph.eager()``) and with one graph a step (``per_step``),
+    counters set to 0 around each, must give the same x, history and
+    iterations bit for bit and the same launches per kernel, operator and
+    color pass.  Then the warm medians of the three forms (the default
+    and the per-step form taken in turn, ``reps`` each, 3 where one solve
+    takes over 0.3 s, and op by op, 3 where one takes over a second), one
+    profiled op-by-op solve, and where ``reads`` is given the host syncs
+    of one profiled default solve, which must equal ``reads(iterations)``
+    (one a device-stopped solve; the callers profile the per-step form
+    themselves, as the profiler may not see the kernels in a conditional
+    body), the graphs
+    the hierarchy captured and their capture time, and
+    ``profile_cycle(cycle)`` beside the default median over the
+    iterations (``median_s``, the caller's own median of the default
+    form, is printed beside).  Returns (op-by-op median seconds,
+    profile_cycle seconds)."""
     import torch
     from pyamg_tpu_torch import _graph
-    reset_kernel_launches()
-    with _graph.eager():
-        t0 = time.perf_counter()
-        xe, re, ie = run()
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-    ce = counters()
     xc, rc, ic = captured
-    xc, xe = (np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
-              for v in (xc, xe))
-    diff = float(np.max(np.abs(xc - xe))) if xc.shape == xe.shape else \
-        float("inf")
-    print(f"capture: {phase} {tag} op by op: x max |captured - op by op| "
-          f"{diff:.3e}, residuals equal {rc == re}, iterations {ic} / {ie}, "
-          f"launches equal {ce == counts}")
-    check(xc.shape == xe.shape and np.array_equal(xc, xe) and rc == re and
-          ic == ie, f"{tag}: the captured solve differs from the op-by-op "
-                    f"one")
-    check(ce == counts, f"{tag}: the captured solve's launches {counts} "
-                        f"differ from the op-by-op solve's {ce}")
-    reps = 3 if cold > 1.0 else reps
-    walls = []
+    xc = np.asarray(xc.cpu() if isinstance(xc, torch.Tensor) else xc)
+    forms = {"op by op": _graph.eager, "per step": _graph.per_step}
+    cold = 0.0
+    for form, ctx in forms.items():
+        reset_kernel_launches()
+        with ctx():
+            t0 = time.perf_counter()
+            xe, re, ie = run()
+            torch.cuda.synchronize()
+            cold = max(cold, time.perf_counter() - t0)
+        ce = counters()
+        xe = np.asarray(xe.cpu() if isinstance(xe, torch.Tensor) else xe)
+        diff = float(np.max(np.abs(xc - xe))) if xc.shape == xe.shape \
+            else float("inf")
+        print(f"capture: {phase} {tag} {form}: x max |captured - {form}| "
+              f"{diff:.3e}, residuals equal {rc == re}, iterations {ic} / "
+              f"{ie}, launches equal {ce == counts}")
+        check(xc.shape == xe.shape and np.array_equal(xc, xe) and
+              rc == re and ic == ie,
+              f"{tag}: the captured solve differs from the {form} one")
+        check(ce == counts, f"{tag}: the captured solve's launches {counts} "
+                            f"differ from the {form} solve's {ce}")
+    walls = {"default": [], "per step": []}
+    for _ in range(3 if cold > 0.3 else reps):
+        for form, fn in (("default", run), ("per step", per_step(run))):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[form].append(time.perf_counter() - t0)
+    op_reps = 3 if cold > 1.0 else reps
+    walls["op by op"] = []
     with _graph.eager():
-        for _ in range(reps):
+        for _ in range(op_reps):
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+            walls["op by op"].append(time.perf_counter() - t0)
         print_profile(f"{tag} op by op", *profiled(run), phase=phase)
+    if reads is not None:
+        _, busy, ops, syncs = profiled(run)
+        want = reads(ic)
+        print(f"capture: {phase} {tag} device-stopped: host syncs {syncs} a "
+              f"solve (want {want}); the profiler saw {len(ops)} device "
+              f"operations, {busy / 1e3:.3f} ms busy")
+        check(syncs == want, f"{tag}: the device-stopped solve made {syncs} "
+                             f"host syncs, not {want}")
     graphs, capture_s = ml._graphs().captured()
     t_cycle = ml.profile_cycle(cycle)
     iters = total_iterations(ic)
-    eager_s = statistics.median(walls)
+    med = {k: statistics.median(v) for k, v in walls.items()}
     print(f"capture: {phase} {tag} graphs {graphs} captured in "
-          f"{capture_s:.3f} s (paid once); warm median captured "
-          f"{median_s * 1e3:.3f} ms, op by op {eager_s * 1e3:.3f} ms (median "
-          f"of {reps}: {[round(w * 1e3, 3) for w in walls]}), "
-          f"{eager_s / median_s:.2f}x; profile_cycle({cycle}) "
-          f"{t_cycle * 1e3:.4f} ms, captured median / {iters} iterations "
-          f"{median_s / max(iters, 1) * 1e3:.4f} ms")
-    return eager_s, t_cycle
+          f"{capture_s:.3f} s (paid once); warm medians: default "
+          f"{med['default'] * 1e3:.3f} ms (the phase's own "
+          f"{median_s * 1e3:.3f}), per step {med['per step'] * 1e3:.3f} ms, "
+          f"op by op {med['op by op'] * 1e3:.3f} ms (all "
+          f"{[[round(w * 1e3, 3) for w in v] for v in walls.values()]}); "
+          f"per step / default {med['per step'] / med['default']:.3f}x, op "
+          f"by op / default {med['op by op'] / med['default']:.2f}x; "
+          f"profile_cycle({cycle}) {t_cycle * 1e3:.4f} ms, default median "
+          f"/ {iters} iterations {med['default'] / max(iters, 1) * 1e3:.4f}"
+          f" ms")
+    return med["op by op"], t_cycle
 
 
 def k2_replay_gate(dev, name, D, colors, nc, Dinv):
@@ -1108,6 +1207,48 @@ def k2_replay_gate(dev, name, D, colors, nc, Dinv):
           f"graph's exchange and one on the stream's, max_abs_err {errs}")
     check(all(e == 0 for e in errs), f"K2 {name}: a replayed or eager sweep "
                                      f"disagrees with its plain version")
+
+    # K2 inside a WHILE body (a cooperative launch in a conditional node):
+    # a device loop of sweeps that stops after `want` of them, replayed
+    # with different counts, an eager sweep after each replay
+    def start(s):
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return {"y": s["x0"] + 0, "it": zero, "stop": zero > 0}
+
+    def sweep(s):
+        it = s["it"] + 1
+        return {"y": dk.dia_gs_sweep(data, D.offsets, n, s["y"], b, Di, col,
+                                     order), "it": it,
+                "stop": it >= s["want"]}
+
+    loop = _graph.Cache().transient(dev)
+    tree = [_graph.Step(loop, "start", start),
+            _graph.While(loop, [_graph.Step(loop, "sweep", sweep)], 8)]
+    errs, epochs = [], []
+    for want in (3, 8, 5):
+        x = torch.as_tensor(rng.standard_normal(n), device=dev).float()
+        loop.put("x0", x)
+        loop.put("want", torch.tensor(want, dtype=torch.int32, device=dev))
+        before = dk.dia_gs_sweep.launches
+        (trips,) = loop.loop("k2", tree, ("it",))
+        launched = dk.dia_gs_sweep.launches - before
+        errs.append(float((loop.state["y"] - plain(x, want)).abs().max()))
+        e = dk.dia_gs_sweep(data, D.offsets, n, x, b, Di, col, order)
+        errs.append(float((e - plain(x, 1)).abs().max()))
+        ex = loop.owned[("dia_gs_exchange", data.device)]
+        epochs.append((ex.epoch, int(ex.ctl[0])))
+        check(trips == want and launched == want,
+              f"K2 {name}: the device loop ran {trips} trips and counted "
+              f"{launched} launches, not {want}")
+    print(f"capture: K2 device loop {name}: WHILE of sweeps stopped on the "
+          f"device after 3, 8 and 5 sweeps, an eager sweep after each, "
+          f"max_abs_err {errs}; (host, device) epochs after each replay "
+          f"{epochs}")
+    check(all(e == 0 for e in errs), f"K2 {name}: a sweep in the device loop "
+                                     f"or after it disagrees with its plain "
+                                     f"version")
+    check(all(h >= d for h, d in epochs),
+          f"K2 {name}: the host's epoch fell below the device's")
 
 
 def kernel_row(flush, skip, name, replaces, launches, err, fn, plain, library,
@@ -1382,14 +1523,22 @@ def drive_path(path, want, reps=5, phase="classical"):
           f"{statistics.median(walls) * 1e3:.3f} ms (all "
           f"{[round(w * 1e3, 3) for w in walls]}), launches per solve "
           f"{launches}, per operator {per_op}")
-    print_profile(f"{tag} captured", *profiled(solve), phase=phase)
+    print_profile(f"{tag} captured per step", *profiled(per_step(solve)),
+                  phase=phase)
 
     def run():
         r, i = [], {}
         return solve(residuals=r, iterations_out=i), r, i
 
+    # a device-stopped solve reads the host once: each CG inner solve of
+    # solve_refined (or the path's own CG solve) once
+    reads = path.get("reads")
+    if reads is None and "solve" not in path and \
+            kw.get("accel", "cg") == "cg":
+        def reads(it):
+            return len(it["inner"])
     capture_gate(phase, tag, ml, run, (x, res, it), counts,
-                 statistics.median(walls), kw.get("cycle", "V"), reps)
+                 statistics.median(walls), kw.get("cycle", "V"), reps, reads)
     check(x.shape == b.shape and np.isfinite(x).all(),
           f"{tag}: x is not a finite vector of the right shape")
     ok, rule = path.get("iterations_ok", (iterations_near, "within 1"))
@@ -1847,7 +1996,8 @@ def blackbox_paths(dev, n=500):
                     iterations_out["cg"] = len(res) - 1
                 return x.cpu().numpy()
             path.update(solve=bb_solve,
-                        iterations_ok=(cg_near, "within 1 of its CG count"))
+                        iterations_ok=(cg_near, "within 1 of its CG count"),
+                        reads=lambda it: 1)
         out.append(path)
     return out
 
@@ -2187,7 +2337,9 @@ def parallel_flows(dev, mesh, n, want, reps=5, timed=False):
               f"solve {per_solve}, kernel launches {launched}")
         check(all(v == 0 for v in launched.values()),
               f"{tag} {name}: a CUDA kernel launched: {launched}")
-        wall, busy, ops, syncs = profiled(solve)
+        # the unsharded solve is device-stopped: profiled one graph a step,
+        # whose kernels the profiler sees
+        wall, busy, ops, syncs = profiled(per_step(solve))
         print_profile(f"{tag} {name} CG to 1e-8", wall, busy, ops, syncs,
                       top=8, phase="parallel")
         nccl = nccl_kernels(led_in_ops(solve, mesh.device))
@@ -2606,6 +2758,174 @@ def parallel2_phase(dev, want=None, full=1414, cl=500, small=32, reps=5):
     dist_flow(f"cl{cl}", stacked, cl, want[f"cl{cl}"], setup="classical",
               reps=reps, timed=True)
     print(f"parallel2: flow 4 {time.perf_counter() - t0:.2f} s")
+
+
+def classical2_paths(dev, n_el=100, n_c=256):
+    """The ``classical2:`` phase's paths, built on the host with the port's
+    entry points as ``tests/jax_classical2_reference.py`` builds the JAX
+    package's, uncompressed, placed on ``dev``: BAIR, ``air_solver(A,
+    max_coarse=20)`` on 2-D linear elasticity n_el^2 (BSR 2 x 2, float64,
+    the default F/C Jacobi post-smoother); CRS, ``ruge_stuben_solver(A,
+    max_coarse=10)`` and CAIR, ``air_solver(A, max_coarse=20)`` on
+    ``poisson((n_c, n_c)) * (1 + 0.5j)`` in complex128; b from
+    ``default_rng(0)``.  Each a dict: name, scipy A, ml, b, setup
+    seconds; BAIR also ``ml_block``, the same hierarchy with block Jacobi
+    post-smoothing."""
+    import copy
+    from pyamg_tpu_torch.classical import air_solver, ruge_stuben_solver
+    from pyamg_tpu_torch.gallery import linear_elasticity, poisson
+    from pyamg_tpu_torch.relaxation.smoothing import change_smoothers
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    A_el, _ = linear_elasticity((n_el, n_el), format="bsr")
+    S = to_scipy(poisson((n_c, n_c))).tocsr().astype(np.complex128) * \
+        (1 + 0.5j)
+    b_c = np.random.default_rng(0).standard_normal(S.shape[0]).astype(
+        np.complex128)
+    specs = [("BAIR", A_el, A_el.tocsr(),
+              np.random.default_rng(0).standard_normal(A_el.shape[0]),
+              lambda A: air_solver(A, max_coarse=20)),
+             ("CRS", S, S, b_c, lambda A: ruge_stuben_solver(A,
+                                                             max_coarse=10)),
+             ("CAIR", S, S, b_c, lambda A: air_solver(A, max_coarse=20))]
+    out = []
+    for name, A, S_, b, make in specs:
+        t0 = time.perf_counter()
+        ml = make(A)
+        path = {"name": name, "S": S_, "b": b,
+                "setup_s": time.perf_counter() - t0}
+        if name == "BAIR":
+            # the JAX package's reference smoother, on a host copy (a
+            # smoother's setup reads the host operators)
+            block = copy.deepcopy(ml)
+            change_smoothers(block, None, "block_jacobi")
+            path["ml_block"] = block.to_device(dev)
+        path["ml"] = ml.to_device(dev)
+        out.append(path)
+    return out
+
+
+def classical2_describe(ml):
+    """What ``tests/jax_classical2_reference.py`` prints of a hierarchy."""
+    return {"rows": [int(lvl.A.shape[0]) for lvl in ml.levels],
+            "blocksizes": [list(getattr(lvl.A, "blocksize", (1, 1)))
+                           for lvl in ml.levels],
+            "operator_complexity": ml.operator_complexity(),
+            "layouts": [[type(getattr(lvl, a, None)).__name__ for a in "APR"]
+                        for lvl in ml.levels]}
+
+
+def forms_equal(tag, run, reads=None):
+    """``run()`` (x, history, iterations) cold in its default form with the
+    launch counts set to 0 just before, then op by op and one graph a
+    step: each bit for bit the same, with the same launches.  ``reads``:
+    the host syncs the default form must make (profiled).  Returns the
+    default form's (x, history, iterations) and launches."""
+    import torch
+    from pyamg_tpu_torch import _graph
+    out = {}
+    for form, ctx in (("default", contextlib.nullcontext),
+                      ("op by op", _graph.eager),
+                      ("per step", _graph.per_step)):
+        reset_kernel_launches()
+        with ctx():
+            x, res, it = run()
+            torch.cuda.synchronize()
+        x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+        out[form] = (x, res, it, counters())
+    x, res, it, counts = out["default"]
+    same = {form: bool(np.array_equal(v[0], x) and v[1] == res and
+                       v[2] == it and v[3] == counts)
+            for form, v in out.items()}
+    syncs = profiled(run)[3]
+    print(f"classical2: {tag}: default, op by op and per step bit for bit "
+          f"equal {same}, info {it}, history of {len(res)}, host syncs of "
+          f"the default form {syncs}")
+    check(all(same.values()), f"{tag}: the solve's forms differ: {same}")
+    check(reads is None or syncs == reads,
+          f"{tag}: {syncs} host syncs, not {reads}")
+    return (x, res, it), kernel_launches()
+
+
+def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
+    """The ``classical2:`` phase: block AIR and complex RS/AIR
+    (``classical2_paths``).  Each hierarchy is gated against ``want``
+    (JAX_CLASSICAL2: rows, blocksizes and layouts equal, operator
+    complexity within 1e-6) before any solve.  Each path is solved by
+    GMRES to 1e-8 (BAIR twice: with its default F/C Jacobi, held to a
+    preconditioned residual below tol and a true one below 1e-4, not to
+    the JAX package, which raises there; then with block Jacobi, as the
+    JAX package's reference), and by 10 cycles of standalone cycling,
+    device-stopped, one host sync; every solve equal in its three forms
+    (``forms_equal``), with no K1-K5 launch; GMRES's iterations within
+    one of the JAX package's, its preconditioned residual below tol and,
+    on the complex paths, its true one at most twice the JAX package's."""
+    want = JAX_CLASSICAL2 if want is None else want
+    for path in classical2_paths(dev, n_el, n_c):
+        name, ml, S, b = (path[k] for k in ("name", "ml", "S", "b"))
+        ref = want[name]
+        d = classical2_describe(ml)
+        print(f"classical2: {name} setup {path['setup_s']:.2f} s, rows "
+              f"{d['rows']}, blocksizes {d['blocksizes']}, operator "
+              f"complexity {d['operator_complexity']!r} (JAX package "
+              f"{ref['operator_complexity']!r}), layouts {d['layouts']}, "
+              f"{ml.levels[0].A.dtype}")
+        check(all(d[k] == ref[k] for k in ("rows", "blocksizes", "layouts"))
+              and abs(d["operator_complexity"] - ref["operator_complexity"])
+              <= 1e-6, f"{name}: the hierarchy differs from the JAX "
+                       f"package's")
+
+        def gmres(ml=ml, b=b):
+            res = []
+            x, info = ml.solve(b, tol=1e-8, accel="gmres", residuals=res,
+                               return_info=True)
+            return x, res, info
+
+        def standalone(ml=ml, b=b):
+            res = []
+            x, info = ml.solve(b, tol=1e-8, maxiter=10, residuals=res,
+                               return_info=True)
+            return x, res, info
+
+        _, launched = forms_equal(f"{name} standalone, 10 cycles",
+                                  standalone, reads=1)
+        check(all(v == 0 for v in launched.values()),
+              f"{name}: a kernel launched: {launched}")
+        solves = [("GMRES", ml)]
+        if name == "BAIR":
+            solves = [("GMRES, F/C Jacobi (default)", ml),
+                      ("GMRES, block Jacobi", path["ml_block"])]
+        for what, m in solves:
+            run = functools.partial(gmres, m)
+            (x, res, _), launched = forms_equal(f"{name} {what}", run)
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                walls.append(time.perf_counter() - t0)
+            its = len(res) - 1
+            pre = res[-1] / res[0]
+            true = float(np.linalg.norm(b - S @ x) / np.linalg.norm(b))
+            print(f"classical2: {name} {what}: iterations {its} (JAX package "
+                  f"{ref['iterations']}), preconditioned relres {pre:.3e}, "
+                  f"true relres {true:.3e} (JAX package "
+                  f"{ref['true_relres']:.3e}), warm median of {reps} "
+                  f"{statistics.median(walls) * 1e3:.3f} ms, launches "
+                  f"{launched}")
+            check(all(v == 0 for v in launched.values()),
+                  f"{name}: a kernel launched: {launched}")
+            check(x.shape == b.shape and np.isfinite(x).all() and pre < 1e-8,
+                  f"{name} {what}: preconditioned relres {pre:.3e} not "
+                  f"below 1e-8")
+            if what.startswith("GMRES, F/C"):
+                check(true < 1e-4, f"{name}: true relres {true:.3e}")
+            else:
+                check(abs(its - ref["iterations"]) <= 1,
+                      f"{name} {what}: {its} iterations, the JAX package "
+                      f"{ref['iterations']}")
+            if name != "BAIR":
+                check(true <= 2 * ref["true_relres"],
+                      f"{name}: true relres {true:.3e} above twice the JAX "
+                      f"package's")
 
 
 def main():
@@ -3169,8 +3489,8 @@ def main():
         t0 = time.perf_counter()
         ml.solve_refined_device(b)
         walls.append(time.perf_counter() - t0)
-    print_profile("500^2 captured",
-                  *profiled(lambda: ml.solve_refined_device(b)))
+    print_profile("500^2 captured per step",
+                  *profiled(per_step(lambda: ml.solve_refined_device(b))))
 
     def main_run():
         r, i = [], {}
@@ -3178,7 +3498,8 @@ def main():
 
     main_median = statistics.median(walls)
     _, t_cycle = capture_gate("times", "500^2", ml, main_run, main_cold,
-                              main_counts, main_median)
+                              main_counts, main_median,
+                              reads=lambda it: 1)
     per_iteration = main_median / main_cold[2]["inner"]
     check(0 < t_cycle < per_iteration,
           f"500^2: profile_cycle {t_cycle:.3e} s is not positive and below "
@@ -3281,8 +3602,9 @@ def main():
     print(f"times: 64^3 warm solve_refined median of 5 "
           f"{statistics.median(walls3) * 1e3:.3f} ms (all "
           f"{[round(w * 1e3, 3) for w in walls3]})")
-    print_profile("64^3 captured", *profiled(lambda: ml3.solve_refined(
-        b3, A_fine=S3, tol=1e-10, accel="cg")), top=16)
+    print_profile("64^3 captured per step", *profiled(per_step(
+        lambda: ml3.solve_refined(b3, A_fine=S3, tol=1e-10, accel="cg"))),
+        top=16)
 
     def sa3d_run():
         r, i = [], {}
@@ -3290,7 +3612,8 @@ def main():
                                  residuals=r, iterations_out=i), r, i
 
     capture_gate("times", "64^3", ml3, sa3d_run, sa3d_cold, sa3d_counts,
-                 statistics.median(walls3))
+                 statistics.median(walls3),
+                 reads=lambda it: len(it["inner"]))
 
     sell_src = "pyamg_tpu_torch/csrc/sell_kernels.cu"
 
@@ -3457,6 +3780,11 @@ def main():
         plain_reps=2, tag=tag))
     slot_model(S, 4 * n * 4, tag)
     del binputs
+
+    # -- 10b. classical2: block AIR and complex RS/AIR ---------------------
+    t0 = time.perf_counter()
+    classical2_phase(dev)
+    print(f"classical2: phase {time.perf_counter() - t0:.2f} s")
 
     # -- 11. parallel: the row-sharded solve on a one-rank NCCL group ------
     t0 = time.perf_counter()

@@ -1,33 +1,48 @@
 """Captured solves: the port's counterpart of ``jax.jit`` for the solve
 loops (no JAX counterpart file).
 
-The JAX package runs each solve as one compiled program whose loop body
-takes the hierarchy as arguments (``pyamg_tpu/multilevel.py``:
+The JAX package runs each solve as one compiled program whose loop is a
+``lax.while_loop`` on the device (``pyamg_tpu/multilevel.py``:
 ``_get_accel_run``, ``_get_standalone_run``, ``_get_ds_refined_run``).
-Here a solve is a Python loop of named steps, each a function of one dict
-of state tensors (a ``Program``), and the host reads one stop flag a step.
-On a CUDA device each step is recorded once as a CUDA graph and replayed
-on every later run, so the host launches one graph a step instead of
-dispatching every torch operation of a cycle.  On the CPU, inside
-``eager()`` and in a loop with a callback, the same step functions run op
-by op.
+Here a solve is a tree of named steps, each a function of one dict of
+state tensors (a ``Program``), inside loops: ``While`` (run a body while
+the state's stop flag is clear and its trip counter is below a limit) and
+``Every`` (one of two bodies, by the trip counter).  ``Program.loop`` runs
+the tree and reads the values the caller asks for once at the end.
+
+* Op by op (the CPU, ``eager()``, a loop with a callback), the host runs
+  the loops and reads the stop flag once a trip.
+* On a CUDA device each step is recorded once as a CUDA graph in the
+  hierarchy's memory pool, and the whole tree becomes one CUDA graph of
+  those steps with conditional nodes (``csrc/graph_cond.cu``): a WHILE
+  node a loop, an IF node with an ELSE body an ``Every``.  A solve is one
+  replay and one host read at its end.  ``per_step()`` runs the steps'
+  graphs with the loops on the host instead, one replay and one flag read
+  a step (the form before the stop moved to the device; ``chip_smoke.py``
+  and the tests compare the forms).
 
 A step ``step(state)`` returns a dict of new values for some keys of the
 state, and may also write state tensors in place (a basis, a history).
 Eagerly, the new values replace the entries.  Captured, every state
-tensor is static: the first run of a step runs it once eagerly on a side
+tensor is static: a step's first run runs it once eagerly on a side
 stream and copies its values into the static tensors (the warm-up: it
 builds every tensor that a smoother or a kernel wrapper makes lazily, so
 that the capture makes no host-to-device copy and grows no buffer), then
-records the same step, with the same copies, as a graph in the program's
-memory pool.  Each later run replays that graph.  A capture that fails
-raises; nothing falls back to the eager loop.
+records the same step, with the same copies, as a graph.  Before the
+first device-stopped run of a tree every step is warmed up so (the
+steps' inputs are put back afterwards, and the warm-ups' launches are
+not counted) and recorded.  A capture that fails raises; nothing falls
+back to the eager loop.
 
 The kernel wrappers count their launches in Python, which a replay does
-not reach.  So a wrapper hands its bookkeeping to ``on_replay``: outside
-a capture it runs at once; during a capture it is recorded, and runs
-again before every replay of the graph (a launch count, K2's reservation
-of its epochs).
+not reach.  So a wrapper hands its bookkeeping to ``on_replay`` (a count,
+run after the work) and ``ahead`` (a reservation, made before it: K2's
+epochs): outside a capture it runs at once; during a capture it is
+recorded.  Before a step's replay the program runs what the step
+recorded; around a device-stopped replay it reserves for the most trips
+each step could make, and counts each step as many times as the device
+ran it (the trips are tallied on the device and come back in the one
+read).
 
 A graph keeps the addresses of the memory it recorded.  What a kernel
 wrapper keeps between launches (K2's exchange memory) therefore belongs,
@@ -39,22 +54,40 @@ graphs.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
+import os
+import time
 
 import torch
 
 _recording = None       # the replay hooks of the graph being recorded
 _owner = None           # owned() of the program warming up or recording
 _eager = False          # eager(): every program runs op by op
+_per_step = False       # per_step(): a captured loop runs on the host
+_quiet = False          # a device loop's warm-ups: launches not counted
+
+READ_SCOPE = "pyamg_tpu_torch::read"    # the profiler's name of a loop's read
 
 
 def on_replay(fn):
-    """Host work ``fn`` of a kernel launch (its count, what it needs
-    before it runs): done now or, while a program records a graph, before
-    every replay of that graph."""
+    """Host work ``fn`` done after a kernel launch (its count): now or,
+    while a program records a graph, once for every time the device runs
+    the recorded launch."""
     if _recording is not None:
         _recording.append(fn)
-    else:
+    elif not _quiet:
         fn()
+
+
+def ahead(holder, amount):
+    """``holder.take(amount)`` before a kernel launch runs (K2 reserves
+    its epochs): now or, while a program records a graph, before every
+    replay of the graph, for as many runs as the replay may make."""
+    if _recording is not None:
+        _recording.append((holder, amount))
+    else:
+        holder.take(amount)
 
 
 def owned():
@@ -67,7 +100,7 @@ def owned():
 @contextlib.contextmanager
 def eager():
     """Run every solve op by op, as the loops dispatched before capture
-    (``chip_smoke.py`` and the tests compare the two)."""
+    (``chip_smoke.py`` and the tests compare the forms)."""
     global _eager
     old, _eager = _eager, True
     try:
@@ -76,15 +109,141 @@ def eager():
         _eager = old
 
 
+@contextlib.contextmanager
+def per_step():
+    """Run a captured solve's loops on the host, one step's graph and one
+    flag read at a time (``chip_smoke.py`` and the tests compare the
+    forms)."""
+    global _per_step
+    old, _per_step = _per_step, True
+    try:
+        yield
+    finally:
+        _per_step = old
+
+
 def _storage(t):
     return t.untyped_storage().data_ptr()
 
 
+def _run_hooks(hooks):
+    for h in hooks:
+        if isinstance(h, tuple):
+            h[0].take(h[1])
+        else:
+            h()
+
+
+# -- the tree of a solve ---------------------------------------------------------
+
+class Step:
+    """Step ``name`` of ``prog``: ``fn(state)``."""
+
+    def __init__(self, prog, name, fn):
+        self.prog, self.name, self.fn = prog, name, fn
+
+
+class While:
+    """Run ``body`` (a list of nodes) while ``prog.state[stop]`` (bool) is
+    clear and ``prog.state[count]`` (int32, the trips so far, which the
+    body raises by one) is below ``limit``.  ``callback(state)`` after
+    each trip (op by op only)."""
+
+    def __init__(self, prog, body, limit, stop="stop", count="it",
+                 callback=None):
+        self.prog, self.body, self.limit = prog, body, int(limit)
+        self.stop, self.count, self.callback = stop, count, callback
+
+
+class Every:
+    """``then`` on the trips of the enclosing ``While`` whose count plus
+    one is a multiple of ``every``, else ``other``; ``count`` names the
+    state's trip counter, equal to the trips so far."""
+
+    def __init__(self, prog, every, then, other, count="it"):
+        self.prog, self.every = prog, int(every)
+        self.then, self.other, self.count = then, other, count
+
+
+def _walk(nodes, trips=1, body=None):
+    """(Step, the most times it runs, the body it is in) for every step of
+    ``nodes``, in order; a body is a While or an (Every, side)."""
+    for node in nodes:
+        if isinstance(node, Step):
+            yield node, trips, body
+        elif isinstance(node, Every):
+            yield from _walk(node.then, trips, (node, 0))
+            yield from _walk(node.other, trips, (node, 1))
+        else:
+            yield from _walk(node.body, trips * node.limit, node)
+
+
+def _loops(nodes):
+    """Every While and Every of ``nodes``, outer ones first."""
+    for node in nodes:
+        if isinstance(node, Every):
+            yield node
+            yield from _loops(node.then)
+            yield from _loops(node.other)
+        elif isinstance(node, While):
+            yield node
+            yield from _loops(node.body)
+
+
+def _slots(nodes):
+    """({id(loop): its first tally slot}, slots): one slot a While's body,
+    two an Every's (its sides)."""
+    slots, n = {}, 0
+    for node in _loops(nodes):
+        slots[id(node)] = n
+        n += 2 if isinstance(node, Every) else 1
+    return slots, n
+
+
+def _host(nodes, trips=0):
+    """Run ``nodes`` with the loops on the host (one read of the stop flag
+    a trip); ``trips``: the enclosing loop's trips so far."""
+    for node in nodes:
+        if isinstance(node, Step):
+            node.prog.run(node.name, node.fn)
+        elif isinstance(node, Every):
+            _host(node.then if (trips + 1) % node.every == 0 else node.other,
+                  trips)
+        else:
+            st = node.prog.state
+            k = 0
+            while not bool(st[node.stop]) and k < node.limit:
+                _host(node.body, k)
+                k += 1
+                if node.callback is not None:
+                    node.callback(st)
+
+
+def read(tensors):
+    """The values of ``tensors`` (each a scalar or a vector) on the host,
+    in one read: an int or a float for a scalar, a list for a vector
+    (integers and flags as ints)."""
+    if not tensors:
+        return []
+    with torch.profiler.record_function(READ_SCOPE):
+        flat = torch.cat([t.reshape(-1).to(torch.float64)
+                          for t in tensors]).tolist()
+    out, i = [], 0
+    for t in tensors:
+        n = t.numel()
+        vals = flat[i:i + n]
+        if not (t.is_floating_point() or t.is_complex()):
+            vals = [int(v) for v in vals]
+        out.append(vals if t.ndim else vals[0])
+        i += n
+    return out
+
+
 class Program:
     """The steps of one solve configuration on one dict of state tensors
-    (``state``).  ``put`` sets an input, ``run(name, step)`` runs a step;
-    ``captured`` says whether steps are graphs (``Graphs`` made it) or run
-    eagerly."""
+    (``state``).  ``put`` sets an input, ``run(name, step)`` runs a step,
+    ``loop(name, nodes, keys)`` runs a tree; ``captured`` says whether
+    steps are graphs (``Graphs`` made it) or run eagerly."""
 
     captured = False
 
@@ -96,6 +255,13 @@ class Program:
 
     def run(self, name, step):
         self._apply(step(self.state), copy=False)
+
+    def loop(self, name, nodes, keys=()):
+        """Run the tree ``nodes`` (named ``name`` among this program's
+        trees) and return the values of the state's ``keys`` after it, in
+        one host read (``read``)."""
+        _host(nodes)
+        return read([self.state[k] for k in keys])
 
     def static(self, key, make):
         """An object the steps write in place (a GMRES basis): made here,
@@ -134,11 +300,12 @@ class Program:
 
 
 class _Graph:
-    """One CUDA graph in a memory pool: ``capture(body)``, ``replay()``."""
+    """One CUDA graph in a memory pool: ``capture(body)``, ``replay()``,
+    and ``raw()``, the ``cudaGraph_t`` that a device loop embeds."""
 
     def __init__(self, pool):
         self.pool = pool
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
     def capture(self, body):
         self.graph.capture_begin(pool=self.pool)
@@ -150,27 +317,151 @@ class _Graph:
     def replay(self):
         self.graph.replay()
 
+    def raw(self):
+        return self.graph.raw_cuda_graph()
+
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "graph_cond.cu")
+
+
+def build() -> dict:
+    """Compile ``csrc/graph_cond.cu`` (the conditional nodes of a device
+    loop) unless built already: ``{"path", "seconds", "log"}``."""
+    from pyamg_tpu_torch._native.build import cuda_library
+    return cuda_library(SOURCE, "graph_cond")
+
+
+@functools.cache
+def _lib():
+    lib = ctypes.CDLL(build()["path"])
+    vp, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    P = ctypes.POINTER
+    for name, args in [
+            ("new", [P(vp)]), ("free", [vp]),
+            ("zero", [vp, vp, vp, i32, P(vp)]),
+            ("child", [vp, vp, vp, P(vp)]),
+            ("while", [vp, vp, vp, vp, i32, P(u64), P(vp), P(vp)]),
+            ("while_close", [vp, vp, u64, vp, vp, i32, vp, P(vp)]),
+            ("every", [vp, vp, vp, i32, vp, P(vp), P(vp), P(vp)]),
+            ("instantiate", [P(vp), vp]), ("launch", [vp, vp]),
+            ("exec_free", [vp])]:
+        f = getattr(lib, f"pyamg_graph_{name}")
+        f.restype, f.argtypes = i32, args
+    return lib
+
+
+def _ok(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"device loop: {what}: CUDA error {rc}")
+
+
+class _DeviceLoop:
+    """A tree as one CUDA graph: the steps' graphs as child graphs, each
+    ``While`` a WHILE node, each ``Every`` an IF node with an ELSE body,
+    and ``tally[slot]`` raised on the device on every trip of a body (a
+    While's, or a side of an Every: two slots).  ``launch()`` runs it on
+    the current stream."""
+
+    def __init__(self, nodes, tally, slots):
+        lib = _lib()
+        self.lib = lib
+        g = ctypes.c_void_p()
+        _ok(lib.pyamg_graph_new(ctypes.byref(g)), "create")
+        try:
+            node = ctypes.c_void_p()
+            _ok(lib.pyamg_graph_zero(g, None, tally.data_ptr(),
+                                     tally.numel(), ctypes.byref(node)),
+                "tally")
+            self._chain(g, nodes, tally, slots, node)
+            self.exec = ctypes.c_void_p()
+            _ok(lib.pyamg_graph_instantiate(ctypes.byref(self.exec), g),
+                "instantiate")
+        finally:
+            lib.pyamg_graph_free(g)
+
+    def _chain(self, g, nodes, tally, slots, dep=None):
+        """``nodes`` one after another in ``g`` (after ``dep``): the
+        last node added."""
+        for n in nodes:
+            dep = self._add(g, dep, n, tally, slots)
+        return dep
+
+    def _add(self, g, dep, n, tally, slots):
+        lib, out = self.lib, ctypes.c_void_p()
+        if isinstance(n, While) and n.limit == 0:     # never runs
+            return dep
+        if isinstance(n, Step):
+            raw = n.prog.graphs[n.name][0].raw()
+            _ok(lib.pyamg_graph_child(g, dep, raw, ctypes.byref(out)),
+                f"step {n.name!r}")
+            return out
+        st = n.prog.state
+        count = st[n.count]
+        if count.dtype != torch.int32 or count.ndim:
+            raise TypeError(f"a loop's counter {n.count!r} must be an int32 "
+                            f"scalar")
+        slot = tally[slots[id(n)]:].data_ptr()
+        if isinstance(n, Every):
+            then, other = ctypes.c_void_p(), ctypes.c_void_p()
+            _ok(lib.pyamg_graph_every(g, dep, count.data_ptr(), n.every,
+                                      slot, ctypes.byref(then),
+                                      ctypes.byref(other), ctypes.byref(out)),
+                "IF node")
+            self._chain(then, n.then, tally, slots)
+            self._chain(other, n.other, tally, slots)
+            return out
+        stop = st[n.stop]
+        if stop.dtype != torch.bool or stop.ndim:
+            raise TypeError(f"a loop's flag {n.stop!r} must be a bool scalar")
+        h, body = ctypes.c_ulonglong(), ctypes.c_void_p()
+        _ok(lib.pyamg_graph_while(g, dep, stop.data_ptr(), count.data_ptr(),
+                                  n.limit, ctypes.byref(h),
+                                  ctypes.byref(body), ctypes.byref(out)),
+            "WHILE node")
+        last = self._chain(body, n.body, tally, slots)
+        close = ctypes.c_void_p()
+        _ok(lib.pyamg_graph_while_close(body, last, h, stop.data_ptr(),
+                                        count.data_ptr(), n.limit, slot,
+                                        ctypes.byref(close)), "WHILE body")
+        return out
+
+    def launch(self):
+        _ok(self.lib.pyamg_graph_launch(
+            self.exec, torch.cuda.current_stream().cuda_stream), "launch")
+
+    def __del__(self):
+        ex = getattr(self, "exec", None)
+        if ex is not None and ex.value:
+            self.lib.pyamg_graph_exec_free(ex)
+
 
 class Graphs(Program):
     """A captured program on ``device``: static state tensors, one graph a
     step name, recorded on ``stream`` into ``pool`` (shared by the programs
     of one hierarchy, whose graphs replay one at a time on one stream), and
     ``owned``, the objects its launches keep (shared the same way).
-    ``graph_type(pool)`` makes a graph (``capture(body)``, ``replay()``);
-    the tests pass a stand-in.  ``captures`` counts the graphs recorded
-    and ``capture_s`` the seconds their warm-ups and captures took."""
+    ``graph_type(pool)`` makes a step's graph (``capture(body)``,
+    ``replay()``, ``raw()``) and ``loop_type(nodes, tally, slots)`` a
+    tree's (``launch()``); the tests pass stand-ins.  ``captures`` counts
+    the step graphs recorded and ``capture_s`` the seconds their warm-ups,
+    captures and trees took."""
 
     captured = True
 
-    def __init__(self, device, stream, pool, graph_type=_Graph, owned=None):
+    def __init__(self, device, stream, pool, graph_type=_Graph, owned=None,
+                 loop_type=_DeviceLoop):
         super().__init__()
         self.device = device
         self.stream = stream
         self.pool = pool
         self.owned = {} if owned is None else owned
         self.graph_type = graph_type
+        self.loop_type = loop_type
         self.graphs = {}
+        self.loops = {}
         self.objects = {}
+        self.inputs = {}
         self.captures = 0
         self.capture_s = 0.0
 
@@ -184,6 +475,7 @@ class Graphs(Program):
             st[key].copy_(value)
         else:
             st[key] = value.clone()
+        self.inputs[key] = value
 
     def static(self, key, make):
         if key not in self.objects:
@@ -196,40 +488,124 @@ class Graphs(Program):
             self._record(name, step)
             return
         graph, hooks = entry
-        for fn in hooks:
-            fn()
+        _run_hooks(hooks)
         graph.replay()
 
-    def _record(self, name, step):
-        import time
-        global _recording, _owner
+    def loop(self, name, nodes, keys=()):
+        if _per_step:
+            return super().loop(name, nodes, keys)
+        entry = self.loops.get(name)
+        if entry is None:
+            entry = self.loops[name] = self._build(nodes)
+        dev, tally, plan = entry
+        # reserve for the most trips each step could make
+        totals = {}
+        for prog, sname, most, _ in plan:
+            for h in prog.graphs[sname][1]:
+                if isinstance(h, tuple):
+                    held = totals.setdefault(id(h[0]), [h[0], 0])
+                    held[1] += h[1] * most
+        for holder, amount in totals.values():
+            holder.take(amount)
+        dev.launch()
+        vals = read([tally] + [self.state[k] for k in keys])
+        trips = vals[0]
+        for prog, sname, _, slot in plan:
+            counts = [h for h in prog.graphs[sname][1]
+                      if not isinstance(h, tuple)]
+            for _ in range(1 if slot is None else trips[slot]):
+                for h in counts:
+                    h()
+        return vals[1:]
+
+    def _build(self, nodes):
+        """Warm up and record every step of ``nodes`` not recorded yet,
+        then make the tree's device loop: (loop, tally, [(program, step,
+        most runs, tally slot or None)])."""
+        global _quiet
         t0 = time.perf_counter()
+        walked = list(_walk(nodes))
+        slots, n_slots = _slots(nodes)
+        walked = [w for w in walked if w[1] > 0]    # a loop of limit 0
+        todo = [(s.prog, s.name, s.fn) for s, _, _ in walked
+                if s.name not in s.prog.graphs]
+        progs = {id(s.prog): s.prog for s, _, _ in walked}
+        with self._side() as cuda:
+            _quiet = True
+            try:
+                for prog, name, fn in todo:
+                    # each warm-up from the state the ones before it made,
+                    # its own writes undone: a step warmed up after another
+                    # of its loop would run past the loop's limit
+                    saved = [(t, t.clone()) for t in prog.state.values()]
+                    prog._warm(name, fn)
+                    for t, v in saved:
+                        t.copy_(v)
+            finally:
+                _quiet = False
+            for prog in progs.values():          # the inputs, as put
+                for k, v in prog.inputs.items():
+                    prog.state[k].copy_(v)
+            for prog, name, fn in todo:
+                prog._capture(name, fn)
+            tally = torch.zeros(max(n_slots, 1), dtype=torch.int32,
+                                device=self.device)
+            loop = self.loop_type(nodes, tally, slots)
+        if cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        plan = []
+        for s, most, body in walked:
+            slot = None
+            if body is not None:
+                slot = slots[id(body[0])] + body[1] \
+                    if isinstance(body, tuple) else slots[id(body)]
+            plan.append((s.prog, s.name, most, slot))
+        self.capture_s += time.perf_counter() - t0
+        return loop, tally, plan
+
+    @contextlib.contextmanager
+    def _side(self):
+        """Warm-ups and captures: on the program's stream (after the work
+        already queued), with the cache's objects ``owned()``."""
+        global _owner
         cuda = self.device.type == "cuda"
-        here = torch.cuda.current_stream(self.device) if cuda else None
+        if cuda:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         ctx = torch.cuda.stream(self.stream) if cuda else \
             contextlib.nullcontext()
-        if cuda:
-            self.stream.wait_stream(here)
-        if _recording is not None:
-            raise RuntimeError("a graph is already being recorded")
-        graph, hooks = self.graph_type(self.pool), []
         _owner = self.owned
         try:
             with ctx:
-                # the warm-up: the step itself, eagerly, into the state
-                self._apply(step(self.state), copy=True)
-                _recording = hooks
-                try:
-                    graph.capture(lambda: self._apply(step(self.state),
-                                                      copy=True))
-                finally:
-                    _recording = None
+                yield cuda
         finally:
             _owner = None
-        if cuda:
-            here.wait_stream(self.stream)
+
+    def _warm(self, name, step):
+        """The warm-up of step ``name``: the step itself, eagerly, into
+        the state."""
+        self._apply(step(self.state), copy=True)
+
+    def _capture(self, name, step):
+        """Record ``step`` as graph ``name`` (its warm-up done)."""
+        global _recording
+        if _recording is not None:
+            raise RuntimeError("a graph is already being recorded")
+        graph, hooks = self.graph_type(self.pool), []
+        _recording = hooks
+        try:
+            graph.capture(lambda: self._apply(step(self.state), copy=True))
+        finally:
+            _recording = None
         self.graphs[name] = (graph, hooks)
         self.captures += 1
+
+    def _record(self, name, step):
+        t0 = time.perf_counter()
+        with self._side() as cuda:
+            self._warm(name, step)
+            self._capture(name, step)
+        if cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
         self.capture_s += time.perf_counter() - t0
 
 

@@ -1,32 +1,40 @@
 """Classical AMG interpolation and restriction operators (counterpart of
-``pyamg_tpu/classical/interpolate.py``; setup phase, host ELL).
+``pyamg_tpu/classical/interpolate.py``; setup phase, host ELL and BELL).
 
 Direct, injection and one-point interpolation are vectorised numpy passes
 over the ELL rows; the strong F-F filter and (modified) classical
 interpolation are the native host core's scalar loops
-(``_native/classical.cpp``, float64, P cast back to A's dtype); lAIR's
-local systems are batched LAPACK solves on the host, or with ``use_gmres``
-a batched dense GMRES in torch.  Scalar operators with real values only:
-block (BSR) and complex operators raise ``NotImplementedError``.
+(``_native/classical.cpp``, float64, P cast back to A's dtype) on a real
+operator, and vectorised numpy twins of the reference's, in chunks of
+rows, on a complex one (their sign tests on the real part, as the
+reference's); lAIR's local systems are batched LAPACK solves on the host,
+or with ``use_gmres`` a batched dense GMRES in torch.  A block (BELL)
+operator takes injection, one-point interpolation and lAIR, on its
+node-level strength, with identity blocks at the C points.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 
-from pyamg_tpu_torch.sparse.matrix import ELL, to_scipy
+from pyamg_tpu_torch.sparse.matrix import BELL, ELL, to_scipy
 from pyamg_tpu_torch.ops.rowops import ell_dedup, row_lookup
 from pyamg_tpu_torch.strength import classical_strength_of_connection
 
+# entries of the (rows, W, W, W) tensors a complex twin makes per chunk
+_TWIN_CHUNK = 1 << 22
 
-def _scalar_real(*ops):
-    for A in ops:
-        if not isinstance(A, ELL):
-            raise NotImplementedError("classical interpolation of a block "
-                                      "(BELL) operator is not ported yet")
-        if np.iscomplexobj(np.asarray(A.vals)):
-            raise NotImplementedError("classical interpolation of a complex "
-                                      "operator is not ported yet")
+
+def _is_complex(*ops):
+    return any(np.iscomplexobj(np.asarray(A.vals)) for A in ops)
+
+
+def _row_chunks(n, per_row):
+    """Row ranges of at most ``_TWIN_CHUNK`` entries of ``per_row`` each."""
+    step = max(1, _TWIN_CHUNK // max(per_row, 1))
+    return [(i, min(i + step, n)) for i in range(0, n, step)]
 
 
 def _coarse_map(splitting):
@@ -54,8 +62,8 @@ def _row_sums(A: ELL):
     isdiag = valid & (cols == rows)
     offd = valid & (cols != rows)
     diag = np.sum(np.where(isdiag, vals, 0), axis=1)
-    pos = np.sum(np.where(offd & (vals > 0), vals, 0), axis=1)
-    neg = np.sum(np.where(offd & (vals < 0), vals, 0), axis=1)
+    pos = np.sum(np.where(offd & (np.real(vals) > 0), vals, 0), axis=1)
+    neg = np.sum(np.where(offd & (np.real(vals) < 0), vals, 0), axis=1)
     return diag, pos, neg
 
 
@@ -75,9 +83,8 @@ def _assemble_p(scols, strong_c_mask, pvals, split, cmap, nc, n):
 def direct_interpolation(A: ELL, C: ELL, splitting, theta=None, norm="min"):
     """Direct interpolation (reference ``interpolate.py:12`` /
     ``ruge_stuben.h:777,832``): F-point weights
-    ``w_ij = -(sum_neg / strong_neg) / a_ii * a_ij``, split by sign; C
-    points injected."""
-    _scalar_real(A)
+    ``w_ij = -(sum_neg / strong_neg) / a_ii * a_ij``, split by the sign
+    of the real part; C points injected."""
     if theta is not None:
         C = classical_strength_of_connection(A, theta=theta, norm=norm)
     split = np.asarray(splitting, np.int32)
@@ -86,8 +93,8 @@ def direct_interpolation(A: ELL, C: ELL, splitting, theta=None, norm="min"):
 
     scols, smask, svals = _strength_pattern(A, C)
     strongC = smask & (split[scols] == 1)
-    ssp = np.sum(np.where(strongC & (svals > 0), svals, 0), axis=1)
-    ssn = np.sum(np.where(strongC & (svals < 0), svals, 0), axis=1)
+    ssp = np.sum(np.where(strongC & (np.real(svals) > 0), svals, 0), axis=1)
+    ssn = np.sum(np.where(strongC & (np.real(svals) < 0), svals, 0), axis=1)
     diag, sap, san = _row_sums(A)
 
     no_pos = ssp == 0
@@ -96,29 +103,51 @@ def direct_interpolation(A: ELL, C: ELL, splitting, theta=None, norm="min"):
     beta = np.where(no_pos, 0.0, sap / np.where(ssp == 0, 1, ssp))
     neg_c = -alpha / diag
     pos_c = -beta / diag
-    pvals = np.where(svals < 0, neg_c[:, None] * svals,
+    pvals = np.where(np.real(svals) < 0, neg_c[:, None] * svals,
                      pos_c[:, None] * svals)
     return _assemble_p(scols, strongC, pvals, split, cmap, nc, n)
 
 
 def remove_strong_FF_connections(A: ELL, C: ELL, splitting):
     """C with the strong F-F connections that share no strong C point
-    zeroed (reference ``ruge_stuben.h:1133``)."""
-    from pyamg_tpu_torch import _native
-    _scalar_real(A, C)
-    drop = _native.remove_strong_ff_ell(
-        np.asarray(C.cols), np.asarray(C.vals), np.asarray(C.row_nnz),
-        np.asarray(splitting, np.int32))
-    return ELL(C.cols, np.where(drop, 0, np.asarray(C.vals)), C.row_nnz,
-               C.shape)
+    zeroed (reference ``ruge_stuben.h:1133``): the native scan on real
+    values, the reference's vectorised twin (``interpolate.py:122-136``),
+    in chunks of rows, on complex ones."""
+    split = np.asarray(splitting, np.int32)
+    if not _is_complex(C):
+        from pyamg_tpu_torch import _native
+        drop = _native.remove_strong_ff_ell(
+            np.asarray(C.cols), np.asarray(C.vals), np.asarray(C.row_nnz),
+            split)
+        return ELL(C.cols, np.where(drop, 0, np.asarray(C.vals)),
+                   C.row_nnz, C.shape)
+    cols, vals = np.asarray(C.cols), np.asarray(C.vals)
+    n, W = cols.shape
+    valid = C.valid_mask()
+    smask = valid & (cols != np.arange(n, dtype=np.int32)[:, None]) & \
+        (vals != 0)
+    ff = smask & (split == 0)[:, None] & (split[cols] == 0)
+    c_slot = smask & (split[cols] == 1)          # strong C slots of a row
+    strong = valid & (vals != 0)
+    drop = np.zeros_like(ff)
+    for lo, hi in _row_chunks(n, W * W * W):
+        cc = cols[lo:hi]
+        kcols = cols[cc]                          # (rows, W, Wk) neighbours
+        kvalid = strong[cc]
+        eq = kcols[:, :, :, None] == cc[:, None, None, :]
+        common = np.any(eq & kvalid[:, :, :, None] &
+                        c_slot[lo:hi, None, None, :], axis=(2, 3))
+        drop[lo:hi] = ff[lo:hi] & ~common
+    return ELL(C.cols, np.where(drop, 0, vals), C.row_nnz, C.shape)
 
 
 def classical_interpolation(A: ELL, C: ELL, splitting, theta=None,
                             norm="min", modified=True):
     """Distance-1 (modified) classical interpolation (reference
-    ``interpolate.py:86`` / ``ruge_stuben.h:1239``)."""
+    ``interpolate.py:86`` / ``ruge_stuben.h:1239``): the native two-hop
+    pass on real values, the reference's vectorised twin
+    (``interpolate.py:172-211``), in chunks of rows, on complex ones."""
     from pyamg_tpu_torch import _native
-    _scalar_real(A)
     if theta is not None:
         C = classical_strength_of_connection(A, theta=theta, norm=norm)
     split = np.asarray(splitting, np.int32)
@@ -126,6 +155,8 @@ def classical_interpolation(A: ELL, C: ELL, splitting, theta=None,
         C = remove_strong_FF_connections(A, C, split)
     cmap, nc = _coarse_map(split)
     n = A.shape[0]
+    if _is_complex(A, C):
+        return _classical_twin(A, C, split, cmap, nc, modified)
     ccols = np.asarray(C.cols)
     cvals = np.asarray(C.vals)
     smask = C.valid_mask() & \
@@ -139,27 +170,74 @@ def classical_interpolation(A: ELL, C: ELL, splitting, theta=None,
                (n, nc))
 
 
-def injection_interpolation(A: ELL, splitting):
+def _classical_twin(A, C, split, cmap, nc, modified):
+    """Classical interpolation as the reference's vectorised numpy pass
+    (``interpolate.py:172-211``), for complex values: the (rows, W, WA,
+    W) two-hop tensors are made a chunk of rows at a time."""
+    n = A.shape[0]
+    scols, smask, svals = _strength_pattern(A, C)
+    strongC = smask & (split[scols] == 1)
+    strongF = smask & (split[scols] == 0)
+    diag, sap, san = _row_sums(A)
+    denom = (diag + sap + san) - np.sum(np.where(smask, svals, 0), axis=1)
+    acols, avals = np.asarray(A.cols), np.asarray(A.vals)
+    avalid = A.valid_mask()
+    rows = np.arange(n, dtype=np.int32)[:, None]
+    d = np.sum(np.where(avalid & (acols == rows), avals, 0), axis=1)
+    W, WA = scols.shape[1], acols.shape[1]
+    numer = np.empty_like(svals)
+    for lo, hi in _row_chunks(n, W * WA * W):
+        sc = scols[lo:hi]
+        a_kk = d[sc]                                     # (rows, W)
+        eq = acols[sc][:, :, :, None] == sc[:, None, None, :]
+        akj = np.sum(np.where(eq & avalid[sc][:, :, :, None],
+                              avals[sc][:, :, :, None], 0), axis=2)
+        if modified:
+            same = np.sign(np.real(akj)) == np.sign(np.real(a_kk))[:, :, None]
+            akj = np.where(same, 0, akj)
+        inner = np.sum(np.where(strongC[lo:hi, None, :], akj, 0), axis=2)
+        a_ik = svals[lo:hi]
+        use = (np.abs(akj) > 1e-15 * np.abs(a_ik)[:, :, None]) & \
+            strongF[lo:hi, :, None] & (inner[:, :, None] != 0)
+        contrib = np.where(
+            use, a_ik[:, :, None] * akj /
+            np.where(inner[:, :, None] == 0, 1, inner[:, :, None]), 0)
+        numer[lo:hi] = a_ik + np.sum(contrib, axis=1)
+    pvals = -numer / np.where(denom == 0, 1, denom)[:, None]
+    return _assemble_p(scols, strongC, pvals, split, cmap, nc, n)
+
+
+def injection_interpolation(A, splitting):
     """Injection: C points by value, F rows empty (reference
-    ``interpolate.py:174``)."""
-    _scalar_real(A)
+    ``interpolate.py:174``); on a BELL, identity blocks at the C
+    points."""
     split = np.asarray(splitting, np.int32)
     cmap, nc = _coarse_map(split)
+    if isinstance(A, BELL):
+        bs = A.blocksize[0]
+        is_c = split == 1
+        vals = np.where(is_c[:, None, None, None],
+                        np.eye(bs, dtype=A.dtype)[None, None], 0)
+        return BELL(np.where(is_c, cmap, 0)[:, None].astype(np.int32),
+                    vals.astype(A.dtype), is_c.astype(np.int32),
+                    (A.n_block_rows * bs, nc * bs), (bs, bs))
     is_c = split == 1
     cols = np.where(is_c, cmap, 0)[:, None]
     vals = np.where(is_c, 1.0, 0.0).astype(A.dtype)[:, None]
     return ELL(cols, vals, is_c.astype(np.int32), (A.shape[0], nc))
 
 
-def one_point_interpolation(A: ELL, C: ELL, splitting, by_val=False):
+def one_point_interpolation(A, C: ELL, splitting, by_val=False):
     """One-point interpolation: each F point takes its most strongly
     connected C neighbour (reference ``interpolate.py:241`` /
-    ``air.h:46``), with weight 1, or ``-A_fc`` with ``by_val``."""
-    _scalar_real(A)
+    ``air.h:46``), with weight 1, or ``-A_fc`` with ``by_val``.  On a
+    BELL, the strongest C neighbour of the node-level strength ``C``
+    with an identity block (``by_val`` ignored, as in the reference)."""
     split = np.asarray(splitting, np.int32)
     cmap, nc = _coarse_map(split)
     n = C.shape[0]
-    M = A if by_val else C
+    block = isinstance(A, BELL)
+    M = A if by_val and not block else C
     mcols = np.asarray(M.cols)
     mvals = np.asarray(M.vals)
     smask = M.valid_mask() & (mcols != np.arange(n, dtype=np.int32)[:, None])
@@ -170,9 +248,16 @@ def one_point_interpolation(A: ELL, C: ELL, splitting, by_val=False):
     bcol = np.take_along_axis(mcols, best, axis=1)[:, 0]
     bval = np.take_along_axis(mvals, best, axis=1)[:, 0]
     is_c = split == 1
-    val = np.where(is_c, 1.0, -bval if by_val else np.ones_like(bval))
     cols = np.where(is_c, cmap, cmap[bcol])[:, None]
     valid = is_c | has
+    if block:
+        bs = A.blocksize[0]
+        vals = np.where(valid[:, None, None, None],
+                        np.eye(bs, dtype=A.dtype)[None, None], 0)
+        return BELL(np.where(valid[:, None], cols, 0).astype(np.int32),
+                    vals.astype(A.dtype), valid.astype(np.int32),
+                    (n * bs, nc * bs), (bs, bs))
+    val = np.where(is_c, 1.0, -bval if by_val else np.ones_like(bval))
     return ELL(np.where(valid[:, None], cols, 0),
                np.where(valid, val, 0).astype(A.dtype)[:, None],
                valid.astype(np.int32), (n, nc))
@@ -287,8 +372,16 @@ def local_air(A: ELL, splitting, theta=0.1, norm="abs", degree=1,
     ``interpolate.py:324`` / ``air.h:124-328``): each C point's row solves
     ``r^T A[N, N] = -A[c, N]`` over its strong F neighbourhood N, with 1 at
     the C point.  ``use_gmres`` solves the local systems by dense
-    GMRES(``maxiter``, 0 for the full dimension) instead of directly."""
-    _scalar_real(A)
+    GMRES(``maxiter``, 0 for the full dimension) instead of directly.  A
+    BELL takes block lAIR (``_local_air_bsr``), always solved directly."""
+    if isinstance(A, BELL):
+        if use_gmres:
+            warnings.warn("block lAIR always uses the exact batched "
+                          "direct solve; use_gmres/maxiter/precondition "
+                          "are ignored for BSR operators (at least as "
+                          "accurate as the reference's dense_GMRES "
+                          "option, block_approx_ideal_restriction_pass2)")
+        return _local_air_bsr(A, splitting, theta, norm, degree)
     C = classical_strength_of_connection(A, theta=theta, block=False,
                                          norm=norm)
     split = np.asarray(splitting)
@@ -319,3 +412,79 @@ def local_air(A: ELL, splitting, theta=0.1, norm="abs", degree=1,
     cand_valid = np.concatenate([ok & (r != 0), np.ones((ncp, 1), bool)],
                                 axis=1)
     return ell_dedup(cand_cols, cand_vals, cand_valid, (ncp, n))
+
+
+def _block_lookup(A: BELL, rows, cols):
+    """The blocks ``A[rows[i], cols[i]]`` (block indices, equal shapes),
+    a zero block where A stores none: (..., br, bc)."""
+    acols = np.asarray(A.cols).astype(np.int64)
+    avals = np.asarray(A.vals)
+    nbc = max(A.n_block_cols, 1)
+    valid = A.valid_mask()
+    keys = (np.arange(acols.shape[0], dtype=np.int64)[:, None] * nbc +
+            acols)[valid]
+    order = np.argsort(keys, kind="stable")
+    keys, stored = keys[order], avals[valid][order]
+    q = np.asarray(rows, np.int64) * nbc + np.asarray(cols, np.int64)
+    if not len(keys):
+        return np.zeros(q.shape + A.blocksize, avals.dtype)
+    idx = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    hit = keys[idx] == q
+    return np.where(hit[..., None, None], stored[idx], 0).astype(avals.dtype)
+
+
+def _local_air_bsr(A: BELL, splitting, theta, norm, degree):
+    """Block lAIR (reference ``interpolate.py:481-530`` / ``air.h:379``):
+    the node-level neighbourhoods of the block strength; each C point's
+    rows solve the local system of blocksize x |N| unknowns, as one
+    batched LAPACK solve per neighbourhood size (least squares where a
+    system is singular); the C point's identity block after its
+    neighbours."""
+    bs = A.blocksize[0]
+    C = classical_strength_of_connection(A, theta=theta, block=True,
+                                         norm=norm)
+    split = np.asarray(splitting)
+    Cpts = np.flatnonzero(split == 1)
+    ncp = len(Cpts)
+    nb = A.n_block_rows
+    dtype = np.asarray(A.vals).dtype
+    if ncp == 0:
+        return BELL(np.zeros((0, 1), np.int32), np.zeros((0, 1, bs, bs),
+                                                         dtype),
+                    np.zeros((0,), np.int32), (0, nb * bs), (bs, bs))
+    nbrs = _air_neighborhoods(C, split, Cpts, degree)
+    sizes = (nbrs >= 0).sum(axis=1)
+    W = int(sizes.max()) + 1
+    cols = np.zeros((ncp, W), np.int32)
+    vals = np.zeros((ncp, W, bs, bs), dtype)
+    for m in np.unique(sizes):
+        at = np.flatnonzero(sizes == m)
+        N = nbrs[at, :m]                                   # (k, m)
+        c = Cpts[at]
+        if m:
+            # A[N, N] and -A[c, N] as dense (k, bs m, bs m), (k, bs, bs m)
+            blocks = _block_lookup(A, N[:, :, None], N[:, None, :])
+            A0 = blocks.transpose(0, 1, 3, 2, 4).reshape(len(at), m * bs,
+                                                          m * bs)
+            brow = -_block_lookup(A, np.broadcast_to(c[:, None], N.shape),
+                                  N).transpose(0, 2, 1, 3).reshape(
+                                      len(at), bs, m * bs)
+            At, rhs = np.swapaxes(A0, 1, 2), np.swapaxes(brow, 1, 2)
+            try:
+                r = np.linalg.solve(At, rhs)
+            except np.linalg.LinAlgError:
+                r = np.empty_like(rhs)
+                for i in range(len(at)):
+                    try:
+                        r[i] = np.linalg.solve(At[i], rhs[i])
+                    except np.linalg.LinAlgError:
+                        r[i] = np.linalg.lstsq(At[i], rhs[i],
+                                               rcond=None)[0]
+            r = np.swapaxes(r, 1, 2)                       # (k, bs, bs m)
+            cols[at, :m] = N
+            vals[at, :m] = r.reshape(len(at), bs, m, bs).transpose(0, 2, 1,
+                                                                   3)
+        cols[at, m] = c
+        vals[at, m] = np.eye(bs, dtype=dtype)
+    return BELL(cols, vals, (sizes + 1).astype(np.int32),
+                (ncp * bs, nb * bs), (bs, bs))

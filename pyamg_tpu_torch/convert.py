@@ -32,7 +32,8 @@ options under ``"opts"`` and its arrays and scalars beside them:
     gauss_seidel_nr  as gauss_seidel_ne
     cf_jacobi        opts {iterations, f_iterations, c_iterations};
     fc_jacobi        Cmask, Fmask (n,) bool (else from the level's
-                     splitting), omega, Dinv
+                     splitting; on a BELL level split by block row, each
+                     block row's for its unknowns), omega, Dinv
     block_gauss_seidel  opts {iterations, sweep, ncolors}; Dinv (nb, br,
                      br) (the pseudo-inverted diagonal blocks), colors
                      (nb,) int32 of the block graph, omega
@@ -134,8 +135,13 @@ def _smoother(d, A, splitting=None):
         if splitting is None:
             raise ValueError(f"{kind} needs Cmask and Fmask or the level's "
                              f"splitting")
-        if isinstance(A, BELL) and splitting.shape[0] != A.n_block_rows:
-            splitting = splitting.reshape(A.n_block_rows, -1)[:, 0]
+        if isinstance(A, BELL):
+            nb = A.n_block_rows
+            if kind in ("cf_block_jacobi", "fc_block_jacobi"):
+                if splitting.shape[0] != nb:      # per unknown: per block
+                    splitting = splitting.reshape(nb, -1)[:, 0]
+            elif splitting.shape[0] == nb:        # per block: per unknown
+                splitting = np.repeat(splitting, A.blocksize[0])
         params.update(Cmask=splitting, Fmask=~splitting)
     if kind in _NE_DINV and not {"AH", "Dinv"} <= params.keys():
         p = ne_params(A)

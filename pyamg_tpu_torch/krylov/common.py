@@ -173,9 +173,11 @@ def prepare(A, b, x0, maxiter, device=None):
 
 
 def finalize(residuals, resbuf, nres):
-    """Copy the first ``nres`` entries of ``resbuf`` into ``residuals``."""
+    """Copy the first ``nres`` entries of ``resbuf`` (a tensor or a list
+    already read) into ``residuals``."""
     if residuals is not None:
-        residuals[:] = resbuf[:int(nres)].tolist()
+        head = resbuf[:int(nres)]
+        residuals[:] = head if isinstance(head, list) else head.tolist()
 
 
 def final_info(info, it, maxiter, done):

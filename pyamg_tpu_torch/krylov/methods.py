@@ -5,9 +5,9 @@ The reference runs each iteration as one ``lax.while_loop``.  Here it is
 a Python loop over tensor ops: every scalar stays on the device, and the
 host reads one flag per iteration to decide whether to go on (and the
 final ``info`` once).  ``callback(x)`` is called after every iteration.
-``cg_loop`` is written as steps of a ``_graph.Program``, which
-``MultilevelSolver`` captures as CUDA graphs; the other methods run op by
-op.
+``cg_loop`` is written as a tree of steps of a ``_graph.Program``
+(``cg_nodes``), which ``MultilevelSolver`` runs as one CUDA graph with its
+loop on the device; the other methods run op by op.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from functools import partial
 import torch
 
 from pyamg_tpu_torch._device import as_tensor
-from pyamg_tpu_torch._graph import Program
+from pyamg_tpu_torch._graph import Every, Program, Step, While
 from pyamg_tpu_torch.krylov.common import (
     LOCAL, as_matvec, as_precond, final_info, finalize, place, prepare,
     real_dtype, reduction, torch_dtype)
@@ -44,33 +44,14 @@ def _rtol(criteria, tol, normb, normMb, fro, x0norm):
     raise ValueError(f"invalid stopping criteria {criteria!r}")
 
 
-def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
-            stall_window=8, callback=None, red=LOCAL, program=None):
-    """Preconditioned CG from ``x``: ``(x_best, info, resbuf, nres)``.
-
-    ``info`` is 0 on convergence, -1 on a curvature breakdown, and the
-    iteration count when ``maxiter`` ran out.  ``resbuf[:nres]`` holds
-    the 2-norm residual history.  The true residual is recomputed every
-    8th iteration.  ``stall_window``: stop once the running-minimum
-    residual has not improved by 1% for this many iterations (after it
-    first fell below 10% of the start): f32 CG reaches its rounding floor
-    before tight tolerances.  The best iterate seen is returned, because
-    the 2-norm residual of CG is not monotone.  0 disables the stall
-    test.  ``callback(x)`` is called with the iterate after every
-    iteration.  ``red``: the inner products (``common.Reduction``;
-    summed over the ranks on a row-sharded level, so that every rank reads
-    the same stop flag).
-
-    The loop runs three steps of ``program`` (a ``_graph.Program``, by
-    default an eager one): ``start``, and one iteration in two forms,
-    ``plain`` and ``true`` (every 8th, the true residual); the iteration
-    count and the history index live on the device.  A captured program
-    returns its static tensors, which its next run overwrites.
-    """
-    prog = Program() if program is None else program
-    prog.put("x", x)
-    prog.put("b", b)
-    st = prog.state
+def cg_nodes(prog, mv, Mv, tol, criteria, maxiter, fro=1.0,
+             stall_window=8, callback=None, red=LOCAL):
+    """Preconditioned CG on ``prog``'s state (``x``, ``b``) as the tree of
+    a ``_graph.Program`` (the contract of ``cg_loop``): ``start``, then
+    one iteration a trip in two forms, ``plain`` and ``true`` (every 8th,
+    the true residual), while ``stop`` is clear and ``it`` is below
+    ``maxiter``.  The iteration count and the history index live on the
+    device."""
 
     def start(s):
         x, b = s["x"], s["b"]
@@ -133,21 +114,50 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
                 "xb": torch.where(better, xn, s["xb"]), "info": info,
                 "it": it, "stop": conv | bad_A | bad_M | stalled}
 
-    prog.run("start", start)
-    done = bool(st["stop"])
-    it = 0
-    while not done and it < maxiter:
-        true_residual = (it + 1) % 8 == 0
-        prog.run("true" if true_residual else "plain",
-                 partial(iteration, true_residual))
-        it += 1
-        if callback is not None:
-            callback(st["x"])
-        done = bool(st["stop"])          # the one host read of the iteration
-    info = st["info"]
-    if not done and it >= maxiter and int(info) == 0:
-        info = torch.full_like(info, it)
-    return st["xb"], info, st["resbuf"], it + 1
+    every = [Every(prog, 8, [Step(prog, "true", partial(iteration, True))],
+                   [Step(prog, "plain", partial(iteration, False))])]
+    return [Step(prog, "start", start),
+            While(prog, every, maxiter, callback=None if callback is None
+                  else lambda s: callback(s["x"]))]
+
+
+def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
+            stall_window=8, callback=None, red=LOCAL, program=None,
+            history=False):
+    """Preconditioned CG from ``x``: ``(x_best, info, resbuf, nres)``.
+
+    ``info`` (an int) is 0 on convergence, -1 on a curvature breakdown,
+    and the iteration count when ``maxiter`` ran out.  ``resbuf[:nres]``
+    holds the 2-norm residual history (a list read with the result where
+    ``history``, else the device's buffer).  The true residual is
+    recomputed every 8th iteration.  ``stall_window``: stop once the
+    running-minimum residual has not improved by 1% for this many
+    iterations (after it first fell below 10% of the start): f32 CG
+    reaches its rounding floor before tight tolerances.  The best iterate
+    seen is returned, because the 2-norm residual of CG is not monotone.
+    0 disables the stall test.  ``callback(x)`` is called with the
+    iterate after every iteration.  ``red``: the inner products
+    (``common.Reduction``; summed over the ranks on a row-sharded level,
+    so that every rank reads the same stop flag).
+
+    The loop is the tree of ``cg_nodes`` in ``program`` (a
+    ``_graph.Program``, by default an eager one, whose host reads the
+    stop flag once an iteration); a captured program runs it on the
+    device, and the result comes back in one read.  A captured program
+    returns its static tensors, which its next run overwrites.
+    """
+    prog = Program() if program is None else program
+    prog.put("x", x)
+    prog.put("b", b)
+    nodes = cg_nodes(prog, mv, Mv, tol, criteria, maxiter, fro,
+                     stall_window, callback, red)
+    vals = prog.loop("cg", nodes, ("it", "stop", "info") +
+                     (("resbuf",) if history else ()))
+    it, done, info = vals[:3]
+    if not done and it >= maxiter and info == 0:
+        info = it
+    resbuf = vals[3] if history else prog.state["resbuf"]
+    return prog.state["xb"], info, resbuf, it + 1
 
 
 def _criteria_fns(criteria, tol, b, x0, Mv, fro, allowed, red=LOCAL):
@@ -201,7 +211,8 @@ def cg(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
     A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
     Mv = as_precond(M, b.device)
     x, info, resbuf, nres = cg_loop(mv, Mv, x, b, tol, criteria, maxiter,
-                                    fro, callback=callback, red=reduction(A))
+                                    fro, callback=callback, red=reduction(A),
+                                    history=residuals is not None)
     finalize(residuals, resbuf, nres)
     return x, int(info)
 

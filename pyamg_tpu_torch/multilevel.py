@@ -17,17 +17,20 @@ the card.  Two solves run there:
 preconditioner of a Krylov method (CG, GMRES, FGMRES or any method of
 ``krylov``).  The cycle, the smoothers and the coarse solvers read
 nothing on the host; the loops around them are Python over tensor ops,
-and the host reads one convergence flag per iteration.
+and op by op the host reads one convergence flag per iteration.
 
 On a CUDA hierarchy, with no callback, the standalone loop, CG, GMRES,
-FGMRES and the double-single outer steps replay CUDA graphs (the JAX
+FGMRES and the double-single refined solve replay CUDA graphs (the JAX
 package's compiled solve programs, ``_get_accel_run``,
 ``_get_standalone_run`` and ``_get_ds_refined_run``): each step of a
 loop is captured once per hierarchy and solve configuration and cached
-on the hierarchy (``_graph.py``); the host still reads one flag a step.
-The graphs read the hierarchy's tensors in place, so every method that
-replaces them drops the cache.  With a callback, on the CPU, on a sharded
-hierarchy and for the other Krylov methods the loops run op by op.
+on the hierarchy (``_graph.py``).  Standalone cycling, CG and the
+double-single solve run as one graph with their loops on the device (a
+replay and one host read a solve); GMRES and FGMRES replay one graph a
+step and read one flag a step.  The graphs read the hierarchy's tensors
+in place, so every method that replaces them drops the cache.  With a
+callback, on the CPU, on a sharded hierarchy and for the other Krylov
+methods the loops run op by op.
 
 A hierarchy split over the ranks of a process group
 (``parallel.shard_hierarchy``) solves the same way: each rank holds its
@@ -521,10 +524,12 @@ class MultilevelSolver:
 
         ``residuals``: filled with the outer residual norms.
         ``iterations_out``: filled with ``{'outer': k, 'inner': total CG
-        iterations}``.  On a CUDA hierarchy the outer step and the inner
-        CG replay CUDA graphs (``_graph.py``).
+        iterations}``.  On a CUDA hierarchy the whole solve, outer loop
+        and inner CG, is one CUDA graph with its loops on the device and
+        one host read at its end (``_graph.py``), as the JAX package's
+        ``_get_ds_refined_run`` is one compiled program.
         """
-        from pyamg_tpu_torch.krylov.methods import cg_loop
+        from pyamg_tpu_torch.krylov.methods import cg_nodes
         from pyamg_tpu_torch.ops import ds as dsm
         if self._sharded():
             raise NotImplementedError(
@@ -570,7 +575,13 @@ class MultilevelSolver:
                     "r32": bhi / torch.where(nr == 0, 1, nr),
                     "k": torch.zeros((), dtype=torch.int32,
                                      device=bhi.device),
+                    "itot": torch.zeros((), dtype=torch.int32,
+                                        device=bhi.device),
                     "stop": nr <= tol * normb}
+
+        def feed(s):
+            # the inner solve's inputs: x = 0, b = the scaled residual
+            return {"x": torch.zeros_like(st["r32"]), "b": st["r32"]}
 
         def outer(s):
             # the inner solve's best iterate, where the CG program left it
@@ -582,21 +593,17 @@ class MultilevelSolver:
             s["hist"].index_copy_(0, k.reshape(1).long(), nr.reshape(1))
             return {"xhi": xhi, "xlo": xlo, "rhi": rhi, "rlo": rlo, "nr": nr,
                     "r32": rhi / torch.where(nr == 0, 1, nr), "k": k,
+                    "itot": s["itot"] + inner.state["it"],
                     "stop": nr <= tol * s["normb"]}
 
-        prog.run("start", start)
-        zeros = torch.zeros_like(bhi)
-        k = itot = 0
-        done = bool(st["stop"])
-        while not done and k < max_outer:
-            _, _, _, nit = cg_loop(mv, Mv, zeros, st["r32"], inner_tol, "rr",
-                                   inner_maxiter, program=inner)
-            prog.run("outer", outer)
-            k += 1
-            itot += nit - 1
-            done = bool(st["stop"])
+        body = [_graph.Step(inner, "feed", feed),
+                *cg_nodes(inner, mv, Mv, inner_tol, "rr", inner_maxiter),
+                _graph.Step(prog, "outer", outer)]
+        nodes = [_graph.Step(prog, "start", start),
+                 _graph.While(prog, body, max_outer, count="k")]
+        k, itot, hist = prog.loop("ds", nodes, ("k", "itot", "hist"))
         if residuals is not None:
-            residuals[:] = st["hist"][:k + 1].tolist()
+            residuals[:] = hist[:k + 1]
         if iterations_out is not None:
             iterations_out["outer"] = k
             iterations_out["inner"] = itot
@@ -684,7 +691,10 @@ class MultilevelSolver:
         On a CUDA hierarchy with no ``callback``, standalone cycling, CG,
         GMRES and FGMRES replay CUDA graphs captured at their first solve
         of this configuration (``_graph.py``): the same result bit for
-        bit, one graph launch and one flag read a step.
+        bit.  Standalone cycling and CG are one graph with the loop on the
+        device and one host read at the end; GMRES and FGMRES one graph
+        launch and one flag read a step.  A ``callback`` keeps the loop on
+        the host, op by op.
 
         On a sharded hierarchy (``parallel.shard_hierarchy``) every rank
         passes the whole b (and x0) and gets the whole x back, after one
@@ -726,7 +736,8 @@ class MultilevelSolver:
                 if accel == "cg":
                     x, info, resbuf, nres = cg_loop(
                         mv, Mv, x, b, tol, "rr", maxiter, callback=callback,
-                        red=red, program=prog)
+                        red=red, program=prog,
+                        history=residuals is not None)
                 else:
                     from pyamg_tpu_torch.krylov.gmres import gmres_loop
                     x, info, resbuf, nres = gmres_loop(
@@ -775,17 +786,15 @@ class MultilevelSolver:
             s["hist"].index_copy_(0, it.reshape(1).long(), nr.reshape(1))
             return {"x": x, "it": it, "stop": nr < s["rtol"]}
 
-        prog.run("start", start)
-        it = 0
-        done = bool(st["stop"])
-        while not done and it < maxiter:
-            prog.run("cycle", one_cycle)
-            it += 1
-            if callback is not None:
-                callback(st["x"])
-            done = bool(st["stop"])        # the one host read of the cycle
+        nodes = [_graph.Step(prog, "start", start),
+                 _graph.While(prog, [_graph.Step(prog, "cycle", one_cycle)],
+                              maxiter, callback=None if callback is None
+                              else lambda s: callback(s["x"]))]
+        vals = prog.loop("standalone", nodes, ("it", "stop") +
+                         (("hist",) if residuals is not None else ()))
+        it, done = vals[:2]
         if residuals is not None:
-            residuals[:] = st["hist"][:it + 1].tolist()
+            residuals[:] = vals[2][:it + 1]
         x = out(prog, st["x"])
         return (x, 0 if done else it) if return_info else x
 

@@ -378,11 +378,14 @@ class _Exchange:
     ``epoch`` is the host's count of the same: every launch, eager or
     replayed, reserves its epochs first (``reserve``), and once the count
     reaches ``EPOCH_RESTART`` the counters, words and epoch start afresh
-    (between two launches, on the stream).  A replay reserves its launches
-    one by one before it starts, while the device's epoch rises by all of
-    them; so a restart among those reservations leaves the host's count
-    behind the device's by one graph's passes at most, and restarting at
-    2**31 keeps the device's epoch far below 2**32.
+    (between two launches, on the stream).  A step's replay reserves its
+    launches one by one before it starts, while the device's epoch rises
+    by all of them; so a restart among those reservations leaves the
+    host's count behind the device's by one graph's passes at most, and
+    restarting at 2**31 keeps the device's epoch far below 2**32.  A
+    device-stopped solve reserves at once (``take``) the epochs of the
+    most trips its loops allow, so the host's count stays at or above the
+    device's.
 
     ``keep``: the exchange of a hierarchy's graphs (``_graph.owned``), whose
     graphs hold the addresses of every words buffer they recorded: one that
@@ -414,14 +417,20 @@ class _Exchange:
     def reserve(self, passes):
         """Account for a launch of ``passes`` passes before it runs: the
         device's epoch will rise by ``passes + 1``."""
-        if self.epoch + passes + 1 >= EPOCH_RESTART:     # start afresh
+        self.take(passes + 1)
+
+    def take(self, epochs):
+        """Account for ``epochs`` epochs before the launches that raise the
+        device's epoch by at most as many run (``_graph.ahead``: one launch,
+        or every launch a device-stopped solve may make)."""
+        if self.epoch + epochs >= EPOCH_RESTART:     # start afresh
             self.flags.zero_()
             for words in [self.words] + (self.retired or []):
                 words.zero_()
             self.ctl.zero_()
             self.ctl[0] = 1
             self.epoch = 1
-        self.epoch += passes + 1
+        self.epoch += epochs
 
 
 _EXCHANGES = {}
@@ -471,7 +480,7 @@ def _gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega,
     elif len(order) > 1:
         scratch = torch.empty_like(x)
     fn = getattr(lib or _lib(), f"pyamg_dia_gs_sweep_{_suffix(data.dtype)}")
-    _graph.on_replay(functools.partial(ex.reserve, len(order)))
+    _graph.ahead(ex, len(order) + 1)
     rc = fn(data.data_ptr(), len(offsets), data.shape[1],
             _device_ints(offsets, dev).data_ptr(), n, b.data_ptr(),
             Dinv.data_ptr(), colors.data_ptr(),

@@ -88,11 +88,12 @@ def ds_from_f64(x64):
 
 
 def ds_to_f64(hi, lo):
-    """Host: recombine a (hi, lo) pair (arrays or tensors) to f64 numpy."""
-    def host(v):
-        return v.cpu().numpy() if isinstance(v, torch.Tensor) \
-            else np.asarray(v)
-    return host(hi).astype(np.float64) + host(lo).astype(np.float64)
+    """Host: recombine a (hi, lo) pair (arrays or tensors; a pair of
+    tensors comes over in one read) to f64 numpy."""
+    if isinstance(hi, torch.Tensor) and isinstance(lo, torch.Tensor):
+        hi, lo = torch.stack([hi, lo]).cpu().numpy()
+    return np.asarray(hi).astype(np.float64) + \
+        np.asarray(lo).astype(np.float64)
 
 
 def ds_dot_f32(ahi, alo, bhi, blo):

@@ -86,9 +86,13 @@ def bspmv(A: BELL, x):
 
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x for banded A and x of shape (n,) or (n, k) (kernel K1 on
-    CUDA tensors, one launch)."""
+    CUDA tensors, one launch).  A complex band, which K1 does not take,
+    is torch operations, as the reference computes it with jnp where its
+    kernel takes no such dtype (``pallas_kernels.py:116-118``)."""
     if not isinstance(x, torch.Tensor):
         raise TypeError("dia_spmv takes a tensor")
+    if A.data.is_complex():
+        return dia_kernels.dia_spmv_plain(A.data, A.offsets, A.shape[0], x)
     return dia_kernels.dia_spmv(A.data, A.offsets, A.shape[0], x)
 
 

@@ -218,9 +218,11 @@ def gauss_seidel(A, x, b, iterations=1, sweep="forward", colors=None,
 
 
 def _color_passes(A, x, b, Dinv, colors, order, omega):
-    """The color passes ``order``: K2 on a DIA tensor, else a loop of
-    products and masked updates."""
-    if isinstance(A, DIA) and isinstance(x, torch.Tensor):
+    """The color passes ``order``: K2 on a real DIA tensor, else (a
+    complex band too, as in the reference, ``pallas_kernels.py:220``) a
+    loop of products and masked updates."""
+    if isinstance(A, DIA) and isinstance(x, torch.Tensor) and \
+            not A.data.is_complex():
         return dia_kernels.dia_gs_sweep(A.data, A.offsets, A.shape[0], x, b,
                                         Dinv, colors, order, omega)
     host = _host(x)

@@ -170,8 +170,12 @@ def setup_block_gauss_seidel(level, A, opts):
 
 
 def setup_cf_jacobi(level, A, opts):
-    """Needs the level's C/F ``splitting`` (1 = C point)."""
+    """Needs the level's C/F ``splitting`` (1 = C point).  On a BELL level
+    whose splitting is by block row (block AIR), each block row's split
+    holds for its unknowns."""
     split = np.asarray(level.splitting)
+    if isinstance(A, BELL) and split.shape[0] == A.n_block_rows:
+        split = np.repeat(split, A.blocksize[0])
     return ("cf_jacobi",
             {"iterations": int(opts.get("iterations", 1)),
              "f_iterations": int(opts.get("f_iterations", 1)),

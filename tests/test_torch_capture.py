@@ -97,10 +97,11 @@ def _tensors(prog):
 
 class StandIn:
     """A CUDA graph's stand-in: ``capture(body)`` runs the step under
-    ``on_card_rules`` from the state the warm-up started from (recording
-    its launch bookkeeping), then puts the program's tensors back as the
-    warm-up left them; ``replay()`` runs it again, its own tallies
-    discarded (the program adds those the capture recorded)."""
+    ``on_card_rules`` from the state the warm-up started from, where the
+    program recorded one (recording its launch bookkeeping), then puts
+    the program's tensors back as it found them; ``replay()`` runs it
+    again, its own tallies discarded (the program adds those the capture
+    recorded)."""
 
     def __init__(self, prog):
         self.prog = prog
@@ -112,6 +113,7 @@ class StandIn:
         for t in tensors:
             if id(t) in self.prog.before:
                 t.copy_(self.prog.before[id(t)])
+        self.prog.before = {}
         with on_card_rules():
             body()
         for t, a in zip(tensors, after):
@@ -128,19 +130,62 @@ class StandIn:
             _graph._recording = saved
 
 
+_REAL = {name: getattr(torch.Tensor, name) for name in READS}
+
+
+class StandInLoop:
+    """A device loop's stand-in (``_graph._DeviceLoop``): ``launch()``
+    runs the tree as the card does, each step by its stand-in graph's
+    replay (under ``on_card_rules``), each While while its flag is clear
+    and its counter below the limit, each Every by its counter, tallying
+    the trips of each body.  Reading the flags and counters here is the
+    stand-in modelling the device: it goes past the patches that count
+    and refuse host reads."""
+
+    def __init__(self, nodes, tally, slots):
+        self.nodes, self.tally, self.slots = nodes, tally, slots
+
+    def launch(self):
+        self.tally.zero_()
+        self._run(self.nodes)
+
+    def _run(self, nodes):
+        for n in nodes:
+            if isinstance(n, _graph.Step):
+                n.prog.graphs[n.name][0].replay()
+                continue
+            st, slot = n.prog.state, self.slots[id(n)]
+            if isinstance(n, _graph.Every):
+                then = (_REAL["__int__"](st[n.count]) + 1) % n.every == 0
+                self.tally[slot + (0 if then else 1)] += 1
+                self._run(n.then if then else n.other)
+                continue
+            while not _REAL["__bool__"](st[n.stop]) and \
+                    _REAL["__int__"](st[n.count]) < n.limit:
+                self._run(n.body)
+                self.tally[slot] += 1
+
+
 class StandInGraphs(_graph.Graphs):
-    """A captured program on the CPU, graphs by ``StandIn``; it keeps the
-    state as it was before each warm-up, which the stand-in records from
-    (on the card a capture runs nothing)."""
+    """A captured program on the CPU, graphs by ``StandIn`` and loops by
+    ``StandInLoop``; it keeps the state as it was before each warm-up of a
+    step run by itself, which the stand-in records from (on the card a
+    capture runs nothing)."""
 
     def __init__(self, owned=None):
         super().__init__(torch.device("cpu"), None, None,
-                         graph_type=lambda pool: StandIn(self), owned=owned)
+                         graph_type=lambda pool: StandIn(self), owned=owned,
+                         loop_type=StandInLoop)
         self.before = {}
+        self.before_warm = {}
 
-    def _record(self, name, step):
-        self.before = {id(t): t.clone() for t in _tensors(self)}
-        super()._record(name, step)
+    def _warm(self, name, step):
+        self.before_warm[name] = {id(t): t.clone() for t in _tensors(self)}
+        super()._warm(name, step)
+
+    def _capture(self, name, step):
+        self.before = self.before_warm.pop(name, {})
+        super()._capture(name, step)
 
 
 def _stand_in_program(owned=None):
@@ -167,14 +212,17 @@ def _solve(ml, b, **kw):
 
 
 def _captured_equals_eager(ml, b, **kw):
-    """Two captured solves (the first records, the second replays) and
-    one op by op: equal bit for bit.  Returns the programs recorded."""
+    """Two captured solves (the first records, the second replays), one
+    in each form (device-stopped, then one graph a step) and one op by op:
+    equal bit for bit.  Returns the programs recorded."""
     with _graph.eager():
         want = _solve(ml, b, **kw)
-    for _ in range(2):
-        x, info, res = _solve(ml, b, **kw)
+    for form in (contextlib.nullcontext, contextlib.nullcontext,
+                 _graph.per_step):
+        with form():
+            x, info, res = _solve(ml, b, **kw)
         assert torch.equal(x, want[0]) and info == want[1] and \
-            res == want[2], kw
+            res == want[2], (kw, form)
     return ml._graphs().captured()[0]
 
 
@@ -284,6 +332,189 @@ def test_a_step_may_not_change_a_state_tensor_shape():
         prog.run("s", lambda s: {"x": torch.ones(4)})
 
 
+# -- the device loop ------------------------------------------------------------
+
+class _Holder:
+    """What ``_graph.ahead`` reserves from (K2's exchange): the amounts
+    taken, in order."""
+
+    def __init__(self):
+        self.taken = []
+
+    def take(self, amount):
+        self.taken.append(amount)
+
+
+def _loop_tree(prog, inner, log, holder):
+    """An outer loop of 4 trips (``k``) whose body feeds an inner program
+    and runs its loop of k + 2 trips, each trip step A (every 2nd) or B;
+    the steps count through a stand-in wrapper (``log``) and reserve 3
+    units of ``holder`` a launch."""
+    def wrapper(tag, x):
+        _graph.ahead(holder, 3)
+        _graph.on_replay(lambda: log.append(tag))
+        return x * 2 + 1
+
+    zero_i = torch.zeros((), dtype=torch.int32)
+
+    def start(s):
+        return {"k": zero_i.clone(), "tot": s["x0"] * 0,
+                "stop": zero_i < 0}
+
+    def feed(s):
+        return {"x": prog.state["tot"] + prog.state["k"],
+                "it": zero_i.clone(),
+                "want": prog.state["k"] + 2, "stop": zero_i > 0}
+
+    def side(tag):
+        def fn(s):
+            it = s["it"] + 1
+            return {"x": wrapper(tag, s["x"]), "it": it,
+                    "stop": it >= s["want"]}
+        return fn
+
+    def outer(s):
+        k = s["k"] + 1
+        return {"k": k, "tot": s["tot"] + inner.state["x"],
+                "stop": k >= 4}
+
+    inner_loop = _graph.While(inner, [_graph.Every(
+        inner, 2, [_graph.Step(inner, "A", side("A"))],
+        [_graph.Step(inner, "B", side("B"))])], 9)
+    return [_graph.Step(prog, "start", start),
+            _graph.While(prog, [_graph.Step(inner, "feed", feed), inner_loop,
+                                _graph.Step(prog, "outer", outer)], 6,
+                         count="k")]
+
+
+def test_device_loop_counts_each_step_by_its_trips():
+    """A nested tree run as one device loop (stand-in) gives the op-by-op
+    result, and each step's launches count once for every trip the device
+    made of it: inner trips 2 + 3 + 4 + 5, of which 6 take A (every 2nd
+    of each inner loop), not the 7 that the total would give; the warm-ups
+    count nothing.  The reservations come before the replay, one for the
+    most trips (6 outer x 9 inner, 3 units each of A and B); the warm-ups
+    of A and B, launched for real, reserve their own."""
+    log, holder = [], _Holder()
+    eager = _graph.Program()
+    eager.put("x0", torch.ones(3))
+    want = eager.loop("t", _loop_tree(eager, _graph.Program(), log, holder),
+                      ("k", "tot"))
+    assert want[0] == 4 and sorted(log) == ["A"] * 6 + ["B"] * 8
+    assert holder.taken == [3] * 14
+    log, holder = [], _Holder()
+    prog, inner = _stand_in_program(), _stand_in_program()
+    prog.put("x0", torch.ones(3))
+    tree = _loop_tree(prog, inner, log, holder)
+    for taken in ([3, 3, 2 * 3 * 6 * 9], [2 * 3 * 6 * 9]):
+        log.clear()
+        holder.taken.clear()
+        assert prog.loop("t", tree, ("k", "tot")) == want
+        assert sorted(log) == ["A"] * 6 + ["B"] * 8
+        assert holder.taken == taken
+
+
+def test_a_device_loop_reads_the_host_once(monkeypatch):
+    """The tree's result comes back in one host read; the loop's own
+    flags are read on the device (the stand-in)."""
+    log, holder = [], _Holder()
+    prog, inner = _stand_in_program(), _stand_in_program()
+    prog.put("x0", torch.ones(3))
+    tree = _loop_tree(prog, inner, log, holder)
+    prog.loop("t", tree, ("k",))             # records
+    counts = _count_reads(monkeypatch)
+    assert prog.loop("t", tree, ("k", "tot"))[0] == 4
+    assert counts["n"] == 1
+
+
+def _count_reads(monkeypatch):
+    counts = {"n": 0}
+    for name in READS:
+        def counted(*args, _real=_REAL[name], **kwargs):
+            counts["n"] += 1
+            return _real(*args, **kwargs)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    return counts
+
+
+@pytest.mark.parametrize("accel", [None, "cg"], ids=["standalone", "cg"])
+def test_device_stopped_solves_read_the_host_once(ref, accel, monkeypatch,
+                                                  restore_coarse, captured):
+    """A device-stopped solve reads the host once, at its end (the
+    iterations, the flag, ``info`` and the history together); one graph
+    a step reads once more a step and once after ``start``."""
+    ml = _with_coarse(ref, "pinv")
+    b = _vec(17, ml.levels[0].A.shape[0])
+    _solve(ml, b, accel=accel, tol=1e-8, maxiter=40)     # records
+    reads = {}
+    for name, form in (("device", contextlib.nullcontext),
+                       ("per step", _graph.per_step)):
+        counts = _count_reads(monkeypatch)
+        with form():
+            x, info, res = _solve(ml, b, accel=accel, tol=1e-8, maxiter=40)
+        monkeypatch.undo()
+        reads[name] = counts["n"]
+    assert info == 0 and len(res) > 3
+    assert reads == {"device": 1, "per step": len(res) - 1 + 2}
+
+
+def test_device_stopped_ds_solve_reads_the_host_once(monkeypatch, captured):
+    """The double-single refined solve: one read of its loop's result
+    (outer and inner counts, history) and one of x."""
+    A64, ml = _ds_hierarchy(24)
+    b = _vec(18, A64.shape[0])
+    ml.solve_refined_device(b)                          # records
+    counts = _count_reads(monkeypatch)
+    it = {}
+    ml.solve_refined_device(b, iterations_out=it, residuals=[])
+    assert counts["n"] == 2 and it["outer"] >= 1 and it["inner"] > 2
+
+
+@pytest.mark.parametrize("maxiter", [0, 1, 2])
+@pytest.mark.parametrize("accel", [None, "cg", "ds"])
+def test_device_stopped_solves_at_the_smallest_limits(accel, maxiter,
+                                                      captured):
+    """Loops of 0, 1 and 2 trips at most: the device-stopped solve (whose
+    first run warms up every step of its tree, each from the state before
+    it) equals the op-by-op one, twice."""
+    A64, ml = _ds_hierarchy(24)
+    b = _vec(20, A64.shape[0])
+
+    def run():
+        if accel == "ds":
+            res, it = [], {}
+            x = ml.solve_refined_device(b, max_outer=max(maxiter, 1),
+                                        inner_maxiter=maxiter, tol=1e-14,
+                                        residuals=res, iterations_out=it)
+            return x, res, it
+        return _solve(ml, b, accel=accel, tol=1e-14, maxiter=maxiter)
+
+    with _graph.eager():
+        want = run()
+    for _ in range(2):
+        got = run()
+        assert np.array_equal(np.asarray(got[0]), np.asarray(want[0])) and \
+            got[1:] == want[1:]
+
+
+@pytest.mark.parametrize("kw", [{"accel": "cg"}, {}], ids=["cg",
+                                                           "standalone"])
+def test_a_callback_keeps_the_host_loop(kw, captured):
+    """With a callback the loop stays on the host, op by op, and sees every
+    iterate; without one the same solve is one device loop with the same
+    result."""
+    A64, ml = _ds_hierarchy(24)
+    b = _vec(19, A64.shape[0])
+    seen = []
+    x_cb = ml.solve(b, maxiter=5, callback=lambda x: seen.append(x.clone()),
+                    **kw)
+    assert len(seen) == 5 and ml._graphs().programs == {}
+    x = ml.solve(b, maxiter=5, **kw)
+    assert torch.equal(x, x_cb)
+    (prog,) = ml._graphs().programs.values()
+    assert len(prog.loops) == 1
+
+
 # -- no host read, and replay equals dispatch -----------------------------------
 
 @pytest.mark.parametrize("kind", COARSE, ids=_coarse_id)
@@ -296,9 +527,11 @@ def test_captured_solves_read_nothing_and_equal_dispatch(ref, kind,
         for accel in (None, "cg", "gmres", "fgmres"):
             _captured_equals_eager(ml, b, cycle=cycle, accel=accel, tol=1e-12,
                                    maxiter=3)
-    # standalone: start, cycle; CG: start, plain; GMRES and FGMRES: init,
-    # begin, three Arnoldi steps, the update, final; each cycle apart
-    assert ml._graphs().captured()[0] == 4 * (2 + 2 + 7 + 7)
+    # standalone: start, cycle; CG: start, true, plain (the true residual's
+    # step is recorded with the rest, though 3 iterations never reach it);
+    # GMRES and FGMRES: init, begin, three Arnoldi steps, the update,
+    # final; each cycle apart
+    assert ml._graphs().captured()[0] == 4 * (2 + 3 + 7 + 7)
 
 
 def _smoothed(spec):
@@ -347,13 +580,15 @@ def test_ds_refined_steps_read_nothing_and_equal_dispatch(captured):
 
     with _graph.eager():
         want = run()
-    for _ in range(2):
-        x, res, it = run()
+    for form in (contextlib.nullcontext, contextlib.nullcontext,
+                 _graph.per_step):
+        with form():
+            x, res, it = run()
         assert np.array_equal(x, want[0]) and res == want[1] and \
             it == want[2]
-    # the outer start and step, CG's start and plain iteration, under
-    # keys of their own
-    assert ml._graphs().captured()[0] == 4
+    # the outer start and step, and the inner solve's inputs (feed), CG's
+    # start and its two forms of iteration, under keys of their own
+    assert ml._graphs().captured()[0] == 6
     assert {k[0] for k in ml._graphs().programs} == {"ds", "ds-cg"}
     assert it["outer"] == 2 and res[-1] < 1e-10 * res[0]
 

@@ -330,17 +330,6 @@ def test_local_air_matches_reference(name, kw):
         assert abs(g - w).max() <= 1e-12 * abs(w).max()
 
 
-def test_block_and_complex_operators_raise(strength):
-    _, C, _, A, _ = strength
-    splitting = split.PMIS(C)
-    Z = A.astype(np.complex128)
-    for call in (lambda: itp.direct_interpolation(Z, C, splitting),
-                 lambda: itp.classical_interpolation(Z, C, splitting),
-                 lambda: itp.local_air(Z, splitting)):
-        with pytest.raises(NotImplementedError):
-            call()
-
-
 def test_advection_matches_reference():
     for grid, kw in (((24, 24), {}), ((16, 20), {"theta": np.pi / 6,
                                                   "l_bdry": 2.0})):

@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from pyamg_tpu_torch import _graph
 from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
 from pyamg_tpu_torch.classical import ruge_stuben_solver
 from pyamg_tpu_torch.gallery import poisson
@@ -500,6 +501,85 @@ def test_a_restart_within_a_replay_keeps_the_device_below_2_32():
             device, restarts = 1, restarts + 1
         device += total                    # what the replay's launches add
         assert device - ex.epoch <= total and device + total < 1 << 32
+    assert restarts == 1
+
+
+class _RecordedStep:
+    """A step graph's stand-in: the capture runs the step to record its
+    bookkeeping and puts the device's epoch back (a capture runs nothing
+    on the card); a replay runs the step again, its bookkeeping dropped
+    (the program applies what the capture recorded)."""
+
+    def __init__(self, ex):
+        self.ex = ex
+
+    def capture(self, body):
+        ctl = self.ex.ctl.clone()
+        body()
+        self.ex.ctl.copy_(ctl)
+        self.body = body
+
+    def replay(self):
+        saved, _graph._recording = _graph._recording, []
+        try:
+            self.body()
+        finally:
+            _graph._recording = saved
+
+
+class _DeviceLoop:
+    """A device loop's stand-in: runs one While of steps as the card does
+    (the flag and counter read here model the device)."""
+
+    def __init__(self, nodes, tally, slots):
+        self.nodes, self.tally, self.slots = nodes, tally, slots
+
+    def launch(self):
+        self.tally.zero_()
+        start, loop = self.nodes
+        start.prog.graphs[start.name][0].replay()
+        st = loop.prog.state
+        while not bool(st[loop.stop]) and int(st[loop.count]) < loop.limit:
+            for step in loop.body:
+                step.prog.graphs[step.name][0].replay()
+            self.tally[self.slots[id(loop)]] += 1
+
+
+def test_a_device_stopped_replay_keeps_the_host_epoch_at_or_above_the_device():
+    """A device-stopped solve reserves, before its one replay, the epochs
+    of the most trips its loop allows; the device's epoch then rises by
+    the trips it ran, fewer.  Over replays of random lengths, one of them
+    across the restart, the host's count stays at or above the device's
+    epoch (in ``ctl``), which stays below 2**32."""
+    cpu = torch.device("cpu")
+    ex = dk._Exchange(cpu)
+    passes, limit = (3, 7), 50
+    prog = _graph.Graphs(cpu, None, None, graph_type=lambda pool:
+                         _RecordedStep(ex), loop_type=_DeviceLoop)
+
+    def start(s):
+        zero = torch.zeros((), dtype=torch.int32)
+        return {"it": zero, "stop": zero > 0}
+
+    def trip(s):
+        for p in passes:                   # two K2 launches
+            _graph.ahead(ex, p + 1)
+            ex.ctl[0] += p + 1             # each raises the device's epoch
+        it = s["it"] + 1
+        return {"it": it, "stop": it >= s["want"]}
+
+    tree = [_graph.Step(prog, "start", start),
+            _graph.While(prog, [_graph.Step(prog, "trip", trip)], limit)]
+    most = limit * sum(p + 1 for p in passes)
+    ex.epoch = dk.EPOCH_RESTART - 2 * most
+    restarts = 0
+    for want in np.random.default_rng(3).integers(1, limit + 1, 8):
+        prog.put("want", torch.tensor(int(want), dtype=torch.int32))
+        before = ex.epoch
+        (trips,) = prog.loop("k2", tree, ("it",))
+        restarts += ex.epoch < before
+        device = int(ex.ctl[0])
+        assert trips == want and ex.epoch >= device and device < 1 << 32
     assert restarts == 1
 
 
