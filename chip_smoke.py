@@ -9,6 +9,15 @@ Phases, each printed on its own lines:
    versions, and the build of the CUDA kernels from ``pyamg_tpu_torch/csrc``
    (one ``nvcc`` per source, started together), with each kernel's
    registers, shared memory, stack frame and spills from ``-Xptxas -v``;
+   and the SWITCH probe of ``csrc/graph_cond.cu``;
+1b. launch: before any profiler session in the process, CG and the GMRES
+   family (GMRES on a V- and a W-cycle, MGS, Householder, FGMRES on a V-
+   and an F-cycle, restart 100) on S1's float64 500^2 hierarchy,
+   device-stopped and one graph a step in turn, bit for bit equal: the
+   graphs, their nodes, the medians of both forms and of the device
+   loop's launch call (``launch_phase``); then cupti: 40 profiler
+   sessions one after another around device-stopped solves on that
+   hierarchy, each equal to its unprofiled solve (``cupti_phase``);
 2. kernels: K1 (banded SpMV) against its plain PyTorch version to 0 on
    every DIA operator of both paths (500^2 levels 0 and 1, 64^3 A0) and
    at 2048^2, float32 and float64; on a 2- and a 3-column x (one launch
@@ -54,7 +63,21 @@ Phases, each printed on its own lines:
    stored non-zeros (value and column), not the padded slots of its plan.
 
 6. solvers: S1-S6, the rest of the solve phase, against the JAX
-   package's iteration counts (``solver_paths``, ``solvers_phase``);
+   package's iteration counts (``solver_paths``, ``solvers_phase``); S1,
+   S2 and S6 (GMRES, FGMRES) device-stopped now, one host sync a solve
+   (S6 one an inner solve);
+6b. krylov: ``solve(b, tol=1e-6, accel=m)`` on S1's float64 500^2
+   hierarchy (V-cycle, ``maxiter`` 100) for every Krylov method m of
+   ``krylov.__all__`` but CG (BiCGStab, CGNE, CGNR, CR, minimal
+   residual, steepest descent, GMRES, GMRES with modified Gram-Schmidt,
+   Householder GMRES, FGMRES; ``krylov_phase``): each device-stopped,
+   one host sync, bit for bit equal to its op-by-op and per-step forms
+   with the same launches, iterations within 1 of the JAX package's
+   (``JAX_KRYLOV``, ``tests/jax_krylov_reference.py``), CGNE's and
+   CGNR's last residual and true relative residual (they run to maxiter,
+   as the JAX package's do) within 1 % of the JAX package's, the warm
+   medians of the three forms and one profiled per-step solve; then the
+   solve's BiCGStab against the free-standing one of S5, bit for bit;
 7. classical: Ruge-Stuben on 2-D Poisson 500^2 and AIR-preconditioned
    GMRES on 2-D advection 256^2, built as ``bench_suite.py`` builds them:
    setup time by key, levels, operator complexity, layouts and SELL plans
@@ -133,7 +156,15 @@ Phases, each printed on its own lines:
    emulated in one process (the halo product of A0, A1 and A2, the
    gathered product of P0 and R0) against the unsharded product on the
    card.  One rank carries no halo: the phase measures the sharded
-   wrappers' own cost, not an exchange;
+   wrappers' own cost, not an exchange.  The sharded solves are
+   device-stopped now (NCCL's collectives captured with the rest): at
+   500^2, CG to 1e-8, 2 standalone cycles and GMRES to 1e-8 (restart 20)
+   on gspmd and halo, and CG on the unsharded hierarchy, each bit for bit
+   equal to its op-by-op and per-step forms with the same collectives,
+   one host sync, and the warm medians of the three forms; each CG to
+   1e-8 profiled once device-stopped (on gspmd and halo NCCL's
+   collectives inside a WHILE body) and once one graph a step; the NCCL
+   kernels are counted in a trace of the op-by-op form;
 12. parallel2: the distributed setup (``parallel/dist_setup.py``) on 2-D
    Poisson, float32, the power iterations started from ``hashed_start``
    as in ``tests/jax_dist_setup_reference.py`` (JAX_DIST): the dryrun's
@@ -144,26 +175,40 @@ Phases, each printed on its own lines:
    where nothing depends on rho and within DIST_TOL elsewhere, with the
    iterations within 1 and the true relative residual within 2x of the
    JAX package's, no K1-K5 launch, and, where timed, the setup seconds by
-   level, the peak memory beside the port's ``scale_model``, the warm
-   median of 5 solves, one profiled solve and the collectives; then the
-   one-rank hierarchy built again on a one-rank ``StackedMesh``, which
-   must equal the NCCL one bit for bit.
+   level, the peak memory beside the port's ``scale_model``, one profiled
+   per-step solve and the collectives; every ``solve_cg`` and
+   ``solve_fgmres`` device-stopped (one CUDA graph of a WHILE node, one
+   host sync), and where timed bit for bit equal to its op-by-op and
+   per-step forms with the warm medians of the three (``forms_gate``);
+   then the one-rank hierarchy built again on a one-rank ``StackedMesh``,
+   which must equal the NCCL one bit for bit.
 
-Every solve of phases 3-10 but S5 (BiCGStab, which stays op by op)
-replays CUDA graphs (``pyamg_tpu_torch/_graph.py``): standalone cycling,
-CG and the double-single refined solve as one graph with their loops on
-the device (a WHILE node; one host read a solve), GMRES and FGMRES one
-graph a step.  Each prints ``capture:`` lines beside its phase's
-(``capture_gate``): the same solve op by op (``_graph.eager()``) and one
-graph a step (``_graph.per_step()``) must equal the captured cold solve
-bit for bit (x, residual history, iterations) with equal launches per
-kernel, operator and color pass; a device-stopped solve must make one
-host sync (each inner solve of ``solve_refined`` one); then the graphs
-captured and their capture time, the warm medians of the three forms,
-one profiled op-by-op solve and ``profile_cycle`` beside the captured
-median per iteration.  The phases' own profiles of a captured solve run
-it one graph a step, since the profiler may not see the kernels inside a
-conditional node's body.  Phase 2 also replays a graph of 4 K2 sweeps 3
+Every solve of phases 3-12 but S5 (the free-standing
+``krylov.bicgstab``, which stays op by op, as free-standing Krylov calls
+do) replays CUDA graphs (``pyamg_tpu_torch/_graph.py``) as one graph
+with its loops on the device and one host read a solve: standalone
+cycling, CG, the double-single refined solve, every Krylov method of
+``solve`` (GMRES's Arnoldi step j and its update of j steps through a
+SWITCH node, one branch a j), the sharded solves and the distributed
+ones.  The device section prints the SWITCH probe of
+``csrc/graph_cond.cu`` (3 bodies, each run once by its index).  Each
+prints ``capture:`` lines beside its phase's (``forms_gate``, which
+every phase calls): the same solve device-stopped, op by op
+(``_graph.eager()``) and one graph a step (``_graph.per_step()``) must
+equal the phase's cold solve bit for bit (x, residual history,
+iterations) with equal launches per kernel, operator and color pass and
+equal collectives; a device-stopped solve must make one host sync (each
+inner solve of ``solve_refined`` one), GMRES and FGMRES included,
+counted by ``host_syncs`` (reads of a CUDA tensor's value and the loops'
+one read of their result), as every sync count of the script is; then
+the graphs captured and their capture time, the warm medians of the
+three forms, one profiled op-by-op solve and ``profile_cycle`` beside
+the device-stopped median per iteration.  The script sets
+``TEARDOWN_CUPTI=1``, so torch.profiler detaches CUPTI after each
+session and no warm median carries CUPTI's cost of about 0.4 us a graph
+node a launch (``launch_ms``, printed beside each median).  The phases' own profiles of a captured solve run it one graph a step,
+since the profiler may not see the kernels inside a conditional node's
+body.  Phase 2 also replays a graph of 4 K2 sweeps 3
 times with eager sweeps between, on the graph's exchange and on the
 stream's, and a device loop of K2 sweeps (K2 inside a WHILE body)
 stopped after 3, 8 and 5 sweeps, an eager sweep after each
@@ -179,8 +224,9 @@ Poisson 256^2 times 1 + 0.5i (complex128), uncompressed, gates their
 rows, blocksizes, layouts and operator complexity against
 ``JAX_CLASSICAL2`` (``tests/jax_classical2_reference.py``), and solves
 each by GMRES to 1e-8 (block AIR with its default F/C Jacobi and with
-block Jacobi, the JAX package's reference) and by 10 device-stopped
-standalone cycles: every solve the same bit for bit in its three forms,
+block Jacobi, the JAX package's reference) and by 10 standalone cycles,
+each device-stopped with one host sync: every solve the same bit for bit
+in its three forms,
 no K1-K5 launch, iterations within 1 of the JAX package's, the true
 relative residual of the complex paths at most twice its.
 
@@ -199,6 +245,11 @@ import subprocess
 import time
 
 import numpy as np
+
+# torch.profiler detaches CUPTI after each session only when this is 1:
+# left unset, CUPTI stays attached and every later launch of a device loop
+# pays about 0.4 us a node of its graph (see launch_ms)
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -226,6 +277,20 @@ JAX_SOLVERS = {"S1": 5, "S2": 7, "S3": 10, "S4": 16, "S5": 4,
 # stops on the preconditioned residual, so S1's true one is held to twice
 # the JAX package's, not to tol
 JAX_S1_TRUE_RELRES = 4.6727206771483163e-05
+# the JAX package's iterations and info of solve(b, tol=1e-6, accel=m) on
+# S1's hierarchy (V-cycle, maxiter 100; JAX_PLATFORMS=cpu
+# PYTHONPATH=.:tests python tests/jax_krylov_reference.py): the port's
+# iterations must equal them within 1, and converge where they converge
+JAX_KRYLOV = {"bicgstab": (4, 0), "cgne": (100, 100), "cgnr": (100, 100),
+              "cr": (7, 0), "minimal_residual": (18, 0),
+              "steepest_descent": (10, 0), "gmres": (6, 0),
+              "gmres_mgs": (6, 0), "gmres_householder": (6, 0),
+              "fgmres": (7, 0)}
+# the same command's last residual and true relative residual of CGNE and
+# CGNR, which run to maxiter (CG's best iterate of CGNE is its start, x = 0):
+# the port's must be within 1 % of them
+JAX_KRYLOV_UNCONVERGED = {"cgne": (3197.9016958258117, 1.0),
+                          "cgnr": (1.8764449164185004, 0.008224960661296486)}
 # the JAX package's classical paths (JAX_PLATFORMS=cpu PYTHONPATH=.:tests
 # python tests/jax_classical_reference.py; CPU, SELL kernels in interpret
 # mode): rows of the levels, operator complexity, each level's (A, P, R)
@@ -812,29 +877,24 @@ def csr_on(S, device, dtype=None):
 
 def profiled(fn):
     """Run ``fn`` once under torch.profiler: (wall us, device busy us,
-    device ops [(name, start, end)], host syncs).  A host sync is an
-    ``aten::_local_scalar_dense`` (a flag or scalar read) or a solve
-    loop's one read of its result (``_graph.READ_SCOPE``).  The profiler
-    may not see the kernels that run inside a conditional node's body (a
-    device-stopped loop): busy time is then that of the rest alone."""
+    device ops [(name, start, end)], host syncs, as ``host_syncs`` counts
+    them).  The profiler may not see the kernels that run inside a
+    conditional node's body (a device-stopped loop): busy time is then
+    that of the rest alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from pyamg_tpu_torch._graph import READ_SCOPE
     for k in range(TRACE_TRIES):    # as device_events: a trace with no
         if k:                       # device operation is taken again
             time.sleep(TRACE_PAUSE_S)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn()
+            syncs = host_syncs(fn)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        ops, syncs = [], 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ops.append((e.name, e.time_range.start, e.time_range.end))
-            elif e.name in ("aten::_local_scalar_dense", READ_SCOPE):
-                syncs += 1
+        ops = [(e.name, e.time_range.start, e.time_range.end)
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
         if ops:
             break
     busy = busy_us([(s, t) for _, s, t in ops])
@@ -996,11 +1056,13 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
                     xr, i = run(r)
                 return xr, r, i if name == "S6" else (i, len(r) - 1)
 
-            capture_gate("solvers", name, captured[0], replayed,
-                         (x_cold, res, info if name == "S6" else
-                          (info, len(res) - 1)), counts,
-                         statistics.median(walls), captured[1], reps,
-                         (lambda it: 1) if name in ("S3", "S4") else None)
+            forms_gate("solvers", name, replayed,
+                       # one host sync a solve; S6 one an inner solve
+                       (lambda it: len(it[1])) if name == "S6" else 1,
+                       captured[0], reps,
+                       ((x_cold, res, info if name == "S6" else
+                         (info, len(res) - 1)), counts), captured[1],
+                       op_profile=True)
         want = jax_counts[name]
         if name == "S6":
             check(its[0] == want[0] and len(its[1]) == len(want[1]) and
@@ -1021,6 +1083,88 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
         check(name != "S3" or not warned, f"{name} raised a warning")
         out[name] = launches
     return out
+
+
+def krylov_phase(dev, ml, S, b, want=None, reps=3):
+    """The ``krylov:`` phase: ``ml.solve(b, tol=1e-6, accel=m)`` for every
+    Krylov method m of ``krylov.__all__`` but CG on S1's hierarchy (a
+    V-cycle, ``maxiter`` 100; ``S`` its operator in scipy), each cold
+    device-stopped with the launch counts set to 0 just before and read
+    just after, then against its op-by-op and per-step forms
+    (``forms_gate``: bit for bit, one host sync device-stopped, the warm
+    medians of the three forms) and one profiled per-step solve; the
+    iterations within 1 of the JAX package's (``want``, JAX_KRYLOV),
+    ``info`` 0 where the JAX package's is 0, K1 and K2 (the hierarchy's
+    DIA levels) launched and no other kernel.  CGNE and CGNR converge
+    neither here nor in the JAX package: their last residual and true
+    relative residual must be within 1 % of the JAX package's
+    (JAX_KRYLOV_UNCONVERGED).  Then ``solve(accel="bicgstab")`` against
+    the free-standing ``krylov.bicgstab`` of S5 on the same V-cycle, bit
+    for bit."""
+    import warnings
+    import torch
+    from pyamg_tpu_torch import krylov
+    want = JAX_KRYLOV if want is None else want
+    bn = b.cpu().numpy()
+    kept = {}
+    for m in krylov.__all__:
+        if m == "cg":
+            continue
+
+        def run(m=m):
+            res = []
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                x, info = ml.solve(b, tol=1e-6, accel=m, residuals=res,
+                                   return_info=True)
+            return x, res, (info, len(res) - 1)
+
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        x, res, it = run()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        counts = counters()
+        launches = kernel_launches()
+        kept[m] = (x.clone(), res)
+        its, info = it[1], it[0]
+        ref_its, ref_info = want[m]
+        xn = x.cpu().numpy()
+        true = float(np.linalg.norm(bn - S @ xn) / np.linalg.norm(bn))
+        print(f"krylov: {m}: iterations {its} (JAX package {ref_its}), info "
+              f"{info} (JAX package {ref_info}), last residual {res[-1]!r}, "
+              f"true relative residual {true!r}, cold {cold:.3f} s (the "
+              f"capture of every step included), launches per solve "
+              f"{launches}")
+        print_profile(f"{m} captured per step", *profiled(per_step(run)),
+                      phase="krylov")
+        forms_gate("krylov", m, run, 1, ml, reps, ((x, res, it), counts),
+                   "V")
+        check(abs(its - ref_its) <= 1 and (info == 0) == (ref_info == 0),
+              f"krylov {m}: {its} iterations and info {info}, the JAX "
+              f"package's {ref_its} and {ref_info}")
+        if m in JAX_KRYLOV_UNCONVERGED:
+            ref_last, ref_true = JAX_KRYLOV_UNCONVERGED[m]
+            check(abs(res[-1] - ref_last) <= 0.01 * ref_last and
+                  abs(true - ref_true) <= 0.01 * ref_true,
+                  f"krylov {m}: last residual {res[-1]!r} and true relative "
+                  f"residual {true!r}, not within 1 % of the JAX package's "
+                  f"{ref_last!r} and {ref_true!r}")
+        check(bool(torch.isfinite(x).all()) and x.shape == b.shape,
+              f"krylov {m}: x is not a finite vector of the fine size")
+        check(launches["dia_spmv"] > 0 and launches["dia_gs_sweep"] > 0 and
+              all(v == 0 for k, v in launches.items()
+                  if k not in ("dia_spmv", "dia_gs_sweep")),
+              f"krylov {m}: launches {launches}, expected K1 and K2 only")
+    res = []
+    x, info = krylov.bicgstab(ml.levels[0].A, b, tol=1e-6,
+                              M=ml.aspreconditioner("V"), residuals=res)
+    same = torch.equal(x, kept["bicgstab"][0]) and res == kept["bicgstab"][1]
+    print(f"krylov: solve(accel='bicgstab') against the free-standing "
+          f"krylov.bicgstab (S5, op by op): bit for bit equal {same}, "
+          f"{len(res) - 1} iterations")
+    check(same, "krylov: solve's BiCGStab differs from the free-standing "
+                "one")
 
 
 def counters():
@@ -1058,95 +1202,276 @@ def per_step(fn):
     return run
 
 
-def capture_gate(phase, tag, ml, run, captured, counts, median_s, cycle="V",
-                 reps=5, reads=None):
-    """Replay against dispatch on one path.  ``run()`` solves once and
-    returns (x, residual history, iterations); ``captured`` is what the
-    path's captured cold solve (its default form: device-stopped where
-    the solve's loops are CG, standalone cycling or the double-single
-    refined solve) returned and ``counts`` the kernels' counters read
-    around it (set to 0 just before).  The same solve op by op
-    (``_graph.eager()``) and with one graph a step (``per_step``),
-    counters set to 0 around each, must give the same x, history and
-    iterations bit for bit and the same launches per kernel, operator and
-    color pass.  Then the warm medians of the three forms (the default
-    and the per-step form taken in turn, ``reps`` each, 3 where one solve
-    takes over 0.3 s, and op by op, 3 where one takes over a second), one
-    profiled op-by-op solve, and where ``reads`` is given the host syncs
-    of one profiled default solve, which must equal ``reads(iterations)``
-    (one a device-stopped solve; the callers profile the per-step form
-    themselves, as the profiler may not see the kernels in a conditional
-    body), the graphs
-    the hierarchy captured and their capture time, and
-    ``profile_cycle(cycle)`` beside the default median over the
-    iterations (``median_s``, the caller's own median of the default
-    form, is printed beside).  Returns (op-by-op median seconds,
-    profile_cycle seconds)."""
+def forms_gate(phase, tag, run, reads=1, ml=None, reps=3, cold=None,
+               cycle=None, op_profile=False):
+    """One solve in its three forms, held bit for bit.  ``run()`` solves
+    once and returns (x, more...), x a tensor or an array and the rest
+    compared by ``==``.  It runs device-stopped (the default form), op by
+    op (``_graph.eager()``) and one graph a step (``per_step``), with the
+    kernels' counters and the collectives (``partition.COUNTS``) set to 0
+    just before each and read just after; ``cold``, the caller's own first
+    solve in the default form and its ``counters()``, is held to the same.
+    Each must give the same x and rest bit for bit, the same launches per
+    kernel, operator and color pass, and the same collectives.  A
+    device-stopped solve must make ``reads`` host syncs (``host_syncs``;
+    an int, or a function of the result's third element, its
+    iterations); the per-step form's are printed beside.  With ``reps``:
+    the warm medians of the three forms (the device-stopped and per-step
+    solves taken in turn, ``reps`` each, 3 where one solve takes over 0.3
+    s; op by op min(``reps``, 3), 1 where one takes over a second), one
+    profiled op-by-op solve where ``op_profile`` (not over a second) and
+    the device loops' launch calls (``launch_ms``).  With ``ml`` (a
+    ``MultilevelSolver``) the graphs it captured and their capture
+    seconds; with ``cycle`` ``profile_cycle(cycle)`` beside the
+    device-stopped median an iteration.  Returns {"medians": {form:
+    seconds}, "result": the first solve's result, "collectives": its
+    collectives, "launches": {kernel: launches}, "cycle_s": the
+    profile_cycle seconds or None}."""
     import torch
     from pyamg_tpu_torch import _graph
-    xc, rc, ic = captured
-    xc = np.asarray(xc.cpu() if isinstance(xc, torch.Tensor) else xc)
-    forms = {"op by op": _graph.eager, "per step": _graph.per_step}
-    cold = 0.0
-    for form, ctx in forms.items():
+    from pyamg_tpu_torch.parallel import partition
+    forms = (("device-stopped", contextlib.nullcontext),
+             ("op by op", _graph.eager), ("per step", _graph.per_step))
+    out = {} if cold is None else {"cold": (cold[0], cold[1], None)}
+    slowest = 0.0
+    for form, ctx in forms:
+        partition.reset_counts()
         reset_kernel_launches()
         with ctx():
             t0 = time.perf_counter()
-            xe, re, ie = run()
+            got = run()
             torch.cuda.synchronize()
-            cold = max(cold, time.perf_counter() - t0)
-        ce = counters()
-        xe = np.asarray(xe.cpu() if isinstance(xe, torch.Tensor) else xe)
-        diff = float(np.max(np.abs(xc - xe))) if xc.shape == xe.shape \
-            else float("inf")
-        print(f"capture: {phase} {tag} {form}: x max |captured - {form}| "
-              f"{diff:.3e}, residuals equal {rc == re}, iterations {ic} / "
-              f"{ie}, launches equal {ce == counts}")
-        check(xc.shape == xe.shape and np.array_equal(xc, xe) and
-              rc == re and ic == ie,
-              f"{tag}: the captured solve differs from the {form} one")
-        check(ce == counts, f"{tag}: the captured solve's launches {counts} "
-                            f"differ from the {form} solve's {ce}")
-    walls = {"default": [], "per step": []}
-    for _ in range(3 if cold > 0.3 else reps):
-        for form, fn in (("default", run), ("per step", per_step(run))):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls[form].append(time.perf_counter() - t0)
-    op_reps = 3 if cold > 1.0 else reps
-    walls["op by op"] = []
-    with _graph.eager():
-        for _ in range(op_reps):
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            walls["op by op"].append(time.perf_counter() - t0)
-        print_profile(f"{tag} op by op", *profiled(run), phase=phase)
-    if reads is not None:
-        _, busy, ops, syncs = profiled(run)
-        want = reads(ic)
-        print(f"capture: {phase} {tag} device-stopped: host syncs {syncs} a "
-              f"solve (want {want}); the profiler saw {len(ops)} device "
-              f"operations, {busy / 1e3:.3f} ms busy")
-        check(syncs == want, f"{tag}: the device-stopped solve made {syncs} "
-                             f"host syncs, not {want}")
-    graphs, capture_s = ml._graphs().captured()
-    t_cycle = ml.profile_cycle(cycle)
-    iters = total_iterations(ic)
-    med = {k: statistics.median(v) for k, v in walls.items()}
-    print(f"capture: {phase} {tag} graphs {graphs} captured in "
-          f"{capture_s:.3f} s (paid once); warm medians: default "
-          f"{med['default'] * 1e3:.3f} ms (the phase's own "
-          f"{median_s * 1e3:.3f}), per step {med['per step'] * 1e3:.3f} ms, "
-          f"op by op {med['op by op'] * 1e3:.3f} ms (all "
-          f"{[[round(w * 1e3, 3) for w in v] for v in walls.values()]}); "
-          f"per step / default {med['per step'] / med['default']:.3f}x, op "
-          f"by op / default {med['op by op'] / med['default']:.2f}x; "
-          f"profile_cycle({cycle}) {t_cycle * 1e3:.4f} ms, default median "
-          f"/ {iters} iterations {med['default'] / max(iters, 1) * 1e3:.4f}"
-          f" ms")
-    return med["op by op"], t_cycle
+            if form != "device-stopped":    # its first solve records
+                slowest = max(slowest, time.perf_counter() - t0)
+        out[form] = (got, counters(), dict(partition.COUNTS))
+
+    def host(x):
+        return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+    first, counts, colls = next(iter(out.values()))
+    colls = colls if colls is not None else out["device-stopped"][2]
+    x0 = host(first[0])
+    same = {}
+    for form, (got, c, k) in out.items():
+        x = host(got[0])
+        same[form] = bool(x.shape == x0.shape and np.array_equal(x, x0) and
+                          got[1:] == first[1:] and c == counts and
+                          (k is None or k == colls))
+    syncs = host_syncs(run)
+    step_syncs = host_syncs(per_step(run))
+    want = reads(first[2]) if callable(reads) else reads
+    print(f"capture: {phase} {tag}: {', '.join(out)} bit for bit equal "
+          f"{same} (x, the rest {str(first[1:])[:160]}, launches, "
+          f"collectives {colls}); host syncs device-stopped {syncs} (want "
+          f"{want}), per step {step_syncs}")
+    check(all(same.values()), f"{tag}: the solve's forms differ: {same}")
+    check(syncs == want, f"{tag}: the device-stopped solve made {syncs} "
+                         f"host syncs, not {want}")
+    med = {}
+    if reps:
+        walls = {"device-stopped": [], "per step": [], "op by op": []}
+        for _ in range(3 if slowest > 0.3 else reps):
+            for form, fn in (("device-stopped", run),
+                             ("per step", per_step(run))):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[form].append(time.perf_counter() - t0)
+        with _graph.eager():
+            for _ in range(1 if slowest > 1.0 else min(reps, 3)):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls["op by op"].append(time.perf_counter() - t0)
+            if op_profile and slowest <= 1.0:
+                print_profile(f"{tag} op by op", *profiled(run),
+                              phase=phase)
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        print(f"capture: {phase} {tag}: warm medians device-stopped "
+              f"{med['device-stopped'] * 1e3:.3f} ms, per step "
+              f"{med['per step'] * 1e3:.3f} ms, op by op "
+              f"{med['op by op'] * 1e3:.3f} ms (all "
+              f"{[[round(w * 1e3, 3) for w in v] for v in walls.values()]});"
+              f" per step / device-stopped "
+              f"{med['per step'] / med['device-stopped']:.3f}x, op by op / "
+              f"device-stopped {med['op by op'] / med['device-stopped']:.2f}"
+              f"x; the device loops' launch calls {launch_ms(run):.3f} ms "
+              f"of host time a solve (see launch_ms)")
+    if ml is not None:
+        graphs, capture_s = ml._graphs().captured()
+        print(f"capture: {phase} {tag}: graphs {graphs} captured in "
+              f"{capture_s:.3f} s (paid once)")
+    t_cycle = None
+    if cycle is not None:
+        key = (id(ml), cycle)
+        if key not in _CYCLE_S:
+            _CYCLE_S[key] = ml.profile_cycle(cycle)
+        t_cycle = _CYCLE_S[key]
+        iters = total_iterations(first[2])
+        line = f"capture: {phase} {tag}: profile_cycle({cycle}) " \
+            f"{t_cycle * 1e3:.4f} ms"
+        if med:
+            line += f", device-stopped median / {iters} iterations " \
+                f"{med['device-stopped'] / max(iters, 1) * 1e3:.4f} ms"
+        print(line)
+    return {"medians": med, "result": first, "collectives": colls,
+            "launches": {k: v[0] for k, v in counts.items()},
+            "cycle_s": t_cycle}
+
+
+_CYCLE_S = {}       # profile_cycle of (hierarchy, cycle), taken once
+
+
+def launch_ms(run):
+    """Host milliseconds of the device loops' launch calls in one call of
+    ``run``: while CUPTI is attached (inside a torch.profiler session, or
+    after one unless ``TEARDOWN_CUPTI=1``) each launch of a device loop
+    costs about 0.4 us for every node of its graph, the branches not
+    taken included; outside a session it costs about 0.1 ms
+    (``launch_phase``)."""
+    from pyamg_tpu_torch import _graph
+    real, spent = _graph._DeviceLoop.launch, []
+
+    def timed(self):
+        t0 = time.perf_counter()
+        real(self)
+        spent.append(time.perf_counter() - t0)
+
+    _graph._DeviceLoop.launch = timed
+    try:
+        run()
+    finally:
+        _graph._DeviceLoop.launch = real
+    return sum(spent) * 1e3
+
+
+def launch_phase(dev, reps=5):
+    """The ``launch:`` phase, run before any profiler session in the
+    process: on S1's hierarchy (``build_hierarchy``: float64 grid SA of
+    2-D Poisson 500^2, its coarse tail collapsed to 4096 rows; b from
+    SEED), ``solve(b, tol=1e-6, accel=m, cycle=c, maxiter=100)`` for CG
+    and the GMRES family (100 the restart), device-stopped and one graph
+    a step in turn, ``reps`` warm solves each, both bit for bit equal to
+    the first solve (x and history).  Prints the graphs, their nodes, the
+    first solve's seconds (every step recorded), the medians of the two
+    forms and of the device loop's launch call (host time,
+    ``launch_ms``).  While CUPTI is attached each launch of a device loop
+    costs about 0.4 us a node of its graph: these are the medians of a
+    process that has never attached it."""
+    import torch
+    from pyamg_tpu_torch import _graph
+    A, ml, _ = build_hierarchy(500, 4096, dev, ds=False, dtype=np.float64)
+    ml.to_device(dev)
+    b = torch.as_tensor(np.random.default_rng(SEED).standard_normal(
+        A.shape[0]), device=dev)
+    for m, cycle in (("cg", "V"), ("gmres", "V"), ("gmres", "W"),
+                     ("gmres_mgs", "V"), ("gmres_householder", "V"),
+                     ("fgmres", "V"), ("fgmres", "F")):
+        def run(m=m, cycle=cycle):
+            res = []
+            x = ml.solve(b, tol=1e-6, accel=m, cycle=cycle, maxiter=100,
+                         residuals=res)
+            return x, res
+
+        t0 = time.perf_counter()
+        x, res = run()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        prog = ml._graphs().programs[(m, cycle, 1e-6, 100)]
+        nodes = sum(sum(_graph.node_types(g.raw()).values())
+                    for g, _ in prog.graphs.values())
+        walls = {"device-stopped": [], "per step": []}
+        launch = []
+        for _ in range(reps):
+            for form, fn in (("device-stopped", run),
+                             ("per step", per_step(run))):
+                t0 = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+                walls[form].append(time.perf_counter() - t0)
+                check(torch.equal(got[0], x) and got[1] == res,
+                      f"launch: {m} {cycle}-cycle {form} differs from the "
+                      f"first solve")
+            launch.append(launch_ms(run))
+        med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+        print(f"launch: {m} {cycle}-cycle, {len(res) - 1} iterations: "
+              f"{len(prog.graphs)} graphs, {nodes} nodes, first solve "
+              f"{cold:.3f} s (every step recorded); medians of {reps}: "
+              f"device-stopped {med['device-stopped']:.3f} ms, per step "
+              f"{med['per step']:.3f} ms (per step / device-stopped "
+              f"{med['per step'] / med['device-stopped']:.3f}x), the device "
+              f"loop's launch call {statistics.median(launch):.3f} ms (all "
+              f"{[[round(w * 1e3, 3) for w in v] for v in walls.values()]})")
+    return ml, b
+
+
+def cupti_phase(ml, b, rounds=40):
+    """The ``cupti:`` phase, right after ``launch_phase`` on its hierarchy:
+    ``rounds`` torch.profiler sessions one after another, each around a
+    device-stopped solve, CG recorded afresh (a new tol each round) and
+    GMRES of restart 100 replayed in turn, each bit for bit equal to the
+    same solve made just before without the profiler.  With
+    ``TEARDOWN_CUPTI=1`` (the script's setting) torch.profiler tears CUPTI
+    down after each session and attaches it again in the next; the phase
+    holds that this runs beside the device loops as often as the later
+    phases make it."""
+    import torch
+    t0 = time.perf_counter()
+    for k in range(rounds):
+        m = ("cg", "gmres")[k % 2]
+        tol = 1e-6 * (1 + k) if m == "cg" else 1e-6
+
+        def run(m=m, tol=tol):
+            res = []
+            return ml.solve(b, tol=tol, accel=m, maxiter=100,
+                            residuals=res), res
+
+        x, res = run()              # CG's first solve records its program
+        got = []
+        profiled(lambda: got.extend(run()))
+        check(torch.equal(got[0], x) and got[1] == res,
+              f"cupti: round {k} ({m}) differs under the profiler")
+    print(f"cupti: {rounds} profiler sessions around device-stopped solves "
+          f"({(rounds + 1) // 2} CGs recorded afresh, {rounds // 2} GMRES "
+          f"replays), TEARDOWN_CUPTI={os.environ.get('TEARDOWN_CUPTI')}, "
+          f"each equal to its solve without the profiler; "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def host_syncs(run):
+    """The host syncs of one call of ``run``, counted without the
+    profiler: reads of a CUDA tensor's value (``item``, ``bool``,
+    ``int``, ``float``, ``index``) and the solve loops' one read of their
+    result (``_graph.read``)."""
+    import torch
+    from pyamg_tpu_torch import _graph
+    count = [0]
+    real = {name: getattr(torch.Tensor, name) for name in
+            ("item", "__bool__", "__int__", "__float__", "__index__")}
+
+    def counted(name):
+        def fn(self, *args, **kwargs):
+            if self.is_cuda:
+                count[0] += 1
+            return real[name](self, *args, **kwargs)
+        return fn
+
+    real_read = _graph.read
+
+    def read(tensors):
+        count[0] += 1
+        return real_read(tensors)
+
+    try:
+        for name in real:
+            setattr(torch.Tensor, name, counted(name))
+        _graph.read = read
+        run()
+    finally:
+        for name, fn in real.items():
+            setattr(torch.Tensor, name, fn)
+        _graph.read = real_read
+    return count[0]
 
 
 def k2_replay_gate(dev, name, D, colors, nc, Dinv):
@@ -1530,15 +1855,11 @@ def drive_path(path, want, reps=5, phase="classical"):
         r, i = [], {}
         return solve(residuals=r, iterations_out=i), r, i
 
-    # a device-stopped solve reads the host once: each CG inner solve of
-    # solve_refined (or the path's own CG solve) once
-    reads = path.get("reads")
-    if reads is None and "solve" not in path and \
-            kw.get("accel", "cg") == "cg":
-        def reads(it):
-            return len(it["inner"])
-    capture_gate(phase, tag, ml, run, (x, res, it), counts,
-                 statistics.median(walls), kw.get("cycle", "V"), reps, reads)
+    # a device-stopped solve reads the host once: each inner solve of
+    # solve_refined (CG or GMRES; or the path's own solve) once
+    reads = path.get("reads", lambda it: len(it["inner"]))
+    forms_gate(phase, tag, run, reads, ml, reps, ((x, res, it), counts),
+               kw.get("cycle", "V"), op_profile=True)
     check(x.shape == b.shape and np.isfinite(x).all(),
           f"{tag}: x is not a finite vector of the right shape")
     ok, rule = path.get("iterations_ok", (iterations_near, "within 1"))
@@ -2260,6 +2581,7 @@ def parallel_flows(dev, mesh, n, want, reps=5, timed=False):
     unsharded hierarchy, the warm median of ``reps`` CGs to 1e-8, one
     profiled, and the collectives per solve.  Returns the hierarchies."""
     import torch
+    from pyamg_tpu_torch import _graph
     from pyamg_tpu_torch.parallel import partition
     from pyamg_tpu_torch.sparse.matrix import to_scipy
     tag = f"{n}^2"
@@ -2316,36 +2638,45 @@ def parallel_flows(dev, mesh, n, want, reps=5, timed=False):
     if not timed:
         return ml0, mlg, mlh
     for name, ml in (("unsharded", ml0), ("gspmd", mlg), ("halo", mlh)):
-        def solve(ml=ml):
-            return ml.solve(b, **cg8)
-        solve()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            solve()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        partition.reset_counts()
-        reset_kernel_launches()
-        solve()
-        per_solve = dict(partition.COUNTS)
-        launched = kernel_launches()
+        def solve(ml=ml, kw=cg8):
+            res = []
+            x, info = ml.solve(b, residuals=res, return_info=True, **kw)
+            return x, res, info
+
+        gate = forms_gate("parallel", f"{tag} {name} CG to 1e-8", solve,
+                          ml=ml, reps=reps)
+        med, per_solve, launched = (gate[k] for k in
+                                    ("medians", "collectives", "launches"))
         print(f"parallel: {tag} {name} CG to 1e-8 warm median of {reps} "
-              f"{statistics.median(walls) * 1e3:.3f} ms (all "
-              f"{[round(w * 1e3, 3) for w in walls]}), collectives per "
-              f"solve {per_solve}, kernel launches {launched}")
+              f"{med['device-stopped'] * 1e3:.3f} ms device-stopped (op by "
+              f"op {med['op by op'] * 1e3:.3f} ms), collectives per solve "
+              f"{per_solve}, kernel launches {launched}")
         check(all(v == 0 for v in launched.values()),
               f"{tag} {name}: a CUDA kernel launched: {launched}")
-        # the unsharded solve is device-stopped: profiled one graph a step,
-        # whose kernels the profiler sees
-        wall, busy, ops, syncs = profiled(per_step(solve))
-        print_profile(f"{tag} {name} CG to 1e-8", wall, busy, ops, syncs,
-                      top=8, phase="parallel")
-        nccl = nccl_kernels(led_in_ops(solve, mesh.device))
+        if name != "unsharded":
+            for what, kw in (("2 standalone cycles", sa2),
+                             ("GMRES to 1e-8", dict(maxiter=20, tol=1e-8,
+                                                    accel="gmres"))):
+                forms_gate("parallel", f"{tag} {name} {what}",
+                           functools.partial(solve, kw=kw), ml=ml, reps=reps)
+        # profiled device-stopped (NCCL's collectives inside a WHILE body)
+        # and one graph a step, whose kernels the profiler sees (it may
+        # miss those inside a conditional node's body)
+        print_profile(f"{tag} {name} CG to 1e-8 device-stopped",
+                      *profiled(solve), top=8, phase="parallel")
+        print_profile(f"{tag} {name} CG to 1e-8 per step",
+                      *profiled(per_step(solve)), top=8, phase="parallel")
+        # op by op: a one-rank group's collectives are copies, which the
+        # trace names by their NCCL call only when they are dispatched
+        def eager_solve():
+            with _graph.eager():
+                solve()
+
+        nccl = nccl_kernels(led_in_ops(eager_solve, mesh.device))
         print(f"parallel: {tag} {name} NCCL device operations in a trace of "
-              f"one solve led in by {TRACE_LEAD_IN} small operations {nccl} "
-              f"(collectives {per_solve})")
+              f"one solve (op by op) led in by {TRACE_LEAD_IN} small "
+              f"operations {nccl} (collectives {per_solve}, the same in "
+              f"every form)")
         check(all(v == per_solve[kind] for kind, v in nccl.items()
                   if kind in per_solve),
               f"{tag} {name}: the NCCL device operations {nccl} do not "
@@ -2656,19 +2987,15 @@ def dist_flow(tag, mesh, n, want, setup="sa", smoother="jacobi", reps=5,
           f"{tag}: a CUDA kernel launched on the distributed path: "
           f"{launched}")
     if timed:
-        walls = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solve()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        med = forms_gate("parallel2", f"{tag} {solve_name}", solve,
+                         reps=reps)["medians"]
         print(f"parallel2: {tag} {solve_name} warm median of {reps} "
-              f"{statistics.median(walls) * 1e3:.3f} ms (all "
-              f"{[round(w * 1e3, 3) for w in walls]})")
-        wall, busy, ops, syncs = profiled(solve)
-        print_profile(f"{tag} {solve_name}", wall, busy, ops, syncs, top=8,
-                      phase="parallel2")
+              f"{med['device-stopped'] * 1e3:.3f} ms device-stopped, "
+              f"{med['per step'] * 1e3:.3f} ms per step, "
+              f"{med['op by op'] * 1e3:.3f} ms op by op")
+        # profiled one graph a step, whose kernels the profiler sees
+        print_profile(f"{tag} {solve_name} (one graph a step)",
+                      *profiled(per_step(solve)), top=8, phase="parallel2")
     return hier, b, (x, relres, it, true)
 
 
@@ -2814,38 +3141,6 @@ def classical2_describe(ml):
                         for lvl in ml.levels]}
 
 
-def forms_equal(tag, run, reads=None):
-    """``run()`` (x, history, iterations) cold in its default form with the
-    launch counts set to 0 just before, then op by op and one graph a
-    step: each bit for bit the same, with the same launches.  ``reads``:
-    the host syncs the default form must make (profiled).  Returns the
-    default form's (x, history, iterations) and launches."""
-    import torch
-    from pyamg_tpu_torch import _graph
-    out = {}
-    for form, ctx in (("default", contextlib.nullcontext),
-                      ("op by op", _graph.eager),
-                      ("per step", _graph.per_step)):
-        reset_kernel_launches()
-        with ctx():
-            x, res, it = run()
-            torch.cuda.synchronize()
-        x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
-        out[form] = (x, res, it, counters())
-    x, res, it, counts = out["default"]
-    same = {form: bool(np.array_equal(v[0], x) and v[1] == res and
-                       v[2] == it and v[3] == counts)
-            for form, v in out.items()}
-    syncs = profiled(run)[3]
-    print(f"classical2: {tag}: default, op by op and per step bit for bit "
-          f"equal {same}, info {it}, history of {len(res)}, host syncs of "
-          f"the default form {syncs}")
-    check(all(same.values()), f"{tag}: the solve's forms differ: {same}")
-    check(reads is None or syncs == reads,
-          f"{tag}: {syncs} host syncs, not {reads}")
-    return (x, res, it), kernel_launches()
-
-
 def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
     """The ``classical2:`` phase: block AIR and complex RS/AIR
     (``classical2_paths``).  Each hierarchy is gated against ``want``
@@ -2856,7 +3151,7 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
     the JAX package, which raises there; then with block Jacobi, as the
     JAX package's reference), and by 10 cycles of standalone cycling,
     device-stopped, one host sync; every solve equal in its three forms
-    (``forms_equal``), with no K1-K5 launch; GMRES's iterations within
+    (``forms_gate``), with no K1-K5 launch; GMRES's iterations within
     one of the JAX package's, its preconditioned residual below tol and,
     on the complex paths, its true one at most twice the JAX package's."""
     want = JAX_CLASSICAL2 if want is None else want
@@ -2886,8 +3181,8 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
                                return_info=True)
             return x, res, info
 
-        _, launched = forms_equal(f"{name} standalone, 10 cycles",
-                                  standalone, reads=1)
+        launched = forms_gate("classical2", f"{name} standalone, 10 cycles",
+                              standalone, ml=ml, reps=0)["launches"]
         check(all(v == 0 for v in launched.values()),
               f"{name}: a kernel launched: {launched}")
         solves = [("GMRES", ml)]
@@ -2896,12 +3191,10 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
                       ("GMRES, block Jacobi", path["ml_block"])]
         for what, m in solves:
             run = functools.partial(gmres, m)
-            (x, res, _), launched = forms_equal(f"{name} {what}", run)
-            walls = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                run()
-                walls.append(time.perf_counter() - t0)
+            gate = forms_gate("classical2", f"{name} {what}", run, ml=m,
+                              reps=reps)
+            (x, res, _), launched = gate["result"], gate["launches"]
+            x = np.asarray(x.cpu())
             its = len(res) - 1
             pre = res[-1] / res[0]
             true = float(np.linalg.norm(b - S @ x) / np.linalg.norm(b))
@@ -2909,8 +3202,8 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
                   f"{ref['iterations']}), preconditioned relres {pre:.3e}, "
                   f"true relres {true:.3e} (JAX package "
                   f"{ref['true_relres']:.3e}), warm median of {reps} "
-                  f"{statistics.median(walls) * 1e3:.3f} ms, launches "
-                  f"{launched}")
+                  f"{gate['medians']['device-stopped'] * 1e3:.3f} ms, "
+                  f"launches {launched}")
             check(all(v == 0 for v in launched.values()),
                   f"{name}: a kernel launched: {launched}")
             check(x.shape == b.shape and np.isfinite(x).all() and pre < 1e-8,
@@ -2929,8 +3222,10 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
+    from pyamg_tpu_torch import _graph
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import ds as dsm
     from pyamg_tpu_torch.ops import sell_kernels as sk
@@ -2963,6 +3258,18 @@ def main():
                   f"stores {st} B, spill loads {ld} B")
     print(f"device: kernels built in {time.perf_counter() - t0:.1f} s")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    got, tally = _graph.probe_switch(dev)
+    print(f"device: SWITCH probe (csrc/graph_cond.cu): bodies wrote {got} "
+          f"for the index 0, 1, 2, 3 (want [1, 2, 3, 0]), tally {tally}")
+    check(got == [1, 2, 3, 0] and tally == [1, 1, 1],
+          "the card runs no SWITCH node as built")
+
+    # -- 1b. launch: device-stopped solves before any profiler session ---
+    t0 = time.perf_counter()
+    ml_l, b_l = launch_phase(dev)
+    print(f"launch: phase {time.perf_counter() - t0:.2f} s")
+    cupti_phase(ml_l, b_l)
+    del ml_l, b_l
 
     # -- 2. kernels against their plain versions ---------------------------
     _, ml_k, _ = build_hierarchy(500, 0, dev, ds=False)
@@ -3497,9 +3804,9 @@ def main():
         return ml.solve_refined_device(b, residuals=r, iterations_out=i), r, i
 
     main_median = statistics.median(walls)
-    _, t_cycle = capture_gate("times", "500^2", ml, main_run, main_cold,
-                              main_counts, main_median,
-                              reads=lambda it: 1)
+    t_cycle = forms_gate("times", "500^2", main_run, 1, ml, 5,
+                         (main_cold, main_counts), "V",
+                         op_profile=True)["cycle_s"]
     per_iteration = main_median / main_cold[2]["inner"]
     check(0 < t_cycle < per_iteration,
           f"500^2: profile_cycle {t_cycle:.3e} s is not positive and below "
@@ -3611,9 +3918,8 @@ def main():
         return ml3.solve_refined(b3, A_fine=S3, tol=1e-10, accel="cg",
                                  residuals=r, iterations_out=i), r, i
 
-    capture_gate("times", "64^3", ml3, sa3d_run, sa3d_cold, sa3d_counts,
-                 statistics.median(walls3),
-                 reads=lambda it: len(it["inner"]))
+    forms_gate("times", "64^3", sa3d_run, lambda it: len(it["inner"]), ml3,
+               5, (sa3d_cold, sa3d_counts), "V", op_profile=True)
 
     sell_src = "pyamg_tpu_torch/csrc/sell_kernels.cu"
 
@@ -3678,6 +3984,12 @@ def main():
     solver_launches = solvers_phase(dev, paths, JAX_SOLVERS,
                                     JAX_S1_TRUE_RELRES)
     print(f"solvers: launches per solve {solver_launches}")
+
+    # -- 6b. krylov: every Krylov method of solve, device-stopped ----------
+    t0 = time.perf_counter()
+    krylov_phase(dev, paths[0][8][0], paths[0][3],
+                 torch.as_tensor(paths[0][4], device=dev))
+    print(f"krylov: phase {time.perf_counter() - t0:.2f} s")
     del paths
 
     # -- 7. classical: Ruge-Stuben 500^2 and AIR 256^2 ----------------------
@@ -3796,6 +4108,8 @@ def main():
     parallel2_phase(dev)
     print(f"parallel2: phase {time.perf_counter() - t0:.2f} s")
 
+    print(f"chip_smoke: every check passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

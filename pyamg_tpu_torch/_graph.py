@@ -6,16 +6,19 @@ The JAX package runs each solve as one compiled program whose loop is a
 ``_get_accel_run``, ``_get_standalone_run``, ``_get_ds_refined_run``).
 Here a solve is a tree of named steps, each a function of one dict of
 state tensors (a ``Program``), inside loops: ``While`` (run a body while
-the state's stop flag is clear and its trip counter is below a limit) and
-``Every`` (one of two bodies, by the trip counter).  ``Program.loop`` runs
-the tree and reads the values the caller asks for once at the end.
+the state's stop flag is clear and its trip counter is below a limit),
+``Every`` (one of two bodies, by the trip counter) and ``Switch`` (body k
+of several, k a loop's counter: GMRES's Arnoldi step j).
+``Program.loop`` runs the tree and reads the values the caller asks for
+once at the end.
 
 * Op by op (the CPU, ``eager()``, a loop with a callback), the host runs
   the loops and reads the stop flag once a trip.
 * On a CUDA device each step is recorded once as a CUDA graph in the
   hierarchy's memory pool, and the whole tree becomes one CUDA graph of
   those steps with conditional nodes (``csrc/graph_cond.cu``): a WHILE
-  node a loop, an IF node with an ELSE body an ``Every``.  A solve is one
+  node a loop, an IF node with an ELSE body an ``Every``, a SWITCH node a
+  ``Switch``.  A solve is one
   replay and one host read at its end.  ``per_step()`` runs the steps'
   graphs with the loops on the host instead, one replay and one flag read
   a step (the form before the stop moved to the device; ``chip_smoke.py``
@@ -165,26 +168,46 @@ class Every:
         self.then, self.other, self.count = then, other, count
 
 
-def _walk(nodes, trips=1, body=None):
-    """(Step, the most times it runs, the body it is in) for every step of
-    ``nodes``, in order; a body is a While or an (Every, side)."""
+class Switch:
+    """``branches[k]`` (a list of nodes; none when k is out of range)
+    where ``prog.state[index]`` (an int32 scalar) holds k.  ``index`` is
+    the counter of a ``While`` of the same program, around the switch or
+    run before it, so that the host knows k without a read."""
+
+    def __init__(self, prog, index, branches):
+        self.prog, self.index = prog, index
+        self.branches = [list(b) for b in branches]
+
+
+def _walk(nodes, trips=1, body=None, branch=None):
+    """(Step, the most times it runs, the body it is in, the Switch
+    branch it is in) for every step of ``nodes``, in order; a body is a
+    While or an (Every or Switch, side), a branch (id(Switch), k) of the
+    nearest Switch around it, or None."""
     for node in nodes:
         if isinstance(node, Step):
-            yield node, trips, body
+            yield node, trips, body, branch
         elif isinstance(node, Every):
-            yield from _walk(node.then, trips, (node, 0))
-            yield from _walk(node.other, trips, (node, 1))
+            yield from _walk(node.then, trips, (node, 0), branch)
+            yield from _walk(node.other, trips, (node, 1), branch)
+        elif isinstance(node, Switch):
+            for k, b in enumerate(node.branches):
+                yield from _walk(b, trips, (node, k), (id(node), k))
         else:
-            yield from _walk(node.body, trips * node.limit, node)
+            yield from _walk(node.body, trips * node.limit, node, branch)
 
 
 def _loops(nodes):
-    """Every While and Every of ``nodes``, outer ones first."""
+    """Every While, Every and Switch of ``nodes``, outer ones first."""
     for node in nodes:
         if isinstance(node, Every):
             yield node
             yield from _loops(node.then)
             yield from _loops(node.other)
+        elif isinstance(node, Switch):
+            yield node
+            for b in node.branches:
+                yield from _loops(b)
         elif isinstance(node, While):
             yield node
             yield from _loops(node.body)
@@ -192,29 +215,42 @@ def _loops(nodes):
 
 def _slots(nodes):
     """({id(loop): its first tally slot}, slots): one slot a While's body,
-    two an Every's (its sides)."""
+    two an Every's (its sides), one a branch of a Switch."""
     slots, n = {}, 0
     for node in _loops(nodes):
         slots[id(node)] = n
-        n += 2 if isinstance(node, Every) else 1
+        n += 2 if isinstance(node, Every) else \
+            len(node.branches) if isinstance(node, Switch) else 1
     return slots, n
 
 
-def _host(nodes, trips=0):
+def _host(nodes, known):
     """Run ``nodes`` with the loops on the host (one read of the stop flag
-    a trip); ``trips``: the enclosing loop's trips so far."""
+    a trip, none once the trips reach the limit); ``known``: {(id(program),
+    counter): its value}, the trips so far of each loop run (an Every and
+    a Switch read theirs there)."""
     for node in nodes:
         if isinstance(node, Step):
             node.prog.run(node.name, node.fn)
         elif isinstance(node, Every):
+            trips = known[(id(node.prog), node.count)]
             _host(node.then if (trips + 1) % node.every == 0 else node.other,
-                  trips)
+                  known)
+        elif isinstance(node, Switch):
+            key = (id(node.prog), node.index)
+            if key not in known:
+                raise ValueError(f"a Switch's index {node.index!r} must be "
+                                 f"the counter of a loop run before it")
+            k = known[key]
+            if 0 <= k < len(node.branches):
+                _host(node.branches[k], known)
         else:
             st = node.prog.state
-            k = 0
-            while not bool(st[node.stop]) and k < node.limit:
-                _host(node.body, k)
-                k += 1
+            key = (id(node.prog), node.count)
+            k = known[key] = 0
+            while k < node.limit and not bool(st[node.stop]):
+                _host(node.body, known)
+                k = known[key] = k + 1
                 if node.callback is not None:
                     node.callback(st)
 
@@ -260,7 +296,7 @@ class Program:
         """Run the tree ``nodes`` (named ``name`` among this program's
         trees) and return the values of the state's ``keys`` after it, in
         one host read (``read``)."""
-        _host(nodes)
+        _host(nodes, {})
         return read([self.state[k] for k in keys])
 
     def static(self, key, make):
@@ -308,7 +344,10 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
 
     def capture(self, body):
-        self.graph.capture_begin(pool=self.pool)
+        # thread_local: a process group's watchdog thread polls its events
+        # while a step with collectives records
+        self.graph.capture_begin(pool=self.pool,
+                                 capture_error_mode="thread_local")
         try:
             body()
         finally:
@@ -344,6 +383,11 @@ def _lib():
             ("while", [vp, vp, vp, vp, i32, P(u64), P(vp), P(vp)]),
             ("while_close", [vp, vp, u64, vp, vp, i32, vp, P(vp)]),
             ("every", [vp, vp, vp, i32, vp, P(vp), P(vp), P(vp)]),
+            ("switch", [vp, vp, vp, i32, vp, P(vp), P(vp)]),
+            ("empty", [vp, vp, P(vp)]),
+            ("switch_probe", [vp, vp, vp, vp, vp]),
+            ("node_types", [vp, vp, i32]),
+            ("alloc_context", [vp, ctypes.c_char_p, i32]),
             ("instantiate", [P(vp), vp]), ("launch", [vp, vp]),
             ("exec_free", [vp])]:
         f = getattr(lib, f"pyamg_graph_{name}")
@@ -356,12 +400,54 @@ def _ok(rc, what):
         raise RuntimeError(f"device loop: {what}: CUDA error {rc}")
 
 
+_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+               "wait event", "event record", "semaphore signal",
+               "semaphore wait", "memory allocation", "memory free",
+               "batch memory operation", "conditional")
+
+
+def node_types(raw):
+    """{type: count} of the nodes of the ``cudaGraph_t`` ``raw``, its
+    child graphs' included."""
+    counts = (ctypes.c_int32 * 16)()
+    _ok(_lib().pyamg_graph_node_types(raw, counts, 16), "node types")
+    return {(_NODE_TYPES[k] if k < len(_NODE_TYPES) else k): c
+            for k, c in enumerate(counts) if c}
+
+
+def alloc_context(raw):
+    """Where the memory allocation and free nodes of the ``cudaGraph_t``
+    ``raw`` sit: the kernels captured just before and after each."""
+    buf = ctypes.create_string_buffer(8192)
+    _ok(_lib().pyamg_graph_alloc_context(raw, buf, len(buf)),
+        "allocation nodes")
+    return buf.value.decode(errors="replace")
+
+
+def probe_switch(device):
+    """Run ``csrc/graph_cond.cu``'s SWITCH probe on ``device``: a graph
+    of one SWITCH node of 3 bodies (body k writes k + 1) launched with the
+    index 0, 1, 2 and 3.  Returns (the four values written, the tally of
+    the three bodies): [1, 2, 3, 0] and [1, 1, 1] where the card runs
+    SWITCH nodes; a refused node raises."""
+    buf = torch.zeros(9, dtype=torch.int32, device=device)
+    ptr = buf.data_ptr()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        _ok(_lib().pyamg_graph_switch_probe(ptr, ptr + 4, ptr + 8, ptr + 24,
+                                            stream.cuda_stream),
+            "SWITCH probe")
+    vals = buf.tolist()
+    return vals[2:6], vals[6:9]
+
+
 class _DeviceLoop:
     """A tree as one CUDA graph: the steps' graphs as child graphs, each
     ``While`` a WHILE node, each ``Every`` an IF node with an ELSE body,
-    and ``tally[slot]`` raised on the device on every trip of a body (a
-    While's, or a side of an Every: two slots).  ``launch()`` runs it on
-    the current stream."""
+    each ``Switch`` a SWITCH node (CUDA 12.8; one body a branch), and
+    ``tally[slot]`` raised on the device on every trip of a body (a
+    While's, a side of an Every: two slots, a branch of a Switch: one
+    each).  ``launch()`` runs it on the current stream."""
 
     def __init__(self, nodes, tally, slots):
         lib = _lib()
@@ -387,29 +473,48 @@ class _DeviceLoop:
             dep = self._add(g, dep, n, tally, slots)
         return dep
 
+    def _body(self, g, nodes, tally, slots):
+        """``nodes`` as the body ``g`` of a conditional node, an empty
+        node where they add none."""
+        if self._chain(g, nodes, tally, slots) is None:
+            out = ctypes.c_void_p()
+            _ok(self.lib.pyamg_graph_empty(g, None, ctypes.byref(out)),
+                "empty body")
+
     def _add(self, g, dep, n, tally, slots):
         lib, out = self.lib, ctypes.c_void_p()
         if isinstance(n, While) and n.limit == 0:     # never runs
             return dep
         if isinstance(n, Step):
             raw = n.prog.graphs[n.name][0].raw()
-            _ok(lib.pyamg_graph_child(g, dep, raw, ctypes.byref(out)),
-                f"step {n.name!r}")
+            rc = lib.pyamg_graph_child(g, dep, raw, ctypes.byref(out))
+            _ok(rc, f"step {n.name!r} (its nodes by type: "
+                    f"{node_types(raw) if rc else None}; "
+                    f"{alloc_context(raw) if rc else ''})")
             return out
         st = n.prog.state
-        count = st[n.count]
+        count = st[n.index if isinstance(n, Switch) else n.count]
         if count.dtype != torch.int32 or count.ndim:
-            raise TypeError(f"a loop's counter {n.count!r} must be an int32 "
-                            f"scalar")
+            raise TypeError("a loop's counter or a switch's index must be "
+                            "an int32 scalar")
         slot = tally[slots[id(n)]:].data_ptr()
+        if isinstance(n, Switch):
+            m = len(n.branches)
+            bodies = (ctypes.c_void_p * m)()
+            _ok(lib.pyamg_graph_switch(g, dep, count.data_ptr(), m, slot,
+                                       bodies, ctypes.byref(out)),
+                "SWITCH node")
+            for k, branch in enumerate(n.branches):
+                self._body(ctypes.c_void_p(bodies[k]), branch, tally, slots)
+            return out
         if isinstance(n, Every):
             then, other = ctypes.c_void_p(), ctypes.c_void_p()
             _ok(lib.pyamg_graph_every(g, dep, count.data_ptr(), n.every,
                                       slot, ctypes.byref(then),
                                       ctypes.byref(other), ctypes.byref(out)),
                 "IF node")
-            self._chain(then, n.then, tally, slots)
-            self._chain(other, n.other, tally, slots)
+            self._body(then, n.then, tally, slots)
+            self._body(other, n.other, tally, slots)
             return out
         stop = st[n.stop]
         if stop.dtype != torch.bool or stop.ndim:
@@ -498,19 +603,30 @@ class Graphs(Program):
         if entry is None:
             entry = self.loops[name] = self._build(nodes)
         dev, tally, plan = entry
-        # reserve for the most trips each step could make
-        totals = {}
-        for prog, sname, most, _ in plan:
+        # reserve for the most trips each step could make; the branches of
+        # a Switch exclude each other, so a Switch reserves for its
+        # largest branch
+        totals, branches = {}, {}
+        for prog, sname, most, _, branch in plan:
             for h in prog.graphs[sname][1]:
                 if isinstance(h, tuple):
-                    held = totals.setdefault(id(h[0]), [h[0], 0])
+                    into = totals if branch is None else \
+                        branches.setdefault(branch, {})
+                    held = into.setdefault(id(h[0]), [h[0], 0])
                     held[1] += h[1] * most
+        largest = {}
+        for (switch, _), held in branches.items():
+            for key, (holder, amount) in held.items():
+                top = largest.setdefault((switch, key), [holder, 0])
+                top[1] = max(top[1], amount)
+        for (_, key), (holder, amount) in largest.items():
+            totals.setdefault(key, [holder, 0])[1] += amount
         for holder, amount in totals.values():
             holder.take(amount)
         dev.launch()
         vals = read([tally] + [self.state[k] for k in keys])
         trips = vals[0]
-        for prog, sname, _, slot in plan:
+        for prog, sname, _, slot, _ in plan:
             counts = [h for h in prog.graphs[sname][1]
                       if not isinstance(h, tuple)]
             for _ in range(1 if slot is None else trips[slot]):
@@ -521,15 +637,15 @@ class Graphs(Program):
     def _build(self, nodes):
         """Warm up and record every step of ``nodes`` not recorded yet,
         then make the tree's device loop: (loop, tally, [(program, step,
-        most runs, tally slot or None)])."""
+        most runs, tally slot or None, Switch branch or None)])."""
         global _quiet
         t0 = time.perf_counter()
         walked = list(_walk(nodes))
         slots, n_slots = _slots(nodes)
         walked = [w for w in walked if w[1] > 0]    # a loop of limit 0
-        todo = [(s.prog, s.name, s.fn) for s, _, _ in walked
+        todo = [(s.prog, s.name, s.fn) for s, _, _, _ in walked
                 if s.name not in s.prog.graphs]
-        progs = {id(s.prog): s.prog for s, _, _ in walked}
+        progs = {id(s.prog): s.prog for s, _, _, _ in walked}
         with self._side() as cuda:
             _quiet = True
             try:
@@ -554,12 +670,12 @@ class Graphs(Program):
         if cuda:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
         plan = []
-        for s, most, body in walked:
+        for s, most, body, branch in walked:
             slot = None
             if body is not None:
                 slot = slots[id(body[0])] + body[1] \
                     if isinstance(body, tuple) else slots[id(body)]
-            plan.append((s.prog, s.name, most, slot))
+            plan.append((s.prog, s.name, most, slot, branch))
         self.capture_s += time.perf_counter() - t0
         return loop, tally, plan
 

@@ -13,6 +13,9 @@
 //   * an IF node with an ELSE body (CUDA 12.8) picks one of two bodies by
 //     the trip counter: ((count + 1) % every == 0), the CG loop's
 //     every-8th true residual;
+//   * a SWITCH node (CUDA 12.8) runs body k of n when a device index holds
+//     k (none when it is out of range): GMRES's Arnoldi step and update,
+//     one graph for each step count j;
 //   * the same one-thread kernels tally, in device memory, the trips each
 //     body ran, which the host reads once after the replay (it applies
 //     the steps' launch counts that many times).
@@ -23,12 +26,14 @@
 // are chains.  A plain C ABI, bound with ctypes; each entry point returns
 // a cudaError_t (0 on success).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstdio>
 
 #if CUDART_VERSION < 12080
-#error "graph_cond.cu needs CUDA 12.8 (IF nodes with an ELSE body)"
+#error "graph_cond.cu needs CUDA 12.8 (IF nodes with an ELSE body, SWITCH nodes)"
 #endif
 
 namespace {
@@ -49,6 +54,18 @@ __global__ void set_every(cudaGraphConditionalHandle h, const int32_t* count,
   ++tally[then ? 0 : 1];
   cudaGraphSetConditional(h, then ? 1u : 0u);
 }
+
+// body `*index` of a SWITCH node of n bodies; tally[k] counts body k
+__global__ void set_switch(cudaGraphConditionalHandle h, const int32_t* index,
+                           int n, int32_t* tally) {
+  const int32_t k = *index;
+  if (k >= 0 && k < n) ++tally[k];
+  cudaGraphSetConditional(h, (k >= 0 && k < n) ? static_cast<unsigned>(k)
+                                               : static_cast<unsigned>(n));
+}
+
+// the probe's bodies: body k writes k + 1
+__global__ void write_value(int32_t* out, int v) { *out = v; }
 
 __global__ void zero(int32_t* p, int n) {
   for (int i = 0; i < n; ++i) p[i] = 0;
@@ -157,6 +174,146 @@ int pyamg_graph_every(cudaGraph_t g, cudaGraphNode_t dep,
   *then_body = bodies[0];
   *else_body = bodies[1];
   return cudaSuccess;
+}
+
+// After `dep`: a kernel picking body *index (counting it in tally[k]),
+// then a SWITCH node of n bodies.  Returns the n (empty) bodies in
+// `bodies`.
+int pyamg_graph_switch(cudaGraph_t g, cudaGraphNode_t dep,
+                       const int32_t* index, int n, int32_t* tally,
+                       cudaGraph_t* bodies, cudaGraphNode_t* node) {
+  cudaGraphConditionalHandle h;
+  cudaError_t rc = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
+  if (rc != cudaSuccess) return rc;
+  cudaGraphNode_t set;
+  void* args[] = {&h, &index, &n, &tally};
+  rc = add_kernel(&set, g, dep, reinterpret_cast<void*>(set_switch), args);
+  if (rc != cudaSuccess) return rc;
+  return add_conditional(node, g, set, h, cudaGraphCondTypeSwitch,
+                         static_cast<unsigned int>(n), bodies);
+}
+
+// an empty node in `g` after `dep` (the body of a branch with no step)
+int pyamg_graph_empty(cudaGraph_t g, cudaGraphNode_t dep,
+                      cudaGraphNode_t* node) {
+  return cudaGraphAddEmptyNode(node, g, dep ? &dep : nullptr, dep ? 1 : 0);
+}
+
+// The switch probe: a graph of one SWITCH node of 3 bodies, body k
+// writing k + 1 into *out, launched for the index 0, 1, 2 and 3 (none);
+// the four values land in got[0..3] and the tally of the three bodies in
+// tally[0..2].  Device pointers; the caller reads them after a
+// synchronise.  Returns the first CUDA error, else 0.
+int pyamg_graph_switch_probe(int32_t* index, int32_t* out, int32_t* got,
+                             int32_t* tally, cudaStream_t stream) {
+  cudaGraph_t g;
+  cudaError_t rc = cudaGraphCreate(&g, 0);
+  if (rc != cudaSuccess) return rc;
+  cudaGraphExec_t exec = nullptr;
+  cudaGraphNode_t node;
+  cudaGraph_t bodies[3];
+  rc = static_cast<cudaError_t>(
+      pyamg_graph_switch(g, nullptr, index, 3, tally, bodies, &node));
+  for (int k = 0; k < 3 && rc == cudaSuccess; ++k) {
+    cudaGraphNode_t w;
+    int v = k + 1;
+    void* args[] = {&out, &v};
+    rc = add_kernel(&w, bodies[k], nullptr,
+                    reinterpret_cast<void*>(write_value), args);
+  }
+  if (rc == cudaSuccess) rc = cudaGraphInstantiate(&exec, g, 0);
+  for (int k = 0; k < 4 && rc == cudaSuccess; ++k) {
+    rc = cudaMemsetAsync(out, 0, sizeof(int32_t), stream);
+    if (rc == cudaSuccess)
+      rc = cudaMemcpyAsync(index, &k, sizeof(int32_t),
+                           cudaMemcpyHostToDevice, stream);
+    if (rc == cudaSuccess) rc = cudaGraphLaunch(exec, stream);
+    if (rc == cudaSuccess)
+      rc = cudaMemcpyAsync(got + k, out, sizeof(int32_t),
+                           cudaMemcpyDeviceToDevice, stream);
+    if (rc == cudaSuccess) rc = cudaStreamSynchronize(stream);
+  }
+  if (exec != nullptr) cudaGraphExecDestroy(exec);
+  cudaGraphDestroy(g);
+  return rc;
+}
+
+// The nodes of `g` by type (cudaGraphNodeType, counts[0..n)), the child
+// graphs' nodes included: what a refused node holds.
+int pyamg_graph_node_types(cudaGraph_t g, int32_t* counts, int n) {
+  size_t num = 0;
+  cudaError_t rc = cudaGraphGetNodes(g, nullptr, &num);
+  if (rc != cudaSuccess || num == 0) return rc;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[num];
+  rc = cudaGraphGetNodes(g, nodes, &num);
+  for (size_t i = 0; i < num && rc == cudaSuccess; ++i) {
+    cudaGraphNodeType type;
+    rc = cudaGraphNodeGetType(nodes[i], &type);
+    if (rc != cudaSuccess) break;
+    if (static_cast<int>(type) < n) ++counts[static_cast<int>(type)];
+    if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      rc = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (rc == cudaSuccess)
+        rc = static_cast<cudaError_t>(pyamg_graph_node_types(child, counts, n));
+    }
+  }
+  delete[] nodes;
+  return rc;
+}
+
+// The kernel names on both sides of every memory allocation or free
+// node of `g` (in the order the nodes were added, which is the order they
+// were captured), into out (len bytes, ';'-separated): what put them
+// there.  Names through the driver (cuGraphKernelNodeGetParams,
+// cuFuncGetName), "?" where it gives none.
+int pyamg_graph_alloc_context(cudaGraph_t g, char* out, int len) {
+  typedef CUresult (*Params)(CUgraphNode, CUDA_KERNEL_NODE_PARAMS*);
+  typedef CUresult (*FuncName)(const char**, CUfunction);
+  Params params = nullptr;
+  FuncName func_name = nullptr;
+  cudaDriverEntryPointQueryResult q;
+  cudaGetDriverEntryPoint("cuGraphKernelNodeGetParams",
+                          reinterpret_cast<void**>(&params),
+                          cudaEnableDefault, &q);
+  cudaGetDriverEntryPoint("cuFuncGetName",
+                          reinterpret_cast<void**>(&func_name),
+                          cudaEnableDefault, &q);
+  size_t num = 0;
+  cudaError_t rc = cudaGraphGetNodes(g, nullptr, &num);
+  if (rc != cudaSuccess) return rc;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[num + 1];
+  rc = cudaGraphGetNodes(g, nodes, &num);
+  auto name = [&](size_t i) -> const char* {
+    if (i >= num || !params || !func_name) return "?";
+    cudaGraphNodeType t;
+    if (cudaGraphNodeGetType(nodes[i], &t) != cudaSuccess ||
+        t != cudaGraphNodeTypeKernel)
+      return "(not a kernel)";
+    CUDA_KERNEL_NODE_PARAMS p = {};
+    const char* nm = nullptr;
+    if (params(reinterpret_cast<CUgraphNode>(nodes[i]), &p) != CUDA_SUCCESS ||
+        !p.func || func_name(&nm, p.func) != CUDA_SUCCESS || !nm)
+      return "?";
+    return nm;
+  };
+  int used = 0;
+  out[0] = 0;
+  for (size_t i = 0; i < num && rc == cudaSuccess; ++i) {
+    cudaGraphNodeType t;
+    rc = cudaGraphNodeGetType(nodes[i], &t);
+    if (rc != cudaSuccess) break;
+    if (t != cudaGraphNodeTypeMemAlloc && t != cudaGraphNodeTypeMemFree)
+      continue;
+    int w = snprintf(out + used, len - used, "%s %zu of %zu after %.120s "
+                     "before %.120s; ",
+                     t == cudaGraphNodeTypeMemAlloc ? "alloc" : "free", i,
+                     num, i ? name(i - 1) : "-", name(i + 1));
+    if (w < 0 || used + w >= len) break;
+    used += w;
+  }
+  delete[] nodes;
+  return rc;
 }
 
 int pyamg_graph_instantiate(cudaGraphExec_t* exec, cudaGraph_t g) {

@@ -4,8 +4,9 @@ Every method has the interface ``(A, b, x0=None, tol=1e-5, criteria='rr',
 maxiter=None, M=None, callback=None, residuals=None, device=None) ->
 (x, info)``: ``info`` is 0 on convergence, the iteration count when
 ``maxiter`` ran out and negative on a breakdown.  The iteration is a
-Python loop over tensor ops; every scalar stays on the device and the
-host reads one stop flag per iteration.
+tree of steps of a ``_graph.Program`` (``methods.py``, ``gmres.py``);
+every scalar stays on the device, and op by op the host reads one stop
+flag per iteration.
 
 Placement: a tensor or an operator already placed (``.to(device)``)
 stays where it is, and b and x0 follow it.  A host array or host
@@ -178,11 +179,3 @@ def finalize(residuals, resbuf, nres):
     if residuals is not None:
         head = resbuf[:int(nres)]
         residuals[:] = head if isinstance(head, list) else head.tolist()
-
-
-def final_info(info, it, maxiter, done):
-    """``info`` as an int: the iteration count where the loop ran out of
-    iterations without a verdict (one host read)."""
-    if not done and it >= maxiter:
-        info = torch.where(info == 0, it, info)
-    return int(info)

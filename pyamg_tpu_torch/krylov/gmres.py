@@ -8,13 +8,15 @@ Arnoldi step orthogonalizes by classical Gram-Schmidt applied twice
 ``MultilevelSolver.solve(accel="gmres")`` uses) or by sequential modified
 Gram-Schmidt (``"mgs"``, the default of ``gmres``).
 
-The loops are Python over tensor ops (``gmres_loop``'s as steps of a
-``_graph.Program``, which ``MultilevelSolver`` captures as CUDA graphs).
-The basis is allocated once per call as ``(restart + 1, n)``; the Hessenberg matrix, the Givens rotations
-and the residual estimate stay on the device.  The host reads the
-estimate's stop flags once per Arnoldi step, once when a later restart
-begins (its true preconditioned residual may already be below the
-tolerance) and once for the final ``info``.
+Each loop is a tree of steps of a ``_graph.Program`` (``_restarted``):
+the restart cycles, and in each the Arnoldi (or reflector) step j and the
+update of j steps, one step for each j, chosen by the device's j through
+a ``_graph.Switch``.  Op by op the host reads a stop flag a step and the
+result once; ``MultilevelSolver`` captures the tree as one CUDA graph
+with one read at its end.  The basis is allocated once per program as
+``(restart + 1, n)``; the Hessenberg matrix, the Givens rotations, the
+residual estimate, the step count and the history's length stay on the
+device.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from functools import partial
 
 import torch
 
+from pyamg_tpu_torch import _graph
 from pyamg_tpu_torch._graph import Program
 from pyamg_tpu_torch.krylov.common import (LOCAL, as_precond, finalize,
                                            norm, prepare, real_dtype,
@@ -46,13 +49,6 @@ def _givens(a, b):
     pha = torch.where(absa > 0, a / torch.where(absa > 0, absa, 1), 1.0)
     s = torch.where(safe, pha * _conj(b) / rs, 0.0)
     return c, s, torch.where(safe, pha * r, a)
-
-
-def _read_flags(conv, done):
-    """(conv, done) of two bool tensors, read on the host as one integer:
-    the one host read of an Arnoldi step."""
-    flags = int(conv.to(torch.int32) + 2 * done.to(torch.int32))
-    return bool(flags & 1), bool(flags & 2)
 
 
 def _rotate(col, G, j):
@@ -104,72 +100,130 @@ class _Work:
             t.zero_()
 
 
-def _restarted(cycle, w, mv, pres, x, b, tol, R, max_outer, callback,
-               red=LOCAL, program=None):
-    """The restart loop around ``cycle(prog, check_start)``, one restart
-    cycle on the work ``w`` from the state's x (it leaves the new x there
-    and returns ``(steps, converged)``); ``pres`` maps a residual to the
-    one the tolerance is on.  The head and tail are the steps ``init`` and
-    ``final`` of ``program`` (a ``_graph.Program``, by default an eager
-    one).  Returns ``(x, info, resbuf, nres)``."""
-    prog = Program() if program is None else program
-    prog.put("x", x)
-    prog.put("b", b)
-    st = prog.state
+def _restarted(prog, w, mv, pres, b, tol, R, max_outer, begin, trip,
+               update, callback, red, history):
+    """The restart loop of GMRES as a tree of ``prog``'s steps, run, and
+    its result read once: ``(x, info, resbuf, nres)``.
+
+    ``init``; while the stop flag is clear, at most ``max_outer`` restart
+    cycles (counter ``outer``), each ``begin`` (the cycle's start, which
+    also stops where a later restart starts below the tolerance), at most
+    R steps (counter ``j``, raised by each; ``istop`` stops them) and the
+    update of the k steps run, ``("update", k)`` / ``update(k, s)``, which
+    also copies the cycle's estimates into the history at the device
+    offset ``nres``; then ``final``.  A step is the parts ``trip``, each
+    ``(name, fn, by_k)``: ``fn(s)`` as one step where it is the same for
+    every k (the preconditioned product), else ``(name, k)`` /
+    ``fn(k, s)``, one step for each k, a branch of a ``_graph.Switch`` on
+    the device's k (as the updates are).  ``w``: the work (its
+    ``cycres``, the cycle's estimates); ``pres`` maps a residual to the
+    one the tolerance is on."""
+    dev = b.device
+    rdt = real_dtype(b.dtype)
 
     def init(s):
         x, b = s["x"], s["b"]
         normMb = red.norm(pres(b))
         rtol = tol * torch.where(normMb == 0, 1.0, normMb)
         npr0 = red.norm(pres(b - mv(x)))
-        resbuf = torch.zeros((max_outer * R + 1,),
-                             dtype=real_dtype(b.dtype), device=b.device)
+        resbuf = torch.zeros((max_outer * R + 1,), dtype=rdt, device=dev)
         resbuf[0] = npr0
-        return {"rtol": rtol, "resbuf": resbuf, "stop": npr0 < rtol}
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return {"rtol": rtol, "resbuf": resbuf, "stop": npr0 < rtol,
+                "nres": zero + 1, "iters": zero.clone(),
+                "outer": zero.clone(), "j": zero.clone(),
+                "conv": zero < 0, "istop": zero < 0}
+
+    def finish(k, s):
+        """The update of a cycle of k steps (k = 0: none, and stop)."""
+        if k == 0:
+            return {"stop": s["nres"] >= 0}
+        out = update(k, s)
+        at = s["nres"] + torch.arange(k, dtype=torch.int32, device=dev)
+        s["resbuf"].index_copy_(0, at.long(), w.cycres[:k])
+        out.update({"nres": s["nres"] + k, "iters": s["iters"] + k,
+                    "stop": s["conv"]})
+        return out
 
     def final(s):
-        return {"final_ok": red.norm(pres(s["b"] - mv(s["x"]))) < s["rtol"]}
+        ok = red.norm(pres(s["b"] - mv(s["x"]))) < s["rtol"]
+        return {"info": torch.where(ok, 0, s["iters"]).to(torch.int32)}
 
-    prog.run("init", init)
-    it, nres, outer = 0, 1, 0
-    done = bool(st["stop"])
-    while not done and outer < max_outer:
-        j, conv = cycle(prog, outer > 0)
-        st["resbuf"][nres:nres + j] = w.cycres[:j]
-        it, nres, outer = it + j, nres + j, outer + 1
-        if callback is not None:
-            callback(st["x"])
-        done = conv or j == 0
-    prog.run("final", final)
-    info = torch.where(st["final_ok"], 0, it).to(torch.int32)
-    return st["x"], info, st["resbuf"], nres
+    def part(name, fn, by_k):
+        if not by_k:
+            return _graph.Step(prog, name, fn)
+        return _graph.Switch(prog, "j", [[_graph.Step(prog, (name, k),
+                                                      partial(fn, k))]
+                                         for k in range(R)])
+
+    steps = _graph.While(prog, [part(*p) for p in trip], R, stop="istop",
+                         count="j")
+    updates = _graph.Switch(
+        prog, "j", [[_graph.Step(prog, ("update", k), partial(finish, k))]
+                    for k in range(R + 1)])
+    nodes = [_graph.Step(prog, "init", init),
+             _graph.While(prog, [_graph.Step(prog, "begin", begin), steps,
+                                 updates], max_outer, count="outer",
+                          callback=None if callback is None
+                          else lambda s: callback(s["x"])),
+             _graph.Step(prog, "final", final)]
+    vals = prog.loop("gmres", nodes, ("info", "nres") +
+                     (("resbuf",) if history else ()))
+    info, nres = vals[:2]
+    return prog.state["x"], info, vals[2] if history else \
+        prog.state["resbuf"], nres
+
+
+def _start(s, beta):
+    """What ``begin`` sets besides the basis: no step yet, and the stop
+    of a later restart that starts below the tolerance."""
+    zero = torch.zeros((), dtype=torch.int32, device=beta.device)
+    start = (s["outer"] > 0) & (beta < s["rtol"])
+    return {"j": zero, "istop": start, "stop": start, "outer": s["outer"] + 1}
 
 
 def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
-               orthog="cgs2", callback=None, red=LOCAL, program=None):
+               orthog="cgs2", callback=None, red=LOCAL, program=None,
+               history=False):
     """Restarted GMRES from x with restart ``R`` and at most ``max_outer``
     cycles: ``(x, info, resbuf, nres)``.  ``resbuf[:nres]`` holds the
     preconditioned residual norms (the residual norms for FGMRES), the
-    initial one first; ``info`` is 0 when the final true (preconditioned)
-    residual is below ``tol`` times that of b, else the step count.
-    ``callback(x)`` is called after every cycle.  ``red``: the inner
-    products (``common.Reduction``; summed over the ranks on a row-sharded
-    level, whose Hessenberg matrix and stop flags every rank then holds
-    alike).
+    initial one first (a list read with the result where ``history``,
+    else the device's buffer); ``info`` (an int) is 0 when the final true
+    (preconditioned) residual is below ``tol`` times that of b, else the
+    step count.  ``callback(x)`` is called after every cycle.  ``red``:
+    the inner products (``common.Reduction``; summed over the ranks on a
+    row-sharded level, whose Hessenberg matrix and stop flags every rank
+    then holds alike).
 
-    The loop runs steps of ``program`` (a ``_graph.Program``, by default
-    an eager one): ``init``; for each restart cycle ``begin``, the
-    Arnoldi step ``("arnoldi", j)`` for each j it reaches (the
-    orthogonalisation against the j + 1 vectors so far makes each j a
-    step of its own) and ``("update", j)``; then ``final``.  A captured
-    program returns its static x and history, which its next run
-    overwrites."""
+    The loop is the tree of ``_restarted`` in ``program`` (a
+    ``_graph.Program``, by default an eager one, whose host reads a stop
+    flag a step): ``init``; for each restart cycle ``begin``, then for each
+    j it reaches the product ``product`` (one step, v_j taken at the
+    device's j) and the Arnoldi step ``("arnoldi", j)`` (the
+    orthogonalisation against the j + 1 vectors so far makes each j a step
+    of its own), and ``("update", j)``; then ``final``.  A captured
+    program runs it on the device with one read at the end, and returns
+    its static x and history, which its next run overwrites."""
     if orthog not in ("cgs2", "mgs"):
         raise ValueError(f"unknown orthog {orthog!r}")
     prog = Program() if program is None else program
     w = prog.static(("work", R, flexible), lambda: _Work(R, b, flexible))
     V, Z, H, g = w.V, w.Z, w.H, w.g
     dev = b.device
+    prog.put("x", x)
+    prog.put("b", b)
+
+    def product(s):
+        """The step's preconditioned product, the same graph for every j:
+        M A v_j (A M v_j for FGMRES, whose M v_j is kept in Z)."""
+        j = s["j"].reshape(1).long()
+        vj = V.index_select(0, j)[0]
+        if flexible:
+            z = Mv(vj)
+            Z.index_copy_(0, j, z[None])
+            return {"u": mv(z)}
+        return {"u": Mv(mv(vj))}
 
     def begin(s):
         r0 = s["b"] - mv(s["x"])
@@ -179,15 +233,12 @@ def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
         V[0] = torch.where(beta > 0, r / torch.where(beta == 0, 1, beta),
                            0.0)
         g[0] = beta
-        return {"beta": beta, "start_ok": beta < s["rtol"],
-                "stall": torch.zeros((), dtype=torch.int32, device=dev)}
+        return {"beta": beta,
+                "stall": torch.zeros((), dtype=torch.int32, device=dev),
+                **_start(s, beta)}
 
     def arnoldi(j, s):
-        if flexible:
-            Z[j] = Mv(V[j])
-            u = mv(Z[j])
-        else:
-            u = Mv(mv(V[j]))
+        u = s["u"]
         col = torch.zeros((R + 1,), dtype=b.dtype, device=dev)
         if orthog == "mgs":
             for i in range(j + 1):
@@ -211,32 +262,17 @@ def gmres_loop(mv, Mv, x, b, tol, R, max_outer, flexible=False,
         prev = w.cycres[j - 1] if j > 0 else s["beta"]
         stall = torch.where(normr > 0.999 * prev, s["stall"] + 1, 0)
         hit = normr < s["rtol"]
-        done = hit | (unorm <= TINY) | (stall >= 4)
-        return {"stall": stall,
-                "flags": hit.to(torch.int32) + 2 * done.to(torch.int32)}
+        return {"stall": stall, "j": s["j"] + 1, "conv": hit,
+                "istop": hit | (unorm <= TINY) | (stall >= 4)}
 
     def update(j, s):
         y = torch.linalg.solve_triangular(H[:j, :j], g[:j, None], upper=True)
         return {"x": s["x"] + Z[:j].T @ y[:, 0]}
 
-    def cycle(prog, check_start):
-        st = prog.state
-        prog.run("begin", begin)
-        if check_start and bool(st["start_ok"]):
-            return 0, True
-        j, conv = 0, False
-        while j < R:
-            prog.run(("arnoldi", j), partial(arnoldi, j))
-            j += 1
-            flags = int(st["flags"])       # the one host read of a step
-            conv = bool(flags & 1)
-            if flags & 2:
-                break
-        prog.run(("update", j), partial(update, j))
-        return j, conv
-
-    return _restarted(cycle, w, mv, (lambda r: r) if flexible else Mv, x, b,
-                      tol, R, max_outer, callback, red, prog)
+    return _restarted(prog, w, mv, (lambda r: r) if flexible else Mv, b, tol,
+                      R, max_outer, begin, [("product", product, False),
+                                            ("arnoldi", arnoldi, True)],
+                      update, callback, red, history)
 
 
 def _msign(v):
@@ -310,29 +346,48 @@ def _reflect(v, W, ks, dot=torch.vdot):
     return v
 
 
-def _householder_cycle(mv, Mv, b, R, w, rows, x, rtol, check_start):
-    """One restart cycle of Householder GMRES from x: ``(x, steps,
-    converged)``, the estimates in ``w.cycres``; the basis held as a chain of reflectors, the update
-    mapped back by Horner's scheme.  ``rows``: global-row access to the
-    vectors (``_Rows``, or ``_SplitRows`` where they are split by rows)."""
+def householder_loop(mv, Mv, x, b, tol, R, max_outer, callback=None,
+                     red=LOCAL, program=None, history=False):
+    """Restarted Householder GMRES: the contract of ``gmres_loop``, the
+    basis held as a chain of reflectors and the update mapped back by
+    Horner's scheme.  The steps: ``begin``, then for each j the reflectors
+    applied to e_j, ``("reflector", j)``, the product ``product`` (one
+    step for every j) and the reflectors applied to it,
+    ``("reflect", j)``, and ``("update", j)``.  On vectors split by rows
+    (``red`` a sharded reduction) the reflectors' leading rows and
+    trailing norms are read by global row index (``_SplitRows``)."""
+    prog = Program() if program is None else program
+    w = prog.static(("householder", R),
+                    lambda: _Work(R, b, False, householder=True))
+    rows = prog.static(("rows", R), lambda: _Rows(b) if red is LOCAL
+                       else _SplitRows(b, red))
     n = rows.n
     W, H, g = w.V, w.H, w.g
-    w.reset()
-    r = Mv(b - mv(x))
-    normr0 = rows.norm(r)
-    beta = _msign(rows.elem(r, 0)) * normr0
-    w0 = rows.add_at(r, 0, beta)
-    w0n = rows.norm(w0)
-    W[0] = torch.where(w0n > TINY, w0 / torch.where(w0n == 0, 1, w0n), 0.0)
-    g[0] = -beta
-    if check_start and bool(normr0 < rtol):
-        return x, 0, True
-    j, conv = 0, False
-    while j < R:
+    prog.put("x", x)
+    prog.put("b", b)
+
+    def begin(s):
+        w.reset()
+        r = Mv(s["b"] - mv(s["x"]))
+        normr0 = rows.norm(r)
+        beta = _msign(rows.elem(r, 0)) * normr0
+        w0 = rows.add_at(r, 0, beta)
+        w0n = rows.norm(w0)
+        W[0] = torch.where(w0n > TINY, w0 / torch.where(w0n == 0, 1, w0n),
+                           0.0)
+        g[0] = -beta
+        return _start(s, normr0)
+
+    def reflector(j, s):
         v = (-2.0 * _conj(rows.elem(W[j], j))) * W[j]
         v = rows.add_at(v, j, 1.0)
-        v = _reflect(v, W, range(j - 1, -1, -1), rows.dot)
-        v = _reflect(Mv(mv(v)), W, range(j + 1), rows.dot)
+        return {"v": _reflect(v, W, range(j - 1, -1, -1), rows.dot)}
+
+    def product(s):
+        return {"u": Mv(mv(s["v"]))}
+
+    def reflect(j, s):
+        v = _reflect(s["u"], W, range(j + 1), rows.dot)
         u, tail_norm = rows.tail(v, j)
         if j + 1 < n:
             alpha = _msign(rows.elem(v, j + 1)) * tail_norm
@@ -346,43 +401,31 @@ def _householder_cycle(mv, Mv, b, R, w, rows, x, rtol, check_start):
         if j + 1 < n:
             col[j + 1] = -alpha
         normr, rr = _rotate_and_estimate(col, w, j)
-        hit = normr < rtol
-        j += 1
-        conv, done = _read_flags(
-            hit, hit | ((tail_norm <= TINY) & (torch.abs(rr) <= TINY)))
-        if done:
-            break
-    Hj = H[:j, :j].clone()
-    d = torch.diagonal(Hj)
-    d.copy_(torch.where(torch.abs(d) > TINY, d, 1.0))
-    y = torch.linalg.solve_triangular(Hj, g[:j, None], upper=True)[:, 0]
-    u = torch.zeros_like(b)
-    for k in range(j - 1, -1, -1):
-        u = rows.add_at(u, k, y[k])
-        u = u - 2.0 * rows.dot(W[k], u) * W[k]
-    return x + u, j, conv
+        hit = normr < s["rtol"]
+        return {"j": s["j"] + 1, "conv": hit,
+                "istop": hit | ((tail_norm <= TINY) &
+                                (torch.abs(rr) <= TINY))}
 
+    def update(j, s):
+        Hj = H[:j, :j].clone()
+        d = torch.diagonal(Hj)
+        d.copy_(torch.where(torch.abs(d) > TINY, d, 1.0))
+        y = torch.linalg.solve_triangular(Hj, g[:j, None], upper=True)[:, 0]
+        u = torch.zeros_like(s["b"])
+        for k in range(j - 1, -1, -1):
+            u = rows.add_at(u, k, y[k])
+            u = u - 2.0 * rows.dot(W[k], u) * W[k]
+        return {"x": s["x"] + u}
 
-def householder_loop(mv, Mv, x, b, tol, R, max_outer, callback=None,
-                     red=LOCAL):
-    """Restarted Householder GMRES: the contract of ``gmres_loop``; on
-    vectors split by rows (``red`` a sharded reduction) the reflectors'
-    leading rows and trailing norms are read by global row index."""
-    w = _Work(R, b, False, householder=True)
-    rows = _Rows(b) if red is LOCAL else _SplitRows(b, red)
-
-    def cycle(prog, check_start):
-        st = prog.state
-        st["x"], j, conv = _householder_cycle(mv, Mv, b, R, w, rows, st["x"],
-                                              st["rtol"], check_start)
-        return j, conv
-
-    return _restarted(cycle, w, mv, Mv, x, b, tol, R, max_outer, callback,
-                      red)
+    return _restarted(prog, w, mv, Mv, b, tol, R, max_outer, begin,
+                      [("reflector", reflector, True),
+                       ("product", product, False),
+                       ("reflect", reflect, True)], update, callback, red,
+                      history)
 
 
 def _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback, residuals,
-                  flexible, method, device):
+                  flexible, method, device, program=None):
     A, mv, n, _, b, x, _ = prepare(A, b, x0, 1, device)
     Mv = as_precond(M, b.device)
     if restart is None:
@@ -393,57 +436,59 @@ def _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback, residuals,
         max_outer = maxiter if maxiter is not None else max(1, min(
             10000 // max(R, 1), 100))
     red = reduction(A)
-    if method == "householder":
-        x, info, resbuf, nres = householder_loop(mv, Mv, x, b, tol, R,
-                                                 max_outer, callback, red)
-    else:
-        x, info, resbuf, nres = gmres_loop(mv, Mv, x, b, tol, R, max_outer,
-                                           flexible, method, callback, red)
+    loop = partial(householder_loop) if method == "householder" else \
+        partial(gmres_loop, flexible=flexible, orthog=method)
+    x, info, resbuf, nres = loop(mv, Mv, x, b, tol, R, max_outer,
+                                 callback=callback, red=red, program=program,
+                                 history=residuals is not None)
     finalize(residuals, resbuf, nres)
-    return x, int(info)
+    return x, info
 
 
 def gmres_mgs(A, b, x0=None, tol=1e-5, restart=None, maxiter=None, M=None,
               callback=None, residuals=None, reorth=False, restrt=None,
-              device=None):
+              device=None, program=None):
     """Left-preconditioned GMRES with modified Gram-Schmidt.  Without
     ``restart``, one cycle of ``maxiter`` (default min(n, 40)) steps;
     with it, ``maxiter`` cycles (default up to 10000 steps, 100
-    cycles)."""
+    cycles).  ``program``: the ``_graph.Program`` the loop runs on (an
+    eager one by default; ``MultilevelSolver.solve`` passes its cached
+    one)."""
     restart = restrt if restrt is not None else restart
     return _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback,
-                         residuals, False, "mgs", device)
+                         residuals, False, "mgs", device, program)
 
 
 def gmres_householder(A, b, x0=None, tol=1e-5, restart=None, maxiter=None,
                       M=None, callback=None, residuals=None, restrt=None,
-                      device=None):
+                      device=None, program=None):
     """Householder GMRES: the basis as a chain of reflectors, orthogonal
     to working precision."""
     restart = restrt if restrt is not None else restart
     return _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback,
-                         residuals, False, "householder", device)
+                         residuals, False, "householder", device, program)
 
 
 def gmres(A, b, x0=None, tol=1e-5, restart=None, maxiter=None, M=None,
           callback=None, residuals=None, orthog="mgs", restrt=None,
-          device=None, **kwargs):
+          device=None, program=None, **kwargs):
     """GMRES; ``orthog`` is 'mgs', 'cgs2' or 'householder'."""
     if orthog == "householder":
         return gmres_householder(A, b, x0=x0, tol=tol, restart=restart,
                                  maxiter=maxiter, M=M, callback=callback,
                                  residuals=residuals, restrt=restrt,
-                                 device=device)
+                                 device=device, program=program)
     if orthog not in ("mgs", "cgs2"):
         raise ValueError(f"unknown orthog {orthog!r}")
     restart = restrt if restrt is not None else restart
     return _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback,
-                         residuals, False, orthog, device)
+                         residuals, False, orthog, device, program)
 
 
 def fgmres(A, b, x0=None, tol=1e-5, restart=None, maxiter=None, M=None,
-           callback=None, residuals=None, restrt=None, device=None):
+           callback=None, residuals=None, restrt=None, device=None,
+           program=None):
     """Flexible GMRES: right-preconditioned, M may change between steps."""
     restart = restrt if restrt is not None else restart
     return _gmres_driver(A, b, x0, tol, restart, maxiter, M, callback,
-                         residuals, True, "cgs2", device)
+                         residuals, True, "cgs2", device, program)

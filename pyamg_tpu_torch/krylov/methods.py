@@ -1,13 +1,15 @@
 """Krylov methods: CG, BiCGStab, CGNE, CGNR, CR, minimal residual and
 steepest descent (counterpart of ``pyamg_tpu/krylov/methods.py``).
 
-The reference runs each iteration as one ``lax.while_loop``.  Here it is
-a Python loop over tensor ops: every scalar stays on the device, and the
-host reads one flag per iteration to decide whether to go on (and the
-final ``info`` once).  ``callback(x)`` is called after every iteration.
-``cg_loop`` is written as a tree of steps of a ``_graph.Program``
-(``cg_nodes``), which ``MultilevelSolver`` runs as one CUDA graph with its
-loop on the device; the other methods run op by op.
+The reference runs each iteration as one ``lax.while_loop``.  Here each
+method is a tree of steps of a ``_graph.Program`` (``cg_nodes``,
+``bicgstab_nodes``, ...): a ``start`` step, then one iteration a trip of
+a ``While`` while the stop flag is clear and the iteration count, on the
+device, is below ``maxiter``.  Every scalar stays on the device.  Op by op
+(the free-standing functions, a callback, the CPU) the host reads one
+flag per iteration and the result once; ``MultilevelSolver.solve`` runs
+the same trees on its cached program, one CUDA graph with one read at
+its end on a card.  ``callback(x)`` is called after every iteration.
 """
 
 from __future__ import annotations
@@ -19,9 +21,8 @@ import torch
 from pyamg_tpu_torch._device import as_tensor
 from pyamg_tpu_torch._graph import Every, Program, Step, While
 from pyamg_tpu_torch.krylov.common import (
-    LOCAL, as_matvec, as_precond, final_info, finalize, place, prepare,
-    real_dtype, reduction, torch_dtype)
-from pyamg_tpu_torch.parallel.partition import sharded_mesh
+    LOCAL, as_matvec, as_precond, finalize, place, prepare, real_dtype,
+    reduction, torch_dtype)
 from pyamg_tpu_torch.sparse.matrix import DIA, ELL
 from pyamg_tpu_torch.sparse.sell import SELL
 from pyamg_tpu_torch.ops.spmv import matvec as sp_matvec
@@ -151,52 +152,98 @@ def cg_loop(mv, Mv, x, b, tol, criteria, maxiter, fro=1.0,
     prog.put("b", b)
     nodes = cg_nodes(prog, mv, Mv, tol, criteria, maxiter, fro,
                      stall_window, callback, red)
-    vals = prog.loop("cg", nodes, ("it", "stop", "info") +
+    info, resbuf, nres = _result(prog, "cg", nodes, maxiter, history)
+    return prog.state["xb"], info, resbuf, nres
+
+
+def _result(prog, name, nodes, maxiter, history):
+    """Run the tree ``nodes`` (counter ``it``, flag ``stop``, ``info`` and
+    the history ``resbuf`` in the state) and read it once: ``(info,
+    resbuf, nres)``, ``info`` the iteration count where ``maxiter`` ran
+    out with no verdict, ``resbuf`` a list where ``history``."""
+    vals = prog.loop(name, nodes, ("it", "stop", "info") +
                      (("resbuf",) if history else ()))
     it, done, info = vals[:3]
     if not done and it >= maxiter and info == 0:
         info = it
     resbuf = vals[3] if history else prog.state["resbuf"]
-    return prog.state["xb"], info, resbuf, it + 1
+    return info, resbuf, it + 1
 
 
-def _criteria_fns(criteria, tol, b, x0, Mv, fro, allowed, red=LOCAL):
-    """(measure(r), rtol) of ``criteria``; raises for criteria a method
-    does not admit.  ``red``: the inner products."""
+def _measure(criteria, Mv, allowed, red=LOCAL):
+    """The residual measure of ``criteria`` (raises for criteria a method
+    does not admit)."""
     if criteria not in allowed:
         raise ValueError(f"invalid stopping criteria {criteria!r}")
-    norm, dot = red.norm, red.dot
-    normb = norm(b)
-    normb = torch.where(normb == 0, 1.0, normb)
-    if criteria == "rr":
-        return norm, tol * normb
-    if criteria == "rr+":
-        if fro is None:
-            raise ValueError(
-                "criteria 'rr+' needs a matrix with accessible entries")
-        froA = fro() if callable(fro) else fro
-        return norm, tol * (froA * norm(x0) + normb)
+    if criteria in ("rr", "rr+"):
+        return red.norm
     if criteria == "MrMr":
-        return (lambda r: norm(Mv(r))), tol * norm(Mv(b))
-    return (lambda r: torch.sqrt(torch.clamp(torch.real(dot(r, Mv(r))),
-                                             min=0.0))), tol
+        return lambda r: red.norm(Mv(r))
+    return lambda r: torch.sqrt(torch.clamp(torch.real(red.dot(r, Mv(r))),
+                                            min=0.0))
 
 
-def _resbuf(maxiter, b, r0, red=LOCAL):
-    buf = torch.zeros((maxiter + 1,), dtype=real_dtype(b.dtype),
-                      device=b.device)
-    buf[0] = red.norm(r0)
-    return buf
+def _threshold(criteria, tol, b, x0, Mv, fro, red=LOCAL):
+    """The stopping threshold of ``criteria`` for ``_measure``, a tensor."""
+    if criteria == "rr+" and fro is None:
+        raise ValueError(
+            "criteria 'rr+' needs a matrix with accessible entries")
+    normb = red.norm(b)
+    normb = torch.where(normb == 0, 1.0, normb)
+    normMb = red.norm(Mv(b)) if criteria == "MrMr" else None
+    rtol = _rtol(criteria, tol, normb, normMb, fro, lambda: red.norm(x0))
+    return rtol if isinstance(rtol, torch.Tensor) else \
+        torch.full((), rtol, dtype=real_dtype(b.dtype), device=b.device)
 
 
-def _zero_info(b):
-    return torch.zeros((), dtype=torch.int32, device=b.device)
+def _start(b, r0, maxiter, red):
+    """What every method's ``start`` sets besides its vectors: the
+    history with ``||r0||`` first, and ``it`` and ``info`` 0."""
+    resbuf = torch.zeros((maxiter + 1,), dtype=real_dtype(b.dtype),
+                         device=b.device)
+    resbuf[0] = red.norm(r0)
+    zero = torch.zeros((), dtype=torch.int32, device=b.device)
+    return {"resbuf": resbuf, "it": zero, "info": zero.clone()}
+
+
+def _record(s, r, red):
+    """The iteration count raised by one, and ``||r||`` written at it in
+    the history."""
+    it = s["it"] + 1
+    s["resbuf"].index_copy_(0, it.reshape(1).long(),
+                            red.norm(r).reshape(1).to(s["resbuf"].dtype))
+    return it
+
+
+def _loop(prog, start, iteration, maxiter, callback):
+    return [Step(prog, "start", start),
+            While(prog, [Step(prog, "iteration", iteration)], maxiter,
+                  callback=None if callback is None
+                  else lambda s: callback(s["x"]))]
+
+
+def _solve(A, b, x0, maxiter, M, residuals, device, program, nodes):
+    """Run a method's tree (``nodes(prog, mv, Mv, fro, red, maxiter)``) on
+    ``program`` (a fresh eager one by default): ``(x, info)``."""
+    A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
+    Mv = as_precond(M, b.device)
+    prog = Program() if program is None else program
+    prog.put("x", x)
+    prog.put("b", b)
+    info, resbuf, nres = _result(
+        prog, "krylov", nodes(prog, mv, Mv, fro, reduction(A), maxiter),
+        maxiter, residuals is not None)
+    finalize(residuals, resbuf, nres)
+    return prog.state["x"], info
 
 
 def cg(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
-       callback=None, residuals=None, device=None):
+       callback=None, residuals=None, device=None, program=None):
     """Preconditioned conjugate gradients: ``cg_loop`` (best iterate,
-    stall test, true residual every 8th iteration).
+    stall test, true residual every 8th iteration).  ``program``: the
+    ``_graph.Program`` the loop runs on (an eager one by default;
+    ``MultilevelSolver.solve`` passes its cached one), as for every
+    method here.
 
     Examples
     --------
@@ -212,54 +259,62 @@ def cg(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
     Mv = as_precond(M, b.device)
     x, info, resbuf, nres = cg_loop(mv, Mv, x, b, tol, criteria, maxiter,
                                     fro, callback=callback, red=reduction(A),
+                                    program=program,
                                     history=residuals is not None)
     finalize(residuals, resbuf, nres)
-    return x, int(info)
+    return x, info
 
 
-def bicgstab(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
-             callback=None, residuals=None, device=None):
-    """Preconditioned BiCGStab; ``info`` -1 when a denominator vanishes."""
-    A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
-    Mv = as_precond(M, b.device)
-    red = reduction(A)
-    dot, norm = red.dot, red.norm
-    meas, rtol = _criteria_fns(criteria, tol, b, x, Mv, fro, ("rr", "rr+"),
-                               red)
-    r = b - mv(x)
-    rstar, p = r, r
-    rrstar = dot(rstar, r)
-    resbuf = _resbuf(maxiter, b, r, red)
-    info = _zero_info(b)
-    done = bool(meas(r) < rtol)
-    it = 0
-    while not done and it < maxiter:
+def bicgstab_nodes(prog, mv, Mv, tol, criteria, maxiter, fro=None,
+                   callback=None, red=LOCAL):
+    """Preconditioned BiCGStab on ``prog``'s state (``x``, ``b``) as a
+    tree; ``info`` -1 when a denominator vanishes."""
+    dot = red.dot
+    meas = _measure(criteria, Mv, ("rr", "rr+"), red)
+
+    def start(s):
+        x, b = s["x"], s["b"]
+        r = b - mv(x)
+        rtol = _threshold(criteria, tol, b, x, Mv, fro, red)
+        return {"r": r, "rstar": r, "p": r, "rrstar": dot(r, r),
+                "rtol": rtol, **_start(b, r, maxiter, red),
+                "stop": meas(r) < rtol}
+
+    def iteration(s):
+        x, r, rstar, p, rrstar = (s[k] for k in ("x", "r", "rstar", "p",
+                                                 "rrstar"))
         Mp = Mv(p)
         AMp = mv(Mp)
         denom = dot(rstar, AMp)
         alpha = rrstar / torch.where(denom == 0, 1, denom)
-        s = r - alpha * AMp
-        Ms = Mv(s)
+        sv = r - alpha * AMp
+        Ms = Mv(sv)
         AMs = mv(Ms)
         d2 = torch.real(dot(AMs, AMs))
-        omega = dot(AMs, s) / torch.where(d2 == 0, 1, d2)
+        omega = dot(AMs, sv) / torch.where(d2 == 0, 1, d2)
         x = x + alpha * Mp + omega * Ms
-        rn = s - omega * AMs
+        rn = sv - omega * AMs
         rrstar_n = dot(rstar, rn)
         beta = (rrstar_n / torch.where(rrstar == 0, 1, rrstar)) * \
             (alpha / torch.where(omega == 0, 1, omega))
         p = rn + beta * (p - omega * AMp)
-        r, rrstar = rn, rrstar_n
-        it += 1
-        resbuf[it] = norm(r)
-        conv = meas(r) < rtol
+        it = _record(s, rn, red)
+        conv = meas(rn) < s["rtol"]
         brk = (denom == 0) | (omega == 0)
-        info = torch.where(brk, -1, torch.where(conv, 0, info))
-        if callback is not None:
-            callback(x)
-        done = bool(conv | brk)            # the one host read
-    finalize(residuals, resbuf, it + 1)
-    return x, final_info(info, it, maxiter, done)
+        return {"x": x, "r": rn, "p": p, "rrstar": rrstar_n, "it": it,
+                "info": torch.where(brk, -1, torch.where(conv, 0, s["info"])),
+                "stop": conv | brk}
+
+    return _loop(prog, start, iteration, maxiter, callback)
+
+
+def bicgstab(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
+             callback=None, residuals=None, device=None, program=None):
+    """Preconditioned BiCGStab; ``info`` -1 when a denominator vanishes."""
+    return _solve(A, b, x0, maxiter, M, residuals, device, program,
+                  lambda prog, mv, Mv, fro, red, maxiter: bicgstab_nodes(
+                      prog, mv, Mv, tol, criteria, maxiter, fro, callback,
+                      red))
 
 
 def _dia_adjoint(A):
@@ -296,73 +351,100 @@ def _normal_equations(A):
     return (lambda v: A @ v), (lambda v: A.conj().T @ v)
 
 
-class _NormalOp:
-    """The operator v -> outer(inner(v)) of the normal equations, with the
-    original A's Frobenius norm for 'rr+' and its row mesh (None unless A
-    is split by rows)."""
+class _Normal:
+    """The products of the normal equations of A: ``mv`` (A v) and
+    ``rmv`` (A^H v, its adjoint built once: a program keeps it)."""
 
-    def __init__(self, outer, inner, n, dtype, fro, mesh=None):
-        self.shape = (n, n)
-        self.dtype = dtype
-        self.fro = fro
-        self.mesh = mesh
-        self.matvec = lambda v: outer(inner(v))
+    def __init__(self, A):
+        self.mv, self.rmv = _normal_equations(A)
 
 
-def _placed(A, b, device):
+def _normal(A, b, x0, tol, criteria, maxiter, M, callback, residuals,
+            device, program, craig):
+    """CG on the normal equations of A: A A^H y = b - A x0, x = x0 + A^H y
+    (``craig``, CGNE) or A^H A x = A^H b from x0 (CGNR), as a tree: the
+    step ``normal`` (the system's right-hand side and start), CG's tree
+    on the normal operator, and ``back`` (x)."""
     A, dev = place(A, device)
     if dev is None:
         raise TypeError("the normal equations take a matrix or an operator "
                         "with matvec and rmatvec already placed")
     _, _, dtype, fro = as_matvec(A)
-    return A, dev, fro, as_tensor(b, dev, torch_dtype(dtype)).reshape(-1)
+    b = as_tensor(b, dev, torch_dtype(dtype)).reshape(-1)
+    prog = Program() if program is None else program
+    ne = prog.static(("normal",), lambda: _Normal(A))
+    n = A.shape[0] if craig else A.shape[1]
+    if maxiter is None:
+        maxiter = int(min(max(1.3 * n, 5), 10000))
+    maxiter = int(maxiter)
+    given = x0 is not None
+    x0 = torch.zeros((A.shape[1],), dtype=b.dtype, device=dev) \
+        if not given else \
+        torch.as_tensor(x0, dtype=b.dtype, device=dev).reshape(-1)
+    prog.put("x0", x0)
+    prog.put("b0", b)
+
+    def normal(s):
+        if craig:
+            return {"x": torch.zeros_like(s["b0"]),
+                    "b": s["b0"] - ne.mv(s["x0"]) if given else s["b0"]}
+        return {"x": s["x0"], "b": ne.rmv(s["b0"])}
+
+    def back(s):
+        if not craig:
+            return {"xn": s["xb"]}
+        x = ne.rmv(s["xb"])
+        return {"xn": x + s["x0"] if given else x}
+
+    if craig:
+        def op(v):
+            return ne.mv(ne.rmv(v))
+        cb = None if callback is None else (lambda y: callback(ne.rmv(y)))
+    else:
+        def op(v):
+            return ne.rmv(ne.mv(v))
+        cb = callback
+    nodes = [Step(prog, "normal", normal),
+             *cg_nodes(prog, op, as_precond(M, dev), tol, criteria, maxiter,
+                       fro, callback=cb, red=reduction(A)),
+             Step(prog, "back", back)]
+    info, resbuf, nres = _result(prog, "krylov", nodes, maxiter,
+                                 residuals is not None)
+    finalize(residuals, resbuf, nres)
+    return prog.state["xn"], info
 
 
 def cgne(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
-         callback=None, residuals=None, device=None):
+         callback=None, residuals=None, device=None, program=None):
     """CG on A A^H y = b - A x0, x = x0 + A^H y (Craig's method)."""
-    A, dev, fro, b = _placed(A, b, device)
-    mvA, mvAH = _normal_equations(A)
-    r = b if x0 is None else b - mvA(torch.as_tensor(
-        x0, dtype=b.dtype, device=dev).reshape(-1))
-    op = _NormalOp(mvA, mvAH, A.shape[0], b.dtype, fro, sharded_mesh(A))
-    cb = None if callback is None else (lambda y: callback(mvAH(y)))
-    y, info = cg(op, r, tol=tol, criteria=criteria, maxiter=maxiter, M=M,
-                 callback=cb, residuals=residuals)
-    x = mvAH(y)
-    return (x if x0 is None else x + torch.as_tensor(
-        x0, dtype=b.dtype, device=dev).reshape(-1)), info
+    return _normal(A, b, x0, tol, criteria, maxiter, M, callback, residuals,
+                   device, program, craig=True)
 
 
 def cgnr(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
-         callback=None, residuals=None, device=None):
+         callback=None, residuals=None, device=None, program=None):
     """CG on A^H A x = A^H b."""
-    A, dev, fro, b = _placed(A, b, device)
-    mvA, mvAH = _normal_equations(A)
-    op = _NormalOp(mvAH, mvA, A.shape[1], b.dtype, fro, sharded_mesh(A))
-    return cg(op, mvAH(b), x0=x0, tol=tol, criteria=criteria,
-              maxiter=maxiter, M=M, callback=callback, residuals=residuals)
+    return _normal(A, b, x0, tol, criteria, maxiter, M, callback, residuals,
+                   device, program, craig=False)
 
 
-def cr(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
-       callback=None, residuals=None, device=None):
-    """Preconditioned conjugate residuals; the residual history is that
+def cr_nodes(prog, mv, Mv, tol, criteria, maxiter, fro=None, callback=None,
+             red=LOCAL):
+    """Preconditioned conjugate residuals as a tree; the history is that
     of the true residual b - A x."""
-    A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
-    Mv = as_precond(M, b.device)
-    red = reduction(A)
-    dot, norm = red.dot, red.norm
-    meas, rtol = _criteria_fns(criteria, tol, b, x, Mv, fro,
-                               ("rr", "rr+", "MrMr"), red)
-    r0 = b - mv(x)
-    r = Mv(r0)
-    p = r
-    rAr = dot(r, mv(r))
-    resbuf = _resbuf(maxiter, b, r0, red)
-    info = _zero_info(b)
-    done = bool(meas(r0) < rtol)
-    it = 0
-    while not done and it < maxiter:
+    dot = red.dot
+    meas = _measure(criteria, Mv, ("rr", "rr+", "MrMr"), red)
+
+    def start(s):
+        x, b = s["x"], s["b"]
+        r0 = b - mv(x)
+        r = Mv(r0)
+        rtol = _threshold(criteria, tol, b, x, Mv, fro, red)
+        return {"r": r, "p": r, "rAr": dot(r, mv(r)), "rtol": rtol,
+                **_start(b, r0, maxiter, red), "stop": meas(r0) < rtol}
+
+    def iteration(s):
+        x, r, p, rAr = (s[k] for k in ("x", "r", "p", "rAr"))
         Ap = mv(p)
         MAp = Mv(Ap)
         d = torch.real(dot(Ap, MAp))
@@ -372,70 +454,82 @@ def cr(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
         rArn = dot(r, mv(r))
         beta = rArn / torch.where(rAr == 0, 1, rAr)
         p = r + beta * p
-        rAr = rArn
-        it += 1
-        rtrue = b - mv(x)
-        resbuf[it] = norm(rtrue)
-        conv = meas(rtrue) < rtol
-        info = torch.where(conv, 0, info)
-        if callback is not None:
-            callback(x)
-        done = bool(conv | (d == 0))       # the one host read
-    finalize(residuals, resbuf, it + 1)
-    return x, final_info(info, it, maxiter, done)
+        rtrue = s["b"] - mv(x)
+        it = _record(s, rtrue, red)
+        conv = meas(rtrue) < s["rtol"]
+        return {"x": x, "r": r, "p": p, "rAr": rArn, "it": it,
+                "info": torch.where(conv, 0, s["info"]),
+                "stop": conv | (d == 0)}
+
+    return _loop(prog, start, iteration, maxiter, callback)
 
 
-def _descent(A, b, x0, tol, criteria, maxiter, M, callback, residuals,
-             device, step):
-    """The one-direction methods: x += alpha z with (z, alpha, stop) from
-    ``step(r, Mv, mv, dot)``; ``info`` -1 where ``step`` says so."""
-    A, mv, n, fro, b, x, maxiter = prepare(A, b, x0, maxiter, device)
-    Mv = as_precond(M, b.device)
-    red = reduction(A)
-    meas, rtol = _criteria_fns(criteria, tol, b, x, Mv, fro,
-                               ("rr", "rr+", "MrMr", "rMr"), red)
-    r = b - mv(x)
-    resbuf = _resbuf(maxiter, b, r, red)
-    info = _zero_info(b)
-    done = bool(meas(r) < rtol)
-    it = 0
-    while not done and it < maxiter:
-        z, alpha, brk, bad = step(r, Mv, mv, red.dot)
-        x = x + alpha * z
-        it += 1
+def cr(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None, M=None,
+       callback=None, residuals=None, device=None, program=None):
+    """Preconditioned conjugate residuals; the residual history is that
+    of the true residual b - A x."""
+    return _solve(A, b, x0, maxiter, M, residuals, device, program,
+                  lambda prog, mv, Mv, fro, red, maxiter: cr_nodes(
+                      prog, mv, Mv, tol, criteria, maxiter, fro, callback,
+                      red))
+
+
+def descent_nodes(prog, mv, Mv, tol, criteria, maxiter, step, fro=None,
+                  callback=None, red=LOCAL):
+    """The one-direction methods as a tree: x += alpha z with (z, alpha,
+    stop, bad) from ``step(r, Mv, mv, dot)``; ``info`` -1 where ``bad``."""
+    meas = _measure(criteria, Mv, ("rr", "rr+", "MrMr", "rMr"), red)
+
+    def start(s):
+        x, b = s["x"], s["b"]
         r = b - mv(x)
-        resbuf[it] = red.norm(r)
-        conv = meas(r) < rtol
-        info = torch.where(conv, 0, torch.where(bad, -1, info))
-        if callback is not None:
-            callback(x)
-        done = bool(conv | brk)            # the one host read
-    finalize(residuals, resbuf, it + 1)
-    return x, final_info(info, it, maxiter, done)
+        rtol = _threshold(criteria, tol, b, x, Mv, fro, red)
+        return {"r": r, "rtol": rtol, **_start(b, r, maxiter, red),
+                "stop": meas(r) < rtol}
+
+    def iteration(s):
+        z, alpha, brk, bad = step(s["r"], Mv, mv, red.dot)
+        x = s["x"] + alpha * z
+        r = s["b"] - mv(x)
+        it = _record(s, r, red)
+        conv = meas(r) < s["rtol"]
+        return {"x": x, "r": r, "it": it,
+                "info": torch.where(conv, 0, torch.where(bad, -1, s["info"])),
+                "stop": conv | brk}
+
+    return _loop(prog, start, iteration, maxiter, callback)
+
+
+def _minimal_residual_step(r, Mv, mv, dot):
+    z = Mv(r)
+    Az = mv(z)
+    d = torch.real(dot(Az, Az))
+    return z, dot(Az, z) / torch.where(d == 0, 1, d), d == 0, \
+        torch.zeros_like(d == 0)
+
+
+def _steepest_descent_step(r, Mv, mv, dot):
+    z = Mv(r)
+    d = torch.real(dot(mv(z), z))
+    return z, dot(r, z) / torch.where(d == 0, 1, d), d <= 0, d <= 0
 
 
 def minimal_residual(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None,
-                     M=None, callback=None, residuals=None, device=None):
+                     M=None, callback=None, residuals=None, device=None,
+                     program=None):
     """Minimal residual iteration: z = M r, alpha = <Az, z> / <Az, Az>."""
-    def step(r, Mv, mv, dot):
-        z = Mv(r)
-        Az = mv(z)
-        d = torch.real(dot(Az, Az))
-        return z, dot(Az, z) / torch.where(d == 0, 1, d), d == 0, \
-            torch.zeros_like(d == 0)
-
-    return _descent(A, b, x0, tol, criteria, maxiter, M, callback,
-                    residuals, device, step)
+    return _solve(A, b, x0, maxiter, M, residuals, device, program,
+                  lambda prog, mv, Mv, fro, red, maxiter: descent_nodes(
+                      prog, mv, Mv, tol, criteria, maxiter,
+                      _minimal_residual_step, fro, callback, red))
 
 
 def steepest_descent(A, b, x0=None, tol=1e-5, criteria="rr", maxiter=None,
-                     M=None, callback=None, residuals=None, device=None):
+                     M=None, callback=None, residuals=None, device=None,
+                     program=None):
     """Steepest descent: z = M r, alpha = <r, z> / <Az, z>; ``info`` -1
     where <Az, z> <= 0."""
-    def step(r, Mv, mv, dot):
-        z = Mv(r)
-        d = torch.real(dot(mv(z), z))
-        return z, dot(r, z) / torch.where(d == 0, 1, d), d <= 0, d <= 0
-
-    return _descent(A, b, x0, tol, criteria, maxiter, M, callback,
-                    residuals, device, step)
+    return _solve(A, b, x0, maxiter, M, residuals, device, program,
+                  lambda prog, mv, Mv, fro, red, maxiter: descent_nodes(
+                      prog, mv, Mv, tol, criteria, maxiter,
+                      _steepest_descent_step, fro, callback, red))

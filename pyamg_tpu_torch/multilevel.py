@@ -19,18 +19,18 @@ preconditioner of a Krylov method (CG, GMRES, FGMRES or any method of
 nothing on the host; the loops around them are Python over tensor ops,
 and op by op the host reads one convergence flag per iteration.
 
-On a CUDA hierarchy, with no callback, the standalone loop, CG, GMRES,
-FGMRES and the double-single refined solve replay CUDA graphs (the JAX
-package's compiled solve programs, ``_get_accel_run``,
-``_get_standalone_run`` and ``_get_ds_refined_run``): each step of a
-loop is captured once per hierarchy and solve configuration and cached
-on the hierarchy (``_graph.py``).  Standalone cycling, CG and the
-double-single solve run as one graph with their loops on the device (a
-replay and one host read a solve); GMRES and FGMRES replay one graph a
-step and read one flag a step.  The graphs read the hierarchy's tensors
-in place, so every method that replaces them drops the cache.  With a
-callback, on the CPU, on a sharded hierarchy and for the other Krylov
-methods the loops run op by op.
+On a CUDA hierarchy, with no callback, standalone cycling, every Krylov
+method of ``krylov`` named by ``accel`` and the double-single refined
+solve run as one CUDA graph with their loops on the device, a replay and
+one host read a solve (the JAX package's compiled solve programs,
+``_get_accel_run``, ``_get_standalone_run``, ``_get_ds_refined_run`` and
+its jitted Krylov methods): each step of a loop is captured once per
+hierarchy and solve configuration and cached on the hierarchy
+(``_graph.py``).  A hierarchy sharded over an NCCL group captures its
+collectives with the rest.  The graphs read the hierarchy's tensors in
+place, so every method that replaces them drops the cache.  With a
+callback, with ``accel`` a callable, on the CPU and on a gloo group the
+loops run op by op.
 
 A hierarchy split over the ranks of a process group
 (``parallel.shard_hierarchy``) solves the same way: each rank holds its
@@ -286,10 +286,9 @@ class MultilevelSolver:
 
     def _program(self, key, captured=True):
         """The program of solve configuration ``key``: captured on a CUDA
-        hierarchy (unless ``captured`` is False or a sharded hierarchy),
-        else a fresh eager one."""
-        return self._graphs().program(key, self.device,
-                                      captured and not self._sharded())
+        hierarchy (sharded or not) unless ``captured`` is False, else a
+        fresh eager one."""
+        return self._graphs().program(key, self.device, captured)
 
     def _drop_graphs(self):
         """Forget the captured programs: the tensors they read changed."""
@@ -678,8 +677,9 @@ class MultilevelSolver:
         when ``symmetric_smoothing`` is False, as CG needs a symmetric
         preconditioner), ``"gmres"``/``"fgmres"`` (``gmres_loop`` with
         classical Gram-Schmidt twice, restart ``min(n, maxiter)``, one
-        cycle), the name of another method of ``krylov`` or a callable
-        with its interface.  ``cycles_per_level`` (F-cycles' V-cycles per
+        cycle), the name of another method of ``krylov`` (called with its
+        defaults, as the JAX package calls it) or a callable with its
+        interface.  ``cycles_per_level`` (F-cycles' V-cycles per
         level) reaches only standalone cycling: the accelerated solves
         build their cycle with the default, as the reference does.
 
@@ -688,12 +688,11 @@ class MultilevelSolver:
         initial one first.  Standalone cycling returns ``info`` 0 when it
         converges on the last allowed cycle.
 
-        On a CUDA hierarchy with no ``callback``, standalone cycling, CG,
-        GMRES and FGMRES replay CUDA graphs captured at their first solve
-        of this configuration (``_graph.py``): the same result bit for
-        bit.  Standalone cycling and CG are one graph with the loop on the
-        device and one host read at the end; GMRES and FGMRES one graph
-        launch and one flag read a step.  A ``callback`` keeps the loop on
+        On a CUDA hierarchy with no ``callback``, standalone cycling and
+        every method named by ``accel`` replay a CUDA graph captured at
+        their first solve of this configuration (``_graph.py``), the loop
+        on the device and one host read at the end: the same result bit
+        for bit.  A ``callback`` or a callable ``accel`` keeps the loop on
         the host, op by op.
 
         On a sharded hierarchy (``parallel.shard_hierarchy``) every rank
@@ -729,8 +728,9 @@ class MultilevelSolver:
                     "Incompatible non-symmetric multigrid preconditioner "
                     "detected, due to presmoother/postsmoother combination. "
                     "CG requires SPD preconditioner, not just SPD matrix.")
+            M = self.aspreconditioner(cycle)
+            Mv = M.matvec
             if accel in ("cg", "gmres", "fgmres"):
-                Mv = self.aspreconditioner(cycle).matvec
                 prog = self._program((accel, cycle, float(tol), int(maxiter)),
                                      captured)
                 if accel == "cg":
@@ -743,21 +743,24 @@ class MultilevelSolver:
                     x, info, resbuf, nres = gmres_loop(
                         mv, Mv, x, b, tol, min(A0.shape[0], int(maxiter)), 1,
                         flexible=accel == "fgmres", callback=callback,
-                        red=red, program=prog)
+                        red=red, program=prog, history=residuals is not None)
                 finalize(residuals, resbuf, nres)
                 x = out(prog, x)
-                if return_info:
-                    return x, int(info)
-                return x
-            if isinstance(accel, str):
-                from pyamg_tpu_torch import krylov
-                if accel not in krylov.__all__:
-                    raise ValueError(f"unknown accel {accel!r}")
-                accel = getattr(krylov, accel)
-            x, info = accel(A0, b, x0=x, tol=tol, maxiter=maxiter,
-                            M=self.aspreconditioner(cycle),
-                            callback=callback, residuals=residuals)
-            x = self._gather(x)
+                return (x, info) if return_info else x
+            if not isinstance(accel, str):
+                x, info = accel(A0, b, x0=x, tol=tol, maxiter=maxiter, M=M,
+                                callback=callback, residuals=residuals)
+                x = self._gather(x)
+                return (x, info) if return_info else x
+            from pyamg_tpu_torch import krylov
+            if accel not in krylov.__all__:
+                raise ValueError(f"unknown accel {accel!r}")
+            prog = self._program((accel, cycle, float(tol), int(maxiter)),
+                                 captured)
+            x, info = getattr(krylov, accel)(
+                A0, b, x0=x, tol=tol, maxiter=maxiter, M=M, callback=callback,
+                residuals=residuals, program=prog)
+            x = out(prog, x)
             return (x, info) if return_info else x
 
         cyc = self._make_cycle(cycle, cycles_per_level)

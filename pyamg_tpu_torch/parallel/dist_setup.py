@@ -46,9 +46,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pyamg_tpu_torch import _graph
 from pyamg_tpu_torch._device import as_tensor, resolve
 from pyamg_tpu_torch.ops.rowops import dedup_rows
-from pyamg_tpu_torch.parallel.partition import COUNTS, RowMesh
+from pyamg_tpu_torch.parallel.partition import RowMesh, count
 
 
 # --------------------------------------------------------------------------
@@ -145,8 +146,8 @@ class _Ring(_Exchange):
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
-            COUNTS["send"] += len(ops) // 2
-            COUNTS["recv"] += len(ops) // 2
+            count("send", len(ops) // 2)
+            count("recv", len(ops) // 2)
         return from_prev, from_next
 
     def ext_rows(self, x, g):
@@ -177,13 +178,13 @@ class _Ring(_Exchange):
         t = t.contiguous()
         out = t.new_empty((self.ndev,) + tuple(t.shape[1:]))
         dist.all_gather_into_tensor(out, t, group=self.mesh.group)
-        COUNTS["all_gather"] += 1
+        count("all_gather")
         return out
 
     def _reduce(self, t, op):
         t = t.clone()
         dist.all_reduce(t, op=op, group=self.mesh.group)
-        COUNTS["all_reduce"] += 1
+        count("all_reduce")
         return t
 
     def psum(self, t):
@@ -489,6 +490,26 @@ class DistLevel:
         return int(ex.psum(_per_rank(self.ok.view(ex.R, self.n_loc, -1)))[0])
 
 
+def _lu_solve(A, b):
+    """x of the small square system A x = b: LU with partial pivoting
+    (``lu_factor_ex``), then the row interchanges and the two triangular
+    solves written out, as LAPACK's ``getrs`` does them.  cuSOLVER's
+    ``getrs`` (what ``torch.linalg.solve`` runs) may allocate device
+    memory inside a CUDA-graph capture, and a conditional node's body
+    holds no allocation."""
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    piv = piv.long() - 1
+    perm = torch.arange(A.shape[0], device=A.device)
+    for i in range(A.shape[0]):
+        p = piv[i:i + 1]
+        here = perm[i:i + 1].clone()
+        perm[i:i + 1] = perm.index_select(0, p)
+        perm.index_copy_(0, p, here)
+    y = torch.linalg.solve_triangular(LU, b[perm][:, None], upper=False,
+                                      unitriangular=True)
+    return torch.linalg.solve_triangular(LU, y, upper=True)[:, 0]
+
+
 @dataclasses.dataclass
 class DistHierarchy:
     levels: List[DistLevel]
@@ -597,22 +618,54 @@ class DistHierarchy:
 
         return Amv, Mmv
 
+    def _program(self, key, nu):
+        """(program, (exchange, A x, V-cycle)) of the solve configuration
+        ``key``: captured where the mesh's tensors live on a card (kept in
+        the hierarchy's ``_graph.Cache`` with the exchange and the level
+        views its graphs read), else a fresh eager one."""
+        cache = self.__dict__.get("_graph_cache")
+        if cache is None:
+            cache = self._graph_cache = _graph.Cache()
+        ex = exchange_of(self.mesh)
+        prog = cache.program(key, ex.device)
+        return prog, prog.static("operators", lambda: (
+            ex,) + self._operators(ex, nu))
+
+    def _result(self, prog, nodes, count):
+        """Run the tree and read ``count`` and the relative residual once:
+        ``(x, relres, count)``, x owned by the caller."""
+        k, relres = prog.loop("solve", nodes, (count, "relres"))
+        x = prog.state["x"].reshape(-1)
+        return (x.clone() if prog.captured else x), relres, k
+
     def solve_cg(self, b, tol=1e-8, maxiter=100, nu=2):
         """V-cycle-preconditioned CG: ``(x, relres, iterations)``, x the
-        rows of this process's ranks.  One host read an iteration (the stop
-        flag, from sums over all ranks, so every rank stops on the same
-        iteration)."""
-        ex = exchange_of(self.mesh)
-        Amv, Mmv = self._operators(ex, nu)
-        b = self._local(ex, b)
-        x = torch.zeros_like(b)
-        r = b
-        z = Mmv(r)
-        p = z
-        rz = ex.vdot(r, z)
-        bnorm = torch.sqrt(ex.vdot(b, b))
-        it = 0
-        while it < maxiter and bool(torch.sqrt(ex.vdot(r, r)) > tol * bnorm):
+        rows of this process's ranks.  A tree of two steps, ``start`` and
+        one iteration a trip while the residual norm, summed over all
+        ranks (so every rank stops on the same iteration), is above ``tol``
+        times that of b: one CUDA graph with one host read at its end
+        where the mesh lives on a card (a ``StackedMesh`` there, or an
+        NCCL ``RowMesh``), else op by op with one read an iteration."""
+        prog, (ex, Amv, Mmv) = self._program(
+            ("cg", float(tol), int(maxiter), int(nu)), nu)
+        prog.put("b", self._local(ex, b))
+
+        def go_on(r, bnorm):
+            nr = torch.sqrt(ex.vdot(r, r))
+            return {"relres": (nr / bnorm).reshape(()),
+                    "stop": ~(nr > tol * bnorm).reshape(())}
+
+        def start(s):
+            b = s["b"]
+            z = Mmv(b)
+            bnorm = torch.sqrt(ex.vdot(b, b))
+            return {"x": torch.zeros_like(b), "r": b, "z": z, "p": z,
+                    "rz": ex.vdot(b, z), "bnorm": bnorm,
+                    "it": torch.zeros((), dtype=torch.int32,
+                                      device=b.device), **go_on(b, bnorm)}
+
+        def iteration(s):
+            x, r, p, rz = (s[k] for k in ("x", "r", "p", "rz"))
             Ap = Amv(p)
             alpha = rz / ex.vdot(p, Ap)
             x = x + alpha * p
@@ -620,32 +673,48 @@ class DistHierarchy:
             z = Mmv(r)
             rz_new = ex.vdot(r, z)
             p = z + (rz_new / rz) * p
-            rz = rz_new
-            it += 1
-        relres = float(torch.sqrt(ex.vdot(r, r)) / bnorm)
-        return x.reshape(-1), relres, it
+            return {"x": x, "r": r, "z": z, "p": p, "rz": rz_new,
+                    "it": s["it"] + 1, **go_on(r, s["bnorm"])}
+
+        nodes = [_graph.Step(prog, "start", start),
+                 _graph.While(prog, [_graph.Step(prog, "iteration",
+                                                 iteration)], maxiter)]
+        return self._result(prog, nodes, "it")
 
     def solve_fgmres(self, b, tol=1e-8, restart=20, max_outer=10, nu=2):
         """V-cycle-preconditioned FGMRES (right preconditioning):
         ``(x, relres, restart * cycles)``.  Arnoldi by classical
         Gram-Schmidt twice with summed dots; every rank solves the small
-        least-squares problem (normal equations, ``solve_ex``).  One host
-        read a restart cycle."""
-        ex = exchange_of(self.mesh)
-        Amv, Mmv = self._operators(ex, nu)
-        b = self._local(ex, b)
+        least-squares problem (normal equations, ``_lu_solve``).  A tree of
+        ``start`` and one restart cycle a trip (fixed width and masked, so
+        each cycle is one step): one CUDA graph with one host read where
+        the mesh lives on a card, else one read a cycle."""
         Rr = int(restart)
-        dt, dev = b.dtype, b.device
-        R, n = b.shape
-        bnorm = torch.sqrt(ex.vdot(b, b))
-        bnorm = torch.where(bnorm == 0, 1.0, bnorm)
-        eye = torch.eye(Rr, dtype=dt, device=dev)
+        prog, (ex, Amv, Mmv) = self._program(
+            ("fgmres", float(tol), Rr, int(max_outer), int(nu)), nu)
+        prog.put("b", self._local(ex, b))
 
         def vdots(V, w):
             """(1, Rr + 1): <V_k, w> summed over the ranks."""
             return ex.psum(torch.sum(V * w[:, None, :], dim=-1))
 
-        def cycle(x):
+        def go_on(nr, bnorm):
+            return {"relres": (nr / bnorm).reshape(()),
+                    "stop": ~(nr > tol * bnorm).reshape(())}
+
+        def start(s):
+            b = s["b"]
+            bnorm = torch.sqrt(ex.vdot(b, b))
+            bnorm = torch.where(bnorm == 0, 1.0, bnorm)
+            return {"x": torch.zeros_like(b), "bnorm": bnorm,
+                    "k": torch.zeros((), dtype=torch.int32, device=b.device),
+                    **go_on(torch.sqrt(ex.vdot(b, b)), bnorm)}
+
+        def cycle(s):
+            b, x = s["b"], s["x"]
+            dt, dev = b.dtype, b.device
+            R, n = b.shape
+            eye = torch.eye(Rr, dtype=dt, device=dev)
             r = b - Amv(x)
             beta = torch.sqrt(ex.vdot(r, r))
             V = torch.zeros((R, Rr + 1, n), dtype=dt, device=dev)
@@ -667,18 +736,17 @@ class DistHierarchy:
                 V[:, j + 1] = w / torch.where(wn == 0, 1, wn)
             e1 = torch.zeros((Rr + 1,), dtype=dt, device=dev)
             e1[0] = beta[0, 0]
-            y = torch.linalg.solve_ex(H.T @ H + 1e-30 * eye, H.T @ e1)[0]
+            y = _lu_solve(H.T @ H + 1e-30 * eye, H.T @ e1)
             x = x + torch.sum(Z * y[None, :, None], dim=1)
             r = b - Amv(x)
-            return x, torch.sqrt(ex.vdot(r, r))
+            return {"x": x, "k": s["k"] + 1,
+                    **go_on(torch.sqrt(ex.vdot(r, r)), s["bnorm"])}
 
-        x = torch.zeros_like(b)
-        nr = torch.sqrt(ex.vdot(b, b))
-        k = 0
-        while k < max_outer and bool(nr > tol * bnorm):
-            x, nr = cycle(x)
-            k += 1
-        return x.reshape(-1), float(nr / bnorm), k * Rr
+        nodes = [_graph.Step(prog, "start", start),
+                 _graph.While(prog, [_graph.Step(prog, "cycle", cycle)],
+                              max_outer, count="k")]
+        x, relres, k = self._result(prog, nodes, "k")
+        return x, relres, k * Rr
 
 
 # --------------------------------------------------------------------------

@@ -31,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from pyamg_tpu_torch._device import as_tensor
-from pyamg_tpu_torch.parallel.partition import (COUNTS, RowMesh, RowSharded,
+from pyamg_tpu_torch.parallel.partition import (RowMesh, RowSharded, count,
                                                 _ell_mv, host_ell)
 from pyamg_tpu_torch.sparse.matrix import ELL
 
@@ -181,8 +181,8 @@ def exchange(buffers, offsets, seg_sizes, mesh: RowMesh):
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        COUNTS["send"] += len(segs)
-        COUNTS["recv"] += len(segs)
+        count("send", len(segs))
+        count("recv", len(segs))
     return segs
 
 

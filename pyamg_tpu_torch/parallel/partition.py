@@ -22,19 +22,23 @@ go:
   no collective.
 
 Every collective enqueues on the current stream and nothing here reads a
-tensor on the host, so a sharded cycle can be captured.  The wrappers
-count their calls in ``COUNTS`` (reset by ``reset_counts``).
+tensor on the host, so a sharded solve can be captured (on an NCCL
+group; ``MultilevelSolver`` does).  The wrappers count their calls in
+``COUNTS`` (reset by ``reset_counts``) through ``_graph.on_replay``, so
+that a replayed graph counts the calls it recorded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from pyamg_tpu_torch import _graph
 from pyamg_tpu_torch._device import as_tensor, resolve
 from pyamg_tpu_torch.sparse.matrix import ELL
 
@@ -49,6 +53,16 @@ SHARDED_SMOOTHERS = ("none", "custom", "jacobi", "richardson",
 def reset_counts():
     for k in COUNTS:
         COUNTS[k] = 0
+
+
+def _add(kind, n):
+    COUNTS[kind] += n
+
+
+def count(kind, n=1):
+    """Count ``n`` calls of the collective ``kind`` in ``COUNTS``: now, or
+    on every replay of the graph being recorded (``_graph.on_replay``)."""
+    _graph.on_replay(functools.partial(_add, kind, n))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -96,14 +110,14 @@ def all_gather(x, mesh: RowMesh):
     x = x.contiguous()
     out = x.new_empty((mesh.size * x.shape[0],) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=mesh.group)
-    COUNTS["all_gather"] += 1
+    count("all_gather")
     return out
 
 
 def all_reduce(t, mesh: RowMesh):
     """The sum of ``t`` over the ranks (in place): one ``all_reduce``."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
-    COUNTS["all_reduce"] += 1
+    count("all_reduce")
     return t
 
 

@@ -1,12 +1,13 @@
 """The captured solve (``pyamg_tpu_torch/_graph.py``) on the CPU.
 
-A CUDA graph exists only on the card.  Here a stand-in takes its place:
-its capture runs the step once as the card records it, with every host
-read of a tensor and every host-to-device copy made to raise (a tensor
-made from host data, a Python number written into a tensor), then puts
-the state back as it found it; its replay runs the step again.  So the
-captured programs' own code runs here: the warm-up into static tensors,
-the copies, the recorded launch bookkeeping.
+A CUDA graph exists only on the card.  Here a stand-in takes its place
+(``torch_stand_in.py``): its capture runs the step once as the card
+records it, with every host read of a tensor and every host-to-device
+copy made to raise (a tensor made from host data, a Python number
+written into a tensor), then puts the state back as it found it; its
+replay runs the step again; its device loop runs the WHILE, IF and
+SWITCH nodes.  So the captured programs' own code runs here: the warm-up
+into static tensors, the copies, the recorded launch bookkeeping.
 
 * The bookkeeping: a stand-in wrapper's launches count once in the
   warm-up, not in the capture, and once more on every replay.
@@ -15,8 +16,15 @@ the copies, the recorded launch bookkeeping.
   ``test_torch_relaxation.py`` and the double-single outer step; and each
   captured solve, run twice (warm-up and capture, then replays), equals
   the op-by-op solve (``_graph.eager()``) bit for bit.
-* The loops equal the JAX package's: CG, GMRES, FGMRES and standalone
-  cycling on its 32^2 hierarchy (``hierarchy_from_arrays``; iterations,
+* A Switch runs the branch of its index, and a device loop counts each
+  branch's launches by the trips the device ran it.
+* A device-stopped solve reads the host once, for standalone cycling and
+  every Krylov method of ``solve``, and equals the op-by-op one at loop
+  limits of 0, 1 and 2; the methods that run to the limit there do so as
+  the JAX package's do.
+* The loops equal the JAX package's: every Krylov method of
+  ``krylov.__all__`` and standalone cycling on its 32^2 hierarchy
+  (``hierarchy_from_arrays``; iterations,
   ``info``, x and history to 1e-8 relative, as in
   ``test_torch_cycles.py``), and the double-single refined solve on its
   96^2 one (outer counts equal, inner within 1, x within 1e-8, as in
@@ -50,146 +58,11 @@ from test_torch_relaxation import READS, SPECS, _custom
 from test_torch_solve import (_check_against_reference, _ref_orders,
                               reference_solve)
 from test_torch_solve import _spec as _ds_spec
+from torch_stand_in import _REAL, _stand_in_program
 
 torch.set_num_threads(1)
 
 _FIXTURES = (port, ref, restore_coarse, reference_solve)
-
-
-def _refuse(*args, **kwargs):
-    raise AssertionError("host access inside a captured step")
-
-
-@contextlib.contextmanager
-def on_card_rules():
-    """What a capture on the card refuses, made to raise on the CPU: a
-    host read of a tensor, a tensor made from host data, a Python number
-    written into a tensor."""
-    real_as_tensor = torch.as_tensor
-    real_setitem = torch.Tensor.__setitem__
-
-    def as_tensor(data, *args, **kwargs):
-        if not isinstance(data, torch.Tensor):
-            _refuse()
-        return real_as_tensor(data, *args, **kwargs)
-
-    def setitem(self, index, value):
-        if isinstance(value, (bool, int, float, complex)):
-            _refuse()
-        return real_setitem(self, index, value)
-
-    with pytest.MonkeyPatch.context() as mp:
-        for name in READS:
-            mp.setattr(torch.Tensor, name, _refuse)
-        mp.setattr(torch, "tensor", _refuse)
-        mp.setattr(torch, "from_numpy", _refuse)
-        mp.setattr(torch, "as_tensor", as_tensor)
-        mp.setattr(torch.Tensor, "__setitem__", setitem)
-        yield
-
-
-def _tensors(prog):
-    out = list(prog.state.values())
-    for obj in prog.objects.values():
-        out += [t for t in vars(obj).values() if isinstance(t, torch.Tensor)]
-    return out
-
-
-class StandIn:
-    """A CUDA graph's stand-in: ``capture(body)`` runs the step under
-    ``on_card_rules`` from the state the warm-up started from, where the
-    program recorded one (recording its launch bookkeeping), then puts
-    the program's tensors back as it found them; ``replay()`` runs it
-    again, its own tallies discarded (the program adds those the capture
-    recorded)."""
-
-    def __init__(self, prog):
-        self.prog = prog
-        self.body = None
-
-    def capture(self, body):
-        tensors = _tensors(self.prog)
-        after = [t.clone() for t in tensors]
-        for t in tensors:
-            if id(t) in self.prog.before:
-                t.copy_(self.prog.before[id(t)])
-        self.prog.before = {}
-        with on_card_rules():
-            body()
-        for t, a in zip(tensors, after):
-            t.copy_(a)
-        self.body = body
-
-    def replay(self):
-        saved = _graph._recording
-        _graph._recording = []
-        try:
-            with on_card_rules():
-                self.body()
-        finally:
-            _graph._recording = saved
-
-
-_REAL = {name: getattr(torch.Tensor, name) for name in READS}
-
-
-class StandInLoop:
-    """A device loop's stand-in (``_graph._DeviceLoop``): ``launch()``
-    runs the tree as the card does, each step by its stand-in graph's
-    replay (under ``on_card_rules``), each While while its flag is clear
-    and its counter below the limit, each Every by its counter, tallying
-    the trips of each body.  Reading the flags and counters here is the
-    stand-in modelling the device: it goes past the patches that count
-    and refuse host reads."""
-
-    def __init__(self, nodes, tally, slots):
-        self.nodes, self.tally, self.slots = nodes, tally, slots
-
-    def launch(self):
-        self.tally.zero_()
-        self._run(self.nodes)
-
-    def _run(self, nodes):
-        for n in nodes:
-            if isinstance(n, _graph.Step):
-                n.prog.graphs[n.name][0].replay()
-                continue
-            st, slot = n.prog.state, self.slots[id(n)]
-            if isinstance(n, _graph.Every):
-                then = (_REAL["__int__"](st[n.count]) + 1) % n.every == 0
-                self.tally[slot + (0 if then else 1)] += 1
-                self._run(n.then if then else n.other)
-                continue
-            while not _REAL["__bool__"](st[n.stop]) and \
-                    _REAL["__int__"](st[n.count]) < n.limit:
-                self._run(n.body)
-                self.tally[slot] += 1
-
-
-class StandInGraphs(_graph.Graphs):
-    """A captured program on the CPU, graphs by ``StandIn`` and loops by
-    ``StandInLoop``; it keeps the state as it was before each warm-up of a
-    step run by itself, which the stand-in records from (on the card a
-    capture runs nothing)."""
-
-    def __init__(self, owned=None):
-        super().__init__(torch.device("cpu"), None, None,
-                         graph_type=lambda pool: StandIn(self), owned=owned,
-                         loop_type=StandInLoop)
-        self.before = {}
-        self.before_warm = {}
-
-    def _warm(self, name, step):
-        self.before_warm[name] = {id(t): t.clone() for t in _tensors(self)}
-        super()._warm(name, step)
-
-    def _capture(self, name, step):
-        self.before = self.before_warm.pop(name, {})
-        super()._capture(name, step)
-
-
-def _stand_in_program(owned=None):
-    return StandInGraphs(owned)
 
 
 @pytest.fixture
@@ -414,6 +287,76 @@ def test_device_loop_counts_each_step_by_its_trips():
         assert holder.taken == taken
 
 
+def _switch_tree(prog, log, holder):
+    """A loop of 5 trips (``it``) whose body is a Switch on the trip count
+    over three branches (trip k runs branch k, trips 3 and 4 none) and a
+    step raising the count; then a Switch on the final count over six
+    branches, five empty (5: step Z).  Branch k's step counts its tag and
+    reserves k + 1 units of ``holder`` a launch, Z 4."""
+    zero_i = torch.zeros((), dtype=torch.int32)
+
+    def wrapper(tag, units, x):
+        _graph.ahead(holder, units)
+        _graph.on_replay(lambda: log.append(tag))
+        return x * 2 + units
+
+    def start(s):
+        return {"x": s["x0"] * 1, "it": zero_i.clone(), "stop": zero_i < 0}
+
+    def branch(k):
+        return [_graph.Step(prog, f"A{k}",
+                            lambda s: {"x": wrapper(f"A{k}", k + 1, s["x"])})]
+
+    def count(s):
+        return {"it": s["it"] + 1}
+
+    def z(s):
+        return {"x": wrapper("Z", 4, s["x"])}
+
+    return [_graph.Step(prog, "start", start),
+            _graph.While(prog, [_graph.Switch(prog, "it", [branch(k) for k in
+                                                           range(3)]),
+                                _graph.Step(prog, "count", count)], 5),
+            _graph.Switch(prog, "it", [[]] * 5 + [[_graph.Step(prog, "Z",
+                                                               z)]])]
+
+
+def test_a_switch_runs_the_branch_of_its_index():
+    """A Switch runs the branch its index names (none out of range, an
+    empty one too) in each form, and a device loop counts each branch's
+    launches once for every trip the device ran it.  The branches of a
+    Switch exclude each other, so it reserves for its largest: 3 units a
+    trip for 5 trips, and 4 for Z's one (the warm-ups, launched for real,
+    reserve their own)."""
+    log, holder = [], _Holder()
+    eager = _graph.Program()
+    eager.put("x0", torch.ones(3))
+    want = eager.loop("t", _switch_tree(eager, log, holder), ("it", "x"))
+    # x = 1, then 2 x + 1, 2 x + 2, 2 x + 3 (A0-A2) and 2 x + 4 (Z)
+    assert want[0] == 5 and want[1] == [42.0] * 3
+    assert log == ["A0", "A1", "A2", "Z"] and holder.taken == [1, 2, 3, 4]
+    prog = _stand_in_program()
+    prog.put("x0", torch.ones(3))
+    tree = _switch_tree(prog, log, holder)
+    for form, taken in ((contextlib.nullcontext, [1, 2, 3, 4, 5 * 3 + 4]),
+                        (contextlib.nullcontext, [5 * 3 + 4]),
+                        (_graph.per_step, [1, 2, 3, 4])):
+        log.clear()
+        holder.taken.clear()
+        with form():
+            assert prog.loop("t", tree, ("it", "x")) == want
+        assert sorted(log) == ["A0", "A1", "A2", "Z"]
+        assert holder.taken == taken
+    assert prog.captures == 6
+
+
+def test_a_switch_needs_a_counter_the_host_knows():
+    prog = _graph.Program()
+    prog.put("k", torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="counter"):
+        prog.loop("t", [_graph.Switch(prog, "k", [[]])])
+
+
 def test_a_device_loop_reads_the_host_once(monkeypatch):
     """The tree's result comes back in one host read; the loop's own
     flags are read on the device (the stand-in)."""
@@ -437,12 +380,21 @@ def _count_reads(monkeypatch):
     return counts
 
 
-@pytest.mark.parametrize("accel", [None, "cg"], ids=["standalone", "cg"])
+GMRES_FAMILY = ("gmres", "fgmres", "gmres_mgs", "gmres_householder")
+_READ_ACCELS = [None, "cg", "gmres", "fgmres", "gmres_householder",
+                "gmres_mgs", "bicgstab", "cgne", "cgnr", "cr",
+                "minimal_residual", "steepest_descent"]
+_TO_THE_LIMIT = ("cgne", "cgnr", "minimal_residual")
+
+
+@pytest.mark.parametrize("accel", _READ_ACCELS,
+                         ids=["standalone"] + _READ_ACCELS[1:])
 def test_device_stopped_solves_read_the_host_once(ref, accel, monkeypatch,
                                                   restore_coarse, captured):
     """A device-stopped solve reads the host once, at its end (the
     iterations, the flag, ``info`` and the history together); one graph
-    a step reads once more a step and once after ``start``."""
+    a step reads once more a step (none once the steps reach the limit)
+    and once after ``start`` (GMRES: and once for its restart loop)."""
     ml = _with_coarse(ref, "pinv")
     b = _vec(17, ml.levels[0].A.shape[0])
     _solve(ml, b, accel=accel, tol=1e-8, maxiter=40)     # records
@@ -454,8 +406,34 @@ def test_device_stopped_solves_read_the_host_once(ref, accel, monkeypatch,
             x, info, res = _solve(ml, b, accel=accel, tol=1e-8, maxiter=40)
         monkeypatch.undo()
         reads[name] = counts["n"]
-    assert info == 0 and len(res) > 3
-    assert reads == {"device": 1, "per step": len(res) - 1 + 2}
+    its = len(res) - 1
+    # CGNE, CGNR and minimal residual run to the limit here, as the JAX
+    # package's do; every other method converges
+    assert its > 2 and (its == 40 and info == 40 if accel in _TO_THE_LIMIT
+                        else info == 0)
+    stops = its + 1 if its < 40 else its
+    assert reads == {"device": 1, "per step": stops + 1 +
+                     (accel in GMRES_FAMILY)}
+
+
+@pytest.mark.parametrize("accel", _TO_THE_LIMIT)
+def test_methods_at_the_limit_match_reference(ref, accel, restore_coarse,
+                                              captured):
+    """The methods that run to the limit in the host-read test do so as the
+    JAX package's do on the same hierarchy and b: ``info`` 40, the history
+    and x within 1e-8 relative."""
+    ml = _with_coarse(ref, "pinv")
+    b = _vec(17, ml.levels[0].A.shape[0])
+    want_res = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want, want_info = ref.solve(jnp.asarray(b), tol=1e-8, maxiter=40,
+                                    accel=accel, residuals=want_res,
+                                    return_info=True)
+    got, info, res = _solve(ml, b, accel=accel, tol=1e-8, maxiter=40)
+    assert info == want_info == 40 and len(res) == len(want_res) == 41
+    _close(res, want_res, 1e-8)
+    _close(got, want, 1e-8)
 
 
 def test_device_stopped_ds_solve_reads_the_host_once(monkeypatch, captured):
@@ -471,12 +449,16 @@ def test_device_stopped_ds_solve_reads_the_host_once(monkeypatch, captured):
 
 
 @pytest.mark.parametrize("maxiter", [0, 1, 2])
-@pytest.mark.parametrize("accel", [None, "cg", "ds"])
+@pytest.mark.parametrize("accel", [None, "cg", "ds", "gmres", "fgmres",
+                                   "gmres_householder", "gmres_mgs",
+                                   "bicgstab", "cgne", "cgnr", "cr",
+                                   "minimal_residual", "steepest_descent"])
 def test_device_stopped_solves_at_the_smallest_limits(accel, maxiter,
                                                       captured):
-    """Loops of 0, 1 and 2 trips at most: the device-stopped solve (whose
-    first run warms up every step of its tree, each from the state before
-    it) equals the op-by-op one, twice."""
+    """Loops of 0, 1 and 2 trips at most (GMRES: a restart of 0, 1 and 2
+    steps): the device-stopped solve (whose first run warms up every step
+    of its tree, each from the state before it) equals the op-by-op one,
+    twice."""
     A64, ml = _ds_hierarchy(24)
     b = _vec(20, A64.shape[0])
 
@@ -529,9 +511,10 @@ def test_captured_solves_read_nothing_and_equal_dispatch(ref, kind,
                                    maxiter=3)
     # standalone: start, cycle; CG: start, true, plain (the true residual's
     # step is recorded with the rest, though 3 iterations never reach it);
-    # GMRES and FGMRES: init, begin, three Arnoldi steps, the update,
-    # final; each cycle apart
-    assert ml._graphs().captured()[0] == 4 * (2 + 3 + 7 + 7)
+    # GMRES and FGMRES: init, begin, the product, three Arnoldi steps, the
+    # updates of 0-3 steps, final (every branch of a switch is recorded
+    # before the first device-stopped solve); each cycle apart
+    assert ml._graphs().captured()[0] == 4 * (2 + 3 + 11 + 11)
 
 
 def _smoothed(spec):
@@ -609,7 +592,10 @@ def test_solve_refined_inner_solves_replay(captured):
 @pytest.mark.parametrize("kw", [
     {"accel": "cg"}, {"accel": "gmres"}, {"accel": "fgmres"},
     {"accel": "cg", "cycle": "W"}, {"accel": "gmres", "cycle": "F"},
-    {}, {"cycle": "W"}, {"cycle": "AMLI"}], ids=str)
+    {}, {"cycle": "W"}, {"cycle": "AMLI"}] + [
+    {"accel": m} for m in ("bicgstab", "cgne", "cgnr", "cr",
+                           "minimal_residual", "steepest_descent",
+                           "gmres_mgs", "gmres_householder")], ids=str)
 def test_captured_loops_match_reference(ref, port, kw, captured):
     n = ref.levels[0].A.shape[0]
     b = _vec(8, n)

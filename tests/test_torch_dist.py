@@ -9,9 +9,11 @@ whose level 1 pads (102 and 70 rows over 4 ranks).  The JAX package's
 histories come from ``jax_parallel_reference`` on ``make_row_mesh(4)``
 over the conftest's virtual devices, in this process.
 
-The ranks also run the eight Krylov methods that PR 11's sharded solve
-refused (``jax_parallel_reference.KRYLOV``), against the JAX package's
-4-device histories, and three distributed setups with their solves
+The ranks also run the sharded CG and GMRES as captured programs (the
+stand-in of ``torch_stand_in.py``), equal bit for bit to op by op, and
+the eight Krylov methods that the first sharded solve refused
+(``jax_parallel_reference.KRYLOV``), against the JAX package's 4-device
+histories, and three distributed setups with their solves
 (``torch_dist_worker.DIST_SETUPS``) on the ``RowMesh`` of the 4
 processes, which must equal, bit for bit, the same setups on a 4-rank
 ``StackedMesh`` in this process.
@@ -211,6 +213,18 @@ def test_cg_reduces_once_per_inner_product(ranks):
     cyc = res["cycle_gspmd"]["all_gather"]
     assert res["cg3_counts"]["all_reduce"] == 3 + 3 * 3
     assert res["cg3_counts"]["all_gather"] == 4 * cyc + 4 + 1
+
+
+@pytest.mark.parametrize("accel", ["cg", "gmres"])
+def test_sharded_solves_as_programs_equal_op_by_op(ranks, accel):
+    """The gspmd path's 20^2 CG and GMRES as captured programs (the
+    stand-in of ``torch_stand_in.py``: every step recorded with its host
+    reads refused, collectives included, and the loops run as a device
+    runs them), twice, equal bit for bit to the same solves op by op, on
+    every rank."""
+    for res in ranks:
+        rec = res[f"stand_in_{accel}"]
+        assert rec["equal"] and rec["graphs"] > 0
 
 
 @pytest.fixture(scope="module")

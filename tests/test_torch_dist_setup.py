@@ -324,6 +324,35 @@ def test_solves_match_jax(pairs, name, solve):
     _close(x, jx, 1e-10)
 
 
+@pytest.mark.parametrize("name,solve", [("sa", "cg"), ("chebyshev", "cg"),
+                                        ("classical", "fgmres")])
+def test_solves_as_programs_match_jax(pairs, name, solve):
+    """``solve_cg`` and ``solve_fgmres`` as captured programs (the stand-in
+    of ``torch_stand_in.py``: each step recorded with its host reads
+    refused, the loop run as a device runs it), twice: bit for bit the
+    eager solve, and so the JAX package's iterations, relres to 1e-10 and
+    x to 1e-10."""
+    from pyamg_tpu_torch import _graph
+    from torch_stand_in import stand_in_programs
+    (J, H), b = pairs[0][name], pairs[1]
+    kw = dict(tol=1e-8, maxiter=40) if solve == "cg" else \
+        dict(tol=1e-8, restart=10, max_outer=4)
+    jx, jrel, jit = getattr(J, f"solve_{solve}")(jnp.asarray(b), **kw)
+    with _graph.eager():
+        want = getattr(H, f"solve_{solve}")(b, **kw)
+    try:
+        with stand_in_programs():
+            for _ in range(2):
+                x, rel, it = getattr(H, f"solve_{solve}")(b, **kw)
+                assert torch.equal(x, want[0]) and (rel, it) == want[1:]
+        assert H._graph_cache.captured()[0] == 2
+    finally:
+        H.__dict__.pop("_graph_cache", None)
+    assert it == jit > 0
+    assert rel == pytest.approx(jrel, rel=1e-10)
+    _close(x, jx, 1e-10)
+
+
 def test_vcycle_reads_nothing_on_the_host(pairs, monkeypatch):
     """One V-cycle of the sharded hierarchy (margin exchanges, the dense
     coarse solve) with every host read of a tensor patched to raise, and

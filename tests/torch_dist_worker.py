@@ -3,8 +3,10 @@
     python tests/torch_dist_worker.py RANK WORLD PORT OUTDIR
 
 joins a gloo group of WORLD processes at ``tcp://127.0.0.1:PORT`` (60 s
-timeout), runs every flow of ``flows`` and ``dist_setup_flows`` on its
-rank with the port alone (no JAX: a spawned rank does not pay for it) and
+timeout), runs every flow of ``flows``, ``stand_in_flows`` and
+``dist_setup_flows`` on its rank with the port alone (no JAX: a spawned
+rank does not pay for it; the stand-in of a captured program,
+``torch_stand_in.py``, imports only the port too) and
 writes its results to ``OUTDIR/rank{RANK}.json`` and the distributed
 setup's level arrays to ``OUTDIR/rank{RANK}_levels.npz``.  Not collected
 by pytest.
@@ -123,6 +125,28 @@ def flows(mesh):
     return out
 
 
+def stand_in_flows(mesh):
+    """The gspmd path's 20^2 CG and GMRES (``flows``) run as captured
+    programs (``torch_stand_in.stand_in_programs``: each step recorded
+    with its host reads refused, the loops run as a device would), twice,
+    against the same solves op by op: {"stand_in_<accel>": {"equal": bit
+    for bit in both runs, "graphs": recorded}}."""
+    from pyamg_tpu_torch import _graph
+    from torch_stand_in import stand_in_programs
+    A, ml = sharded(20, 10, 64, mesh)
+    b = np.random.default_rng(2).standard_normal(A.shape[0])
+    out = {}
+    for accel in ("cg", "gmres"):
+        kw = dict(maxiter=30, tol=1e-10, accel=accel)
+        with _graph.eager():
+            want = solve(ml, b, **kw)
+        with stand_in_programs():
+            got = [solve(ml, b, **kw) for _ in range(2)]
+        out[f"stand_in_{accel}"] = {"equal": all(g == want for g in got),
+                                    "graphs": ml._graphs().captured()[0]}
+    return out
+
+
 # the Krylov methods besides CG and GMRES (jax_parallel_reference.KRYLOV)
 KRYLOV = ("bicgstab", "cr", "minimal_residual", "steepest_descent",
           "gmres_mgs", "cgne", "cgnr", "gmres_householder")
@@ -218,6 +242,7 @@ def main(argv):
         mesh = make_row_mesh(world, device="cpu")
         out = flows(mesh)
         out.update(krylov_flows(mesh))
+        out.update(stand_in_flows(mesh))
         out["dist_setup"], arrays = dist_setup_flows(mesh)
     finally:
         dist.destroy_process_group()
