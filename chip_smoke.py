@@ -49,6 +49,18 @@ Phases, each printed on its own lines:
    ``bench_suite.bench_sa_poisson_3d_64`` runs it, with the launch counts
    read around the solve, per kernel, per SELL operator and per DIA level;
    then a 24^3 solve on the card against the same solve on the CPU;
+4b. spgemm: the device form of SpGEMM (``ops/spgemm.py`` on tensors) at
+   full size in float32 (``spgemm_phase``): 500^2 grid-SA A0 @ P0, the
+   Galerkin product R0 @ (A0 @ P0) and ``masked_spgemm`` of A0 @ P0 on
+   P0's pattern, 64^3 SA A0 @ P0 and R0 @ (A0 @ P0), and elasticity
+   100^2 ``spgemm_bell`` of A0 @ P0, each against the host (scipy)
+   product of the same operands (equal columns and row_nnz, each value
+   within 1e-5 of its row's sum of |candidate products|), no K1-K5
+   launch; ``to_scipy`` of a placed ELL, DIA and BELL equal to the host
+   operator's; the device SpGEMM rate (n * WA * WB multiplies a second
+   of 500^2 A0 @ P0, median of 50, CUDA events) and the host's
+   (scipy's R0 @ (A0 @ P0), as ``bench.py`` counts it) with the card's
+   name and power limit;
 5. times after a warm-up: for each path the warm solve (host clock) and
    one warm solve under torch.profiler, broken down into device busy
    time, idle share, device operations, host syncs and kernels by device
@@ -237,6 +249,7 @@ non-zero before printing a result.
 
 import contextlib
 import functools
+import importlib
 import json
 import os
 import re
@@ -1608,6 +1621,178 @@ def kernel_row(flush, skip, name, replaces, launches, err, fn, plain, library,
           f"(L2-warm), library {lib}, launches on the main path "
           f"{launches}")
     return r
+
+
+def spgemm_products(n2=500, n3=64, n_el=100):
+    """The ``spgemm:`` phase's operands, built on the host in float32 as
+    ``bench.py`` and ``bench_suite.py`` build them, uncompressed: ``{tag:
+    (A, B)}`` for ``A @ B``, where ``B`` None stands for the product before
+    (the Galerkin product ``R @ (A @ P)``), and the level 0 of the 500^2
+    and the elasticity hierarchies."""
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    from pyamg_tpu_torch.gallery import linear_elasticity, poisson
+    t0 = time.perf_counter()
+    sa2 = smoothed_aggregation_solver(poisson((n2, n2)).astype(np.float32),
+                                      aggregate=("grid", {}),
+                                      max_coarse=10).levels[0]
+    sa3 = smoothed_aggregation_solver(
+        poisson((n3, n3, n3)).astype(np.float32), max_coarse=50).levels[0]
+    A_el, B_el = linear_elasticity((n_el, n_el))
+    el = smoothed_aggregation_solver(A_el.astype(np.float32), B=B_el,
+                                     max_coarse=50).levels[0]
+    print(f"spgemm: setup of {n2}^2 grid SA, {n3}^3 SA and elasticity "
+          f"{n_el}^2 (float32, uncompressed) {time.perf_counter() - t0:.2f} "
+          f"s")
+    return {f"{n2}^2 A@P": (sa2.A, sa2.P), f"{n2}^2 R@(A@P)": (sa2.R, None),
+            f"{n3}^3 A@P": (sa3.A, sa3.P), f"{n3}^3 R@(A@P)": (sa3.R, None),
+            f"elasticity {n_el}^2 A@P": (el.A, el.P)}, (sa2, el)
+
+
+def on_host(M):
+    """A placed ELL or BELL with its tensors copied to the host."""
+    import dataclasses
+    return dataclasses.replace(M, **{f: getattr(M, f).cpu().numpy()
+                                     for f in ("cols", "vals", "row_nnz")})
+
+
+def spgemm_bound(A, B):
+    """Each row's sum of |candidate products| of ``A @ B`` (host or placed
+    operands), the scale of the product's rounding: the row sums of |A| @
+    |B| in float64, ``(n, 1)``, or by block entry for blocks, ``(nb, 1,
+    br, bc)``."""
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    br, bc = A.blocksize[0], B.blocksize[1]
+    C = abs(to_scipy(A).astype(np.float64)) @ \
+        abs(to_scipy(B).astype(np.float64))
+    m = C.shape[1]
+    phase = sp.csr_matrix((np.ones(m), (np.arange(m), np.arange(m) % bc)),
+                          shape=(m, bc))
+    sums = (C @ phase).toarray()
+    return sums if (br, bc) == (1, 1) else sums.reshape(-1, br, bc)[:, None]
+
+
+def spgemm_ratio(got, want, bound):
+    """max |got - want| / bound of host arrays (0 where they are equal)."""
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return float(np.divide(diff, bound, out=np.zeros_like(diff),
+                           where=diff > 0).max())
+
+
+def spgemm_gate(tag, got, want, bound, tol=1e-5):
+    """A device product against the host product of the same operands:
+    equal columns and row_nnz, every value within ``tol`` times its row's
+    sum of |candidate products|.  Returns the largest ratio."""
+    got = on_host(got)
+    same = got.shape == want.shape and got.width == want.width and all(
+        np.array_equal(getattr(got, f), getattr(want, f))
+        for f in ("cols", "row_nnz"))
+    ratio = spgemm_ratio(got.vals, want.vals, bound)
+    print(f"spgemm: {tag} {want.shape} width {want.width}, columns and "
+          f"row_nnz equal {same}, largest |device - host| / row sum of "
+          f"|candidates| {ratio:.3e} (tol {tol:g})")
+    check(same and ratio <= tol, f"spgemm: the device {tag} differs from "
+                                 f"the host product")
+    return ratio
+
+
+def spgemm_phase(dev, card, reps=50, n2=500, n3=64, n_el=100):
+    """The ``spgemm:`` phase: the device form of SpGEMM (``ops/spgemm.py``
+    on tensors: ``_expand``, ``rowops.dedup_rows``) at full size in
+    float32, each product against the host (scipy) product of the same
+    operands (``spgemm_gate``): on the 500^2 grid-SA main path (the
+    hierarchy before ``compress_stencils``) A0 @ P0, the Galerkin product
+    R0 @ (A0 @ P0) and ``masked_spgemm`` of A0 @ P0 on P0's pattern; on
+    the 64^3 standard-SA path A0 @ P0 and R0 @ (A0 @ P0); on elasticity
+    100^2 ``spgemm_bell`` of A0 @ P0 (BELL).  No K1-K5 launch.  Then
+    ``to_scipy`` of a placed 500^2 level-0 ELL, DIA and elasticity BELL
+    against that of the host operator, exactly; and the rates as
+    ``bench.py`` computes them: the device's n * WA * WB multiplies a
+    second of ``_expand`` + ``dedup_rows`` of the 500^2 A0 @ P0 (median of
+    ``reps`` warm calls, CUDA events) and the host's (nnz(A) * width(P) +
+    nnz(Ac) * width(R)) / t of scipy's R0 @ (A0 @ P0) (median of 3),
+    printed with ``card`` (the card's name and power limit)."""
+    import torch
+    sg = importlib.import_module("pyamg_tpu_torch.ops.spgemm")
+    from pyamg_tpu_torch.ops.rowops import dedup_rows
+    from pyamg_tpu_torch.sparse.matrix import dia_from_ell, to_scipy
+    products, (sa2, el) = spgemm_products(n2, n3, n_el)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    worst, last = 0.0, None
+    for tag, (A, B) in products.items():
+        if B is None:       # R @ (the device's product before, and its copy)
+            B, Bd = on_host(last), last
+        else:
+            Bd = B.to(dev)
+        Ad = A.to(dev)
+        prod = sg.spgemm_bell if A.blocksize != (1, 1) else sg.spgemm
+        got, want = prod(Ad, Bd), prod(A, B)
+        torch.cuda.synchronize()
+        check(isinstance(got.vals, torch.Tensor) and got.vals.device.type
+              == torch.device(dev).type and isinstance(want.vals,
+                                                        np.ndarray),
+              f"spgemm: {tag} did not run on the card and the host")
+        worst = max(worst, spgemm_gate(tag, got, want, spgemm_bound(A, B)))
+        last = got
+    A, P = sa2.A, sa2.P
+    Ad, Pd = A.to(dev), P.to(dev)
+    pc, pv = torch.as_tensor(P.cols, device=dev), \
+        torch.as_tensor(P.valid_mask(), device=dev)
+    got = sg.masked_spgemm(Ad, Pd, pc, pv)
+    want = sg.masked_spgemm(A, P, P.cols, P.valid_mask())
+    ratio = spgemm_ratio(got.cpu().numpy(), want, spgemm_bound(A, P))
+    print(f"spgemm: masked {n2}^2 A@P on P's pattern {tuple(want.shape)}, "
+          f"largest |device - host| / row sum of |candidates| {ratio:.3e} "
+          f"(tol 1e-05)")
+    check(got.shape == want.shape and ratio <= 1e-5,
+          "spgemm: the device masked A@P differs from the host's")
+    worst = max(worst, ratio)
+    launched = kernel_launches()
+    print(f"spgemm: products {time.perf_counter() - t0:.2f} s, largest "
+          f"ratio {worst:.3e}, kernel launches {launched}")
+    check(all(v == 0 for v in launched.values()),
+          f"spgemm: a K1-K5 kernel launched: {launched}")
+
+    # to_scipy of placed operators
+    for tag, M in ((f"{n2}^2 level-0 ELL", A),
+                   (f"{n2}^2 level-0 DIA", dia_from_ell(A)),
+                   (f"elasticity {n_el}^2 level-0 BELL", el.A)):
+        want, got = to_scipy(M), to_scipy(M.to(dev))
+        same = got.format == want.format and got.shape == want.shape and \
+            all(np.array_equal(getattr(got, f), getattr(want, f))
+                for f in ("indptr", "indices", "data"))
+        print(f"spgemm: to_scipy of a placed {tag} equals the host's {same}")
+        check(same, f"to_scipy of a placed {tag} differs from the host's")
+
+    # the rates
+    n_cols = P.shape[1]
+    torch.cuda.synchronize()
+    ms = []
+    for k in range(reps + 3):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dedup_rows(*sg._expand(Ad, Pd), n_cols)
+        stop.record()
+        stop.synchronize()
+        if k >= 3:
+            ms.append(start.elapsed_time(stop))
+    t_dev = statistics.median(ms) / 1e3
+    mults = A.shape[0] * A.width * P.width
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        Ac = sg.spgemm(sa2.R, sg.spgemm(A, P))
+        walls.append(time.perf_counter() - t0)
+    t_host = statistics.median(walls)
+    host_rate = (A.nnz * P.width + Ac.nnz * sa2.R.width) / t_host
+    print(f"spgemm: device rate {mults / t_dev / 1e9:.4f} G multiplies/s "
+          f"(_expand + dedup_rows of {n2}^2 A@P: n * WA * WB = {A.shape[0]} "
+          f"* {A.width} * {P.width}, median {t_dev * 1e3:.4f} ms of {reps} "
+          f"warm calls, CUDA events, all {[round(m, 4) for m in ms]}); host "
+          f"rate {host_rate / 1e9:.4f} Gnnz/s (scipy R@(A@P), median "
+          f"{t_host:.4f} s of 3); on {card}")
 
 
 def classical_paths(dev, n_rs=500, n_air=256):
@@ -3789,6 +3974,11 @@ def main():
     print(f"sa3d: 24^3 solve, card vs CPU relative difference {diff:.3e} "
           f"(tol 1e-9)")
     check(diff < 1e-9, "the card's 24^3 solve disagrees with the CPU's")
+
+    # -- 4b. spgemm: the device form of SpGEMM at full size ---------------
+    t0 = time.perf_counter()
+    spgemm_phase(dev, smi.splitlines()[0])
+    print(f"spgemm: phase {time.perf_counter() - t0:.2f} s")
 
     # -- 5. times -------------------------------------------------------------
     walls = []

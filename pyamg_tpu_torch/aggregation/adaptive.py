@@ -27,12 +27,13 @@ from pyamg_tpu_torch.aggregation.aggregation import (
 from pyamg_tpu_torch.util.linalg import approximate_spectral_radius
 
 
-def eliminate_local_candidates(x, AggOp, A, T, thresh=1.0):
+def eliminate_local_candidates(x, AggOp, A, T, thresh=1.0, **kwargs):
     """x with the aggregates where it is locally unimportant set to 0
     (reference ``adaptive.py:25``): an aggregate is dropped when the
     candidate's local mass ``<x, x>_i`` is at most the energy-scaled
     weight ``thresh * card_i * <Ax, x> / (n rho(A))``, or when the part of
-    x outside range(T) is."""
+    x outside range(T) is.  Other keywords are accepted and ignored, as
+    in the reference."""
     x = np.asarray(x)
     nnodes, nagg = AggOp.shape
     ndof = x.shape[0]

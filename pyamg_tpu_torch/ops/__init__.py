@@ -19,7 +19,8 @@ from pyamg_tpu_torch.ops.rowops import (dedup_rows, drop_explicit_zeros,
 
 
 def matmul(A, B):
-    """sparse @ sparse -> sparse (host), sparse @ dense -> dense."""
+    """sparse @ sparse -> sparse (host arrays by scipy, tensors on their
+    device), sparse @ dense -> dense."""
     dense = B if isinstance(B, torch.Tensor) else np.asarray(B)
     if isinstance(A, ELL):
         if isinstance(B, ELL):

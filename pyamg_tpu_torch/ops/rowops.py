@@ -2,7 +2,8 @@
 
 Counterpart of the host twins in ``pyamg_tpu/ops/rowops.py``:
 ``dedup_rows`` (the host form, and of tensors the device form that the
-distributed setup runs) and ``compact_width``; ``ell_dedup`` sorts each row's candidate (col, val) pairs by column, sums
+distributed setup and the device SpGEMM run) and ``compact_width``;
+``ell_dedup`` sorts each row's candidate (col, val) pairs by column, sums
 duplicate columns and left-compacts (stored entries that sum to zero stay
 stored, as in the reference, because stored-entry counts feed the operator
 complexity); ``row_lookup`` gathers A's entries at given columns row by
@@ -58,40 +59,51 @@ def dedup_rows_host(cols, vals, valid, n_cols: int):
 def dedup_rows(cols, vals, valid, n_cols: int):
     """Coalesce each row's candidate entries: ``dedup_rows_host`` of host
     arrays; of tensors, the JAX package's device form
-    (``pyamg_tpu/ops/rowops.py:78``), over the last axis of any leading
-    shape: sort by column (invalid entries carry the ``n_cols`` sentinel
-    and a zero value), take the running sum, move the ends of the
-    equal-column runs to the front with a stable sort, and difference
-    them.  Its values are differences of running sums: they round
-    otherwise than the host twin's direct sums.  The first sort is
-    stable here, where the JAX package's need not be, so duplicates may
-    meet in another order and round in their last bit."""
+    (``pyamg_tpu/ops/rowops.py:78``), over the last axis of ``cols`` of
+    any leading shape: sort by column (invalid entries carry the
+    ``n_cols`` sentinel and a zero value), take the running sum, move the
+    ends of the equal-column runs to the front with a stable sort, and
+    difference them.  ``vals`` may hold a block a slot (trailing axes
+    past ``cols``'s shape, the JAX package's ``_dedup_blocks``): the
+    blocks ride along by the sorts' permutations.  Its values are
+    differences of running sums: they round otherwise than the host
+    twin's direct sums.  The first sort is stable here, where the JAX
+    package's need not be, so duplicates may meet in another order and
+    round in their last bit."""
     import torch
     if not any(isinstance(v, torch.Tensor) for v in (cols, vals, valid)):
         return dedup_rows_host(cols, vals, valid, n_cols)
-    W = cols.shape[-1]
+    W, axis = cols.shape[-1], cols.ndim - 1
+    block = (1,) * (vals.ndim - cols.ndim)
+
+    def per_slot(t, like):
+        """``t`` (``cols``'s shape) broadcast over the blocks of ``like``."""
+        return t.reshape(t.shape + block).expand(t.shape + like.shape[
+            cols.ndim:])
+
     c = torch.where(valid, cols.to(torch.int64), int(n_cols))
-    v = torch.where(valid, vals, 0)
+    v = torch.where(per_slot(valid, vals), vals, 0)
     live = c < n_cols
     if W == 1:
         return (torch.where(live, c, 0).to(cols.dtype), v,
                 live[..., 0].to(torch.int32))
     c, order = torch.sort(c, dim=-1, stable=True)
-    v = torch.gather(v, -1, order)
+    v = torch.gather(v, axis, per_slot(order, v))
     neq = c[..., 1:] != c[..., :-1]
     ones = torch.ones(c.shape[:-1] + (1,), dtype=torch.bool, device=c.device)
     head = torch.cat([ones, neq], dim=-1) & (c < n_cols)
     row_nnz = torch.sum(head, dim=-1, dtype=torch.int32)
-    s = torch.cumsum(v, dim=-1)
+    s = torch.cumsum(v, dim=axis)
     # the ends of the runs, in column order, first
     islast = torch.cat([neq, ones], dim=-1)
     order = torch.sort((~islast).to(torch.int8), dim=-1, stable=True).indices
     c2 = torch.gather(c, -1, order)
-    s2 = torch.gather(s, -1, order)
-    prev = torch.cat([torch.zeros_like(s2[..., :1]), s2[..., :-1]], dim=-1)
+    s2 = torch.gather(s, axis, per_slot(order, s))
+    prev = torch.cat([torch.zeros_like(s2.narrow(axis, 0, 1)),
+                      s2.narrow(axis, 0, W - 1)], dim=axis)
     keep = torch.arange(W, device=c.device) < row_nnz[..., None]
     return (torch.where(keep, c2, 0).to(cols.dtype),
-            torch.where(keep, s2 - prev, 0), row_nnz)
+            torch.where(per_slot(keep, s2), s2 - prev, 0), row_nnz)
 
 
 def compact_width(cols, vals, row_nnz, shape, width=None,

@@ -567,20 +567,23 @@ def bell_from_scipy(A, width=None) -> BELL:
                 (int(br), int(bc)))
 
 
+def _host(a):
+    """A numpy array of a host array or of a tensor on any device."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def to_scipy(A):
-    """Host ELL/DIA -> scipy CSR; host BELL -> scipy BSR."""
+    """ELL/DIA (host or placed) -> scipy CSR; BELL -> scipy BSR."""
     import scipy.sparse as sp
     if isinstance(A, DIA):
         n = A.shape[0]
-        data = np.asarray(A.data)[:, :n]
+        data = _host(A.data)[:, :n]
         M = sp.dia_matrix((np.stack([np.roll(data[d], off)
                                      for d, off in enumerate(A.offsets)]),
                            np.asarray(A.offsets)), shape=A.shape).tocsr()
         M.eliminate_zeros()
         return M
-    cols = np.asarray(A.cols)
-    vals = np.asarray(A.vals)
-    row_nnz = np.asarray(A.row_nnz)
+    cols, vals, row_nnz = _host(A.cols), _host(A.vals), _host(A.row_nnz)
     indptr = np.concatenate([[0], np.cumsum(row_nnz)]).astype(np.int64)
     mask = np.arange(A.width)[None, :] < row_nnz[:, None]
     if isinstance(A, BELL):
@@ -591,9 +594,7 @@ def to_scipy(A):
 
 def ell_from_dia(A: DIA) -> ELL:
     """A DIA (host or placed) back to a host ELL, its zeros dropped."""
-    data = A.data.cpu().numpy() if isinstance(A.data, torch.Tensor) \
-        else A.data
-    return from_scipy(to_scipy(DIA(data, A.offsets, A.shape)))
+    return from_scipy(to_scipy(A))
 
 
 def eye(n, dtype=np.float32, width: int = 1) -> ELL:
@@ -610,11 +611,8 @@ def ell_from_coo(rows, cols, vals, shape, width=None, sum_duplicates=True,
     """A host ELL from COO triplets (numpy or tensors) of equal length:
     entries with ``rows == shape[0]`` are padding and dropped, the rest
     sorted by (row, column) and, with ``sum_duplicates``, coalesced."""
-    def np_(v):
-        return v.cpu().numpy() if isinstance(v, torch.Tensor) \
-            else np.asarray(v)
     n = int(shape[0])
-    r, c, v = np_(rows), np_(cols), np_(vals)
+    r, c, v = _host(rows), _host(cols), _host(vals)
     keep = r < n
     r, c, v = r[keep], c[keep], v[keep]
     order = np.lexsort((c, r))

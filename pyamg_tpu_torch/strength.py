@@ -204,12 +204,13 @@ _MEASURES = {
 }
 
 
-def strength_measure(A, spec):
+def strength_measure(A, spec, default=("symmetric", {})):
     """Dispatch PyAMG's ``(name, opts)`` strength convention: ``None``
     (the |A| pattern; a BELL's blocks by their largest magnitude),
     ``'symmetric'``, ``'classical'``, ``'distance'``,
     ``'evolution'``/``'ode'``, ``'energy_based'``, ``'affinity'`` or
-    ``'algebraic_distance'``."""
+    ``'algebraic_distance'``.  ``default`` is accepted and unused, as in
+    the reference."""
     from pyamg_tpu_torch.relaxation.smoothing import unpack_arg
     name, opts = (None, {}) if spec is None else unpack_arg(spec)
     if name is None:

@@ -195,3 +195,34 @@ def test_a_compressed_level_raises(hierarchies):
     with pytest.raises(TypeError, match="DIA"):
         rx.schwarz(dia_from_ell(ml.levels[0].A), b, b,
                    np.arange(b.shape[0])[None, :])
+
+
+@pytest.mark.parametrize("accel", ["bicgstab", "cr"])
+def test_generic_krylov_methods_with_schwarz(accel):
+    """BiCGStab and CR with Schwarz smoothing on 2-D Poisson 24^2, where
+    the JAX package raises (its ``schwarz`` converts a tracer to numpy):
+    each reaches tol, x is within 1e-6 relative of scipy's direct solve,
+    and the device-stopped solve (CUDA graphs by the CPU stand-in) equals
+    its op-by-op form bit for bit."""
+    from scipy.sparse.linalg import spsolve
+    from pyamg_tpu_torch import _graph
+    from torch_stand_in import stand_in_programs
+    A = poisson((24, 24))
+    ml = on_cpu(smoothed_aggregation_solver(
+        A, presmoother="schwarz", postsmoother="schwarz", max_coarse=20))
+    b = np.random.default_rng(3).standard_normal(A.shape[0])
+    runs = []
+    for form in (_graph.eager, stand_in_programs, stand_in_programs):
+        res = []
+        with form():
+            x, info = ml.solve(b, tol=1e-10, maxiter=100, accel=accel,
+                               residuals=res, return_info=True)
+        runs.append((x, info, res))
+    x, info, res = runs[0]
+    assert info == 0 and res[-1] <= 1e-10 * res[0]
+    want = spsolve(to_scipy(A).tocsc(), b)
+    assert np.linalg.norm(np.asarray(x) - want) <= \
+        1e-6 * np.linalg.norm(want)
+    for got in runs[1:]:
+        assert torch.equal(torch.as_tensor(got[0]), torch.as_tensor(x))
+        assert got[1:] == (info, res)

@@ -6,6 +6,7 @@ the JAX package's on the CPU.
 
 import dataclasses
 import importlib
+import inspect
 import pkgutil
 import warnings
 
@@ -100,6 +101,136 @@ def test_container_members_resolve(cls):
     assert _members(ref) - _members(port) == set()
     if cls != "Level":
         assert hasattr(port, "__matmul__")
+
+
+def _reference_objects():
+    """{(module, name): object} of each public function and class that a
+    module of the JAX package defines (its packages' modules, ``_native``
+    aside)."""
+    out = {}
+    for pkg in REFERENCE_MODULES:
+        for name in [pkg] + [m.name for m in pkgutil.iter_modules(
+                importlib.import_module(pkg).__path__, pkg + ".")]:
+            if name.startswith("pyamg_tpu._native"):
+                continue
+            for n, obj in vars(importlib.import_module(name)).items():
+                if not n.startswith("_") and getattr(
+                        obj, "__module__", None) == name and \
+                        (inspect.isfunction(obj) or inspect.isclass(obj)):
+                    out[name, n] = obj
+    return out
+
+
+# the port's signatures differ from the JAX package's here by design, and
+# only here: JAX-only helpers and module (absent), the ``interpret`` flags
+# of the Pallas wrappers, a torch.distributed group and device in place of
+# JAX devices, an H100's 80 GB, and the port's dtypes as defaults
+ABSENT_BY_DESIGN = {
+    ("pyamg_tpu.ops.pallas_kernels", None),
+    ("pyamg_tpu.ops.sell_kernels", "pallas_available"),
+    ("pyamg_tpu.sparse.matrix", "is_concrete"),
+    ("pyamg_tpu.sparse.matrix", "trace_state_clean"),
+    ("pyamg_tpu.sparse.matrix", "setup_device"),
+    ("pyamg_tpu.sparse.matrix", "on_setup_device"),
+}
+PARAMETERS_BY_DESIGN = {
+    ("pyamg_tpu.ops.sell_kernels", "sell_spmv"): {"interpret"},
+    ("pyamg_tpu.ops.sell_kernels", "sell_gs_sweep"): {"interpret"},
+    ("pyamg_tpu.parallel.partition", "make_row_mesh"): {"devices"},
+}
+DEFAULTS_BY_DESIGN = {
+    ("pyamg_tpu.parallel.scale_model", "summarize"): {"hbm_bytes"},
+    ("pyamg_tpu.parallel.dist_setup", "dist_stencil_grid"): {"dtype"},
+    ("pyamg_tpu.parallel.dist_setup", "dist_from_scipy"): {"dtype"},
+    ("pyamg_tpu.sparse.matrix", "eye"): {"dtype"},
+}
+
+
+def _signature_differences():
+    """(absent, parameters, defaults): reference objects the port lacks;
+    reference parameter names the port's signature lacks (unless it takes
+    ``**kwargs``); parameters both have whose defaults differ."""
+    absent, params, defaults = set(), {}, {}
+    for (mod, name), obj in _reference_objects().items():
+        try:
+            port_mod = _port(mod)
+        except ModuleNotFoundError:
+            absent.add((mod, None))
+            continue
+        if not hasattr(port_mod, name):
+            absent.add((mod, name))
+            continue
+        want = inspect.signature(obj).parameters
+        got = inspect.signature(getattr(port_mod, name)).parameters
+        missing = set(want) - set(got)
+        if missing and not any(p.kind == p.VAR_KEYWORD
+                               for p in got.values()):
+            params[mod, name] = missing
+        moved = {p for p in set(want) & set(got)
+                 if repr(want[p].default) != repr(got[p].default)}
+        if moved:
+            defaults[mod, name] = moved
+    return absent, params, defaults
+
+
+def test_reference_signatures_resolve_in_the_port():
+    """Every parameter name of each reference function and class is in
+    the port's signature (or the port's takes ``**kwargs``), with the
+    same default, but for the differences listed by design: those and no
+    other."""
+    absent, params, defaults = _signature_differences()
+    assert absent == ABSENT_BY_DESIGN
+    assert params == PARAMETERS_BY_DESIGN
+    assert defaults == DEFAULTS_BY_DESIGN
+
+
+def test_keywords_the_reference_takes():
+    """``strength_measure(default=)`` and ``eliminate_local_candidates``'s
+    extra keywords are accepted and ignored, as in the reference."""
+    from pyamg_tpu.aggregation.adaptive import \
+        eliminate_local_candidates as jelim
+    from pyamg_tpu.strength import strength_measure as jmeasure
+    from pyamg_tpu_torch.aggregation.adaptive import \
+        eliminate_local_candidates
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.strength import strength_measure
+    A = poisson((12, 12))
+    jA = pyamg_tpu.gallery.poisson((12, 12))
+    for spec in (None, "symmetric", ("classical", {"theta": 0.3})):
+        _same_ell(strength_measure(A, spec, default=("classical", {})),
+                  strength_measure(A, spec))
+    _same_ell(strength_measure(A, "symmetric", default=("classical", {})),
+              jmeasure(jA, "symmetric", default=("classical", {})))
+    from pyamg_tpu_torch.aggregation.aggregate import standard_aggregation
+    from pyamg_tpu_torch.aggregation.tentative import fit_candidates
+    AggOp, _ = standard_aggregation(strength_measure(A, "symmetric"))
+    T, _ = fit_candidates(AggOp, np.ones((A.shape[0], 1)))
+    x = np.random.default_rng(4).standard_normal(A.shape[0])
+    got = eliminate_local_candidates(x, AggOp, A, T, thresh=0.5, extra=1)
+    np.testing.assert_array_equal(
+        got, eliminate_local_candidates(x, AggOp, A, T, thresh=0.5))
+    from pyamg_tpu.sparse.matrix import from_scipy as jfrom_scipy
+    from pyamg_tpu_torch.sparse.matrix import to_scipy
+    want = jelim(x, jfrom_scipy(to_scipy(AggOp)), jA,
+                 jfrom_scipy(to_scipy(T)), thresh=0.5, extra=1)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["ELL", "BELL", "DIA"])
+def test_to_scipy_of_a_placed_operator(kind):
+    """``to_scipy`` copies a placed operator's tensors to the host: on
+    ``device="cpu"`` it equals ``to_scipy`` of the host operator exactly
+    (on the card, ``chip_smoke.py`` holds it)."""
+    from pyamg_tpu_torch.gallery import linear_elasticity, poisson
+    from pyamg_tpu_torch.sparse.matrix import dia_from_ell, to_scipy
+    A = {"ELL": lambda: poisson((12, 12)),
+         "BELL": lambda: linear_elasticity((6, 6))[0],
+         "DIA": lambda: dia_from_ell(poisson((12, 12)))}[kind]()
+    want, got = to_scipy(A), to_scipy(A.to("cpu"))
+    assert got.format == want.format and got.shape == want.shape
+    assert (got != want).nnz == 0
+    for f in ("indptr", "indices", "data"):
+        _same(getattr(got, f), getattr(want, f))
 
 
 # -- the functions and members added ---------------------------------------------
