@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive pyamg_tpu_torch's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py scale      # the device section and scale: alone
 
-Phases, each printed on its own lines:
+Phases, each printed on its own lines (and the second each starts at):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, and the build of the CUDA kernels from ``pyamg_tpu_torch/csrc``
@@ -242,6 +243,19 @@ in its three forms,
 no K1-K5 launch, iterations within 1 of the JAX package's, the true
 relative residual of the complex paths at most twice its.
 
+Phase 13, ``scale:`` (``scale_phase``), runs the JAX package's two
+10M-unknown single-chip configurations at full size: the main path on
+2-D Poisson 3163^2 as ``benchmarks/bench_10m_solve.py`` runs it (its host
+setup in a process of its own, started before phase 1b, beside the
+earlier phases), its hierarchy gated against ``JAX_SCALE`` before any
+solve, K1 and K2 on each of its DIA levels to 0, and the solve driven as
+``drive_path`` drives a path (iterations within 1 of the JAX package's,
+true relative residual below 1e-10, the three forms bit for bit); then
+the SELL SpMV of ``benchmarks/bench_sell_scale.py`` on the same float32
+operator's ``k_choices=(4,)`` plan, in the K4 regime: its loop of 20
+products with 20 launches, against the plain version; and time rows for
+K1 and K2 on levels 0 and 1 and K3 in the K4 regime on that plan.
+
 It then prints the kernel table as one JSON line and, last, the device
 line.  Any failed check exits non-zero; without a CUDA device it exits
 non-zero before printing a result.
@@ -268,6 +282,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 F64_FLOPS = 34e12              # H100 SXM float64 outside the tensor cores
                                # (data sheet)
+SELL_SRC = "pyamg_tpu_torch/csrc/sell_kernels.cu"
 SEED = 2022
 # the JAX package's inner CG iterations per outer step on the 64^3 path
 # (tests/jax_sell_reference.py 64, Pallas kernels in interpret mode on a
@@ -345,6 +360,21 @@ JAX_CLASSICAL = {
             "outer": 2, "inner": (23, 21),
             "true_relres": 5.74217683939961e-11},
 }
+# the JAX package's 10M-unknown single-chip solve on 2-D Poisson 3163^2
+# (benchmarks/bench_10m_solve.py, run on a TPU; its hardware-independent
+# results as benchmarks/SOLVE_10M.json records them): levels before and
+# after the coarse collapse, operator complexity to its four digits, outer
+# and total inner CG iterations, true relative residual.  The port's
+# iterations must equal them within 1.  The same flow on a CPU is
+# tests/jax_scale_reference.py; at 10M unknowns it is a full-size run and
+# is not made on the CPU of a development host (--small runs the sizes
+# that tests/test_torch_scale.py holds the port to)
+SCALE_N = 3163
+JAX_SCALE = {"levels": 8, "active": 5, "operator_complexity": 1.2251,
+             "outer": 3, "inner": 19, "true_relres": 7.793969859751499e-13}
+# the JAX package's SELL plan of the same float32 operator with
+# k_choices=(4,) (benchmarks/bench_sell_scale.py; benchmarks/SELL_SCALE.json)
+JAX_SELL_SCALE = {"nnz": 50_010_193, "passes": 5}
 # the JAX package's smoothed-aggregation paths of bench_suite.py:83-138
 # (JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/jax_sa_reference.py,
 # CPU; with --small for JAX_SA_SMALL): rows and blocksize of the levels,
@@ -1620,6 +1650,35 @@ def kernel_row(flush, skip, name, replaces, launches, err, fn, plain, library,
           f"{nbytes / 1e6:.2f} MB), plain {r['plain_ms'] * 1e3:.2f} us "
           f"(L2-warm), library {lib}, launches on the main path "
           f"{launches}")
+    return r
+
+
+def slot_model(S, vectors_bytes, tag):
+    """Print the bytes of a SELL plan's padded slots beside the bound."""
+    from pyamg_tpu_torch.sparse.sell import LANE
+    T, Sy, _ = S.vals.shape
+    nbytes = T * Sy * LANE * 8 + vectors_bytes
+    print(f"times: {tag} plan-slot byte model ({T * Sy * LANE} slots for "
+          f"{S.nnz} stored entries): {nbytes / HBM_BYTES_PER_S * 1e6:.2f} "
+          f"us ({nbytes / 1e6:.2f} MB)")
+
+
+def sell_spmv_row(row, dev, name, replaces, S, S_scipy, x, err, tag,
+                  launches):
+    """K3/K4 at one operator (``row``: ``kernel_row`` with its flush):
+    bound from its stored entries (value and column each), x read and y
+    written; 2 flops per stored entry; the library call is torch.sparse's
+    CSR product of ``S_scipy``."""
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    lib = csr_on(S_scipy, dev)
+    e_lib, scale = rel_err(lib @ x, sk.sell_spmv_plain(S, x))
+    check(e_lib <= 1e-5 * scale, f"library CSR product disagrees ({tag})")
+    vectors = (S.shape[0] + S.shape[1]) * 4
+    r = row(name, replaces, launches, err, lambda: sk.sell_spmv(S, x),
+            lambda: sk.sell_spmv_plain(S, x), lambda: lib @ x,
+            S.nnz * 8 + vectors, 2 * S.nnz, source=SELL_SRC, plain_reps=5,
+            tag=tag)
+    slot_model(S, vectors, tag)
     return r
 
 
@@ -3406,31 +3465,17 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
                       f"package's")
 
 
-def main():
-    t_start = time.perf_counter()
+def device_section(dev):
+    """The card's name and power limit (nvidia-smi), the versions, the
+    kernels' build (one nvcc a source, started together) with each
+    kernel's registers, shared memory, stack frame and spills, and the
+    SWITCH probe of ``csrc/graph_cond.cu``: (the nvidia-smi line, SMs)."""
     import torch
-    check(torch.cuda.is_available(), "no CUDA device")
     from pyamg_tpu_torch import _graph
-    from pyamg_tpu_torch.ops import dia_kernels as dk
-    from pyamg_tpu_torch.ops import ds as dsm
-    from pyamg_tpu_torch.ops import sell_kernels as sk
-    from pyamg_tpu_torch.sparse import sell as sellm
-    from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
-                                                       make_coloring)
-    from pyamg_tpu_torch.sparse.matrix import (DIA, DIA_TILE, dia_from_ell,
-                                               to_scipy)
-    from pyamg_tpu_torch.gallery import poisson
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-
-    # -- 1. device ---------------------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
@@ -3448,7 +3493,363 @@ def main():
           f"for the index 0, 1, 2, 3 (want [1, 2, 3, 0]), tally {tally}")
     check(got == [1, 2, 3, 0] and tally == [1, 1, 1],
           "the card runs no SWITCH node as built")
+    return card, sms
 
+
+def grid_rows(N, max_coarse=10):
+    """The rows of each level of grid SA on 2-D Poisson N^2 before the
+    coarse collapse: a level aggregates 3 x 3 points (a side of ceil(side
+    / 3)) until it has at most ``max_coarse`` rows.  This is the JAX
+    package's rule (``tests/test_torch_scale.py`` holds it to the JAX
+    package's hierarchies at 49^2 and 193^2)."""
+    sides = [N]
+    while sides[-1] ** 2 > max_coarse:
+        sides.append(-(-sides[-1] // 3))
+    return [s * s for s in sides]
+
+
+def timed(steps, name, fn):
+    """``fn()``, its seconds recorded as ``steps[name]``."""
+    t0 = time.perf_counter()
+    out = fn()
+    steps[name] = time.perf_counter() - t0
+    return out
+
+
+def scale_host_setup(n, conn):
+    """The host steps of the ``scale:`` phase's setup, run in a process of
+    their own (``ScaleSetup``) while the earlier phases use the card: 2-D
+    Poisson n^2, its float32 copy, grid SA and ``compress_stencils()``,
+    each timed.  Sends ("ok", (A64, A32, ml, seconds by step, (levels,
+    operator complexity before the collapse))) or ("error", traceback)
+    through ``conn`` (``send_large``)."""
+    import traceback
+    try:
+        import torch
+        from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+        from pyamg_tpu_torch.gallery import poisson
+        torch.set_num_threads(1)
+        steps = {}
+        A64 = timed(steps, "poisson", lambda: poisson((n, n)))
+        A32 = timed(steps, "astype", lambda: A64.astype(np.float32))
+        ml = timed(steps, "smoothed_aggregation_solver",
+                   lambda: smoothed_aggregation_solver(
+                       A32, aggregate=("grid", {}), max_coarse=10))
+        full = (len(ml.levels), ml.operator_complexity())
+        timed(steps, "compress_stencils", ml.compress_stencils)
+        msg = ("ok", (A64, A32, ml, steps, full))
+    except BaseException:
+        msg = ("error", traceback.format_exc())
+    send_large(conn, msg)
+    conn.close()
+
+
+PIPE_CHUNK = 1 << 20
+
+
+def send_large(conn, obj):
+    """Send ``obj`` through ``conn`` (``recv_large``): its pickle with the
+    arrays' bytes left out, and their sizes, as one message; then each
+    array's bytes written raw.  One ``Connection`` message of gigabytes
+    is read 64 KB at a time into new buffers of all that remains (10 s
+    for 2.5 GB on the development host, where this takes 5.6)."""
+    import pickle
+    buffers = []
+    meta = pickle.dumps(obj, protocol=5, buffer_callback=buffers.append)
+    views = [b.raw() for b in buffers]
+    conn.send((meta, [v.nbytes for v in views]))
+    fd = conn.fileno()
+    for v in views:
+        off = 0
+        while off < v.nbytes:
+            off += os.write(fd, v[off:off + PIPE_CHUNK])
+
+
+def recv_large(conn):
+    """What ``send_large`` sent: each array read into a buffer made up
+    front, which the unpickled array then uses in place."""
+    import pickle
+    meta, sizes = conn.recv()
+    fd, bufs = conn.fileno(), []
+    for size in sizes:
+        buf = bytearray(size)
+        view, off = memoryview(buf), 0
+        while off < size:
+            got = os.readv(fd, [view[off:off + PIPE_CHUNK]])
+            check(got > 0, "the scale: setup process closed its pipe early")
+            off += got
+        bufs.append(buf)
+    return pickle.loads(meta, buffers=bufs)
+
+
+class ScaleSetup:
+    """``scale_host_setup`` in a spawned process (it holds no CUDA
+    state), started at once; ``result()`` waits for it.  The process is
+    a daemon, so a failing script does not wait for it."""
+
+    def __init__(self, n=SCALE_N):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=scale_host_setup, args=(n, child),
+                                daemon=True)
+        self.proc.start()
+        child.close()
+
+    def result(self):
+        status, out = recv_large(self.conn)
+        self.proc.join()
+        check(status == "ok", f"the scale: host setup failed:\n{out}")
+        return out
+
+
+def scale_phase(dev, sms, rng, setup, n=SCALE_N, want=None, reps=5):
+    """The ``scale:`` phase: the JAX package's two 10M-unknown single-chip
+    configurations, at full size on the card.
+
+    (a) ``benchmarks/bench_10m_solve.py:31-67`` through the port's entry
+    points, each step timed: 2-D Poisson n^2 (float64), its float32 copy,
+    ``smoothed_aggregation_solver(aggregate=("grid", {}), max_coarse=10)``
+    and ``compress_stencils()`` on the host in ``setup``'s process (a
+    ``ScaleSetup``, started before the earlier phases so that its
+    minutes of host work run beside them), then
+    ``collapse_coarse(max_n=4096)``, ``enable_ds_refinement(A64)`` and
+    ``to_device()`` here.  Before any solve the
+    hierarchy is gated: its levels before and after the collapse and its
+    operator complexity (four digits) against ``want`` (JAX_SCALE), its
+    rows against ``grid_rows``, every active level a DIA (5 diagonals on
+    level 0, 9 below) with PhaseStencil transfers.  K1 and K2 (each
+    level's own sweep) run on every DIA level of the cycle against their
+    plain versions to 0 (``path_kernels``).  Then
+    ``solve_refined_device(b, tol=1e-10, inner_tol=1e-5, inner_maxiter=40,
+    max_outer=10)``, b from ``default_rng(2022)``, is driven as a user
+    drives it (``drive_path``): the counts set to 0 just before the cold
+    solve and read just after (K1 and K2 per level), the outer and inner
+    iterations within 1 of ``want``'s, the true relative residual (float64,
+    scipy) below 1e-10, ``reps`` warm solves, one profiled one graph a
+    step, the three forms bit for bit with one host sync device-stopped.
+    The peak device memory and the bytes the placed hierarchy holds are
+    printed.
+
+    (b) ``benchmarks/bench_sell_scale.py:25-46`` on the same float32
+    operator: ``sell_from_ell(A, k_choices=(4,))``, a square plan in the
+    K4 regime with JAX_SELL_SCALE's stored entries and passes; one
+    ``sell_spmv`` within 1e-6 x max |y| of the plain version; the
+    script's loop of 20 products ``y = S y / 1.0001`` from x of
+    ``default_rng(0)``, through the wrapper with the counts set to 0 just
+    before and read just after (20 launches), and through the plain
+    version: sum(y * y) within 1e-5 relative (summed in float64: in
+    float32 the sum passes its largest value, about 2e41 here); the plan
+    seconds, the ms a product of the loop (the best of 3, CUDA events),
+    Gnnz/s and GB/s as the script counts them.
+
+    Returns ({tag: K1/K2 inputs}, {tag: launches per operator}, K4
+    inputs) for the kernel table."""
+    import torch
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    from pyamg_tpu_torch.sparse import sell as sellm
+    from pyamg_tpu_torch.sparse.matrix import DIA, to_scipy
+    want = JAX_SCALE if want is None else want
+    tag = f"{n}^2"
+    t0 = time.perf_counter()
+    A64, A32, ml, steps, (levels, oc) = setup.result()
+    print(f"scale: {tag} host setup received from its process after "
+          f"waiting {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for name, fn in (("collapse_coarse",
+                      lambda: ml.collapse_coarse(max_n=4096, device=dev)),
+                     ("enable_ds_refinement",
+                      lambda: ml.enable_ds_refinement(A64, device=dev)),
+                     ("to_device", lambda: ml.to_device(dev))):
+        timed(steps, name, lambda: (fn(), torch.cuda.synchronize()))
+    held = torch.cuda.memory_allocated() - base
+    rows = [int(lvl.A.shape[0]) for lvl in ml.levels]
+    grid = grid_rows(n)
+    active = want["active"]
+    lay = layout(ml)
+    dia = {f"A{i}": len(lvl.A.offsets) for i, lvl in enumerate(ml.levels)
+           if isinstance(lvl.A, DIA)}
+    print(f"scale: {tag} setup and prep by step (s; to compress_stencils "
+          f"in the setup's process) "
+          f"{ {k: round(v, 3) for k, v in steps.items()} }, in all "
+          f"{sum(steps.values()):.2f} s")
+    print(f"scale: {tag} levels {levels} active {len(ml.levels)} (JAX "
+          f"package {want['levels']} / {active}) rows {rows} "
+          f"operator_complexity {oc!r} (JAX package "
+          f"{want['operator_complexity']}) layout {lay} DIA diagonals {dia}; "
+          f"the placed hierarchy holds {held} bytes of device memory")
+    check(levels == want["levels"] == len(grid) and
+          len(ml.levels) == active,
+          f"{tag}: {levels} levels, {len(ml.levels)} active, not the JAX "
+          f"package's {want['levels']} / {active}")
+    check(rows == grid[:active], f"{tag}: rows {rows}, the grid rule "
+                                 f"{grid[:active]}")
+    check(round(oc, 4) == want["operator_complexity"],
+          f"{tag}: operator complexity {oc} off the JAX package's "
+          f"{want['operator_complexity']}")
+    check(lay == [("DIA", "PhaseStencil", "PhaseStencil")] * (active - 1) +
+          [("DIA", "NoneType", "NoneType")] and
+          dia == {f"A{i}": 5 if i == 0 else 9 for i in range(active)},
+          f"{tag}: layouts {lay} or DIA widths {dia} are not grid SA's")
+
+    inputs = path_kernels(dev, {"name": tag, "ml": ml}, rng, sms,
+                          phase="scale")
+    b = np.random.default_rng(SEED).standard_normal(A64.shape[0])
+
+    def solve(**extra):
+        return ml.solve_refined_device(b, tol=1e-10, inner_tol=1e-5,
+                                       inner_maxiter=40, max_outer=10,
+                                       **extra)
+
+    def near(it, w):
+        return abs(it["outer"] - w["outer"]) <= 1 and \
+            abs(it["inner"] - w["inner"]) <= 1
+
+    path = {"name": tag, "ml": ml, "S": to_scipy(A64), "b": b, "kw": {},
+            "solve": solve, "reads": 1, "iterations_ok": (near, "within 1"),
+            "must": ("dia_spmv", "dia_gs_sweep")}
+    _, per_op, _ = drive_path(path, want, reps, phase="scale")
+    print(f"scale: {tag} peak device memory {torch.cuda.max_memory_allocated()}"
+          f" bytes (at the phase's start {base} held), the placed "
+          f"hierarchy {held}")
+    del path, A64
+
+    # (b) the SELL plan of the same float32 operator, K4 regime
+    t0 = time.perf_counter()
+    S = sellm.sell_from_ell(A32, k_choices=(4,))
+    t_plan = time.perf_counter() - t0
+    del A32
+    check(S is not None and S.square and
+          S.x_rows * sellm.LANE * 4 > sellm._VMEM_X_BUDGET,
+          f"the {tag} plan is not a square SELL in the K4 regime")
+    check(S.nnz == JAX_SELL_SCALE["nnz"] and
+          S.n_passes == JAX_SELL_SCALE["passes"],
+          f"the {tag} plan holds {S.nnz} entries in {S.n_passes} passes, not "
+          f"the JAX package's {JAX_SELL_SCALE}")
+    Sd = S.to(dev)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        S.shape[1]), device=dev).float()
+    y, y_plain = sk.sell_spmv(Sd, x), sk.sell_spmv_plain(Sd, x)
+    torch.cuda.synchronize()
+    err, scale = rel_err(y, y_plain)
+
+    def loop(mv):
+        y = x
+        for _ in range(20):
+            y = mv(Sd, y) / 1.0001
+        return y
+
+    reset_kernel_launches()
+    y_k = loop(sk.sell_spmv)
+    torch.cuda.synchronize()
+    launched = (sk.sell_spmv.launches, sk.sell_spmv.by_plan[sk.plan_key(Sd)])
+    y_p = loop(sk.sell_spmv_plain)
+    s_k, s_p = (float(v.double().square().sum()) for v in (y_k, y_p))
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    ts = []
+    for _ in range(3):
+        start.record()
+        loop(sk.sell_spmv)
+        stop.record()
+        stop.synchronize()
+        ts.append(start.elapsed_time(stop) / 1e3 / 20)
+    t = min(ts)
+    nbytes = Sd.vals.nbytes + Sd.delta.nbytes + 2 * S.shape[0] * 4
+    print(f"scale: K4 {tag} plan (k_choices=(4,)) {t_plan:.2f} s: passes "
+          f"{S.n_passes} K={S.K} Sy={S.Sy} nnz {S.nnz} (JAX package "
+          f"{JAX_SELL_SCALE}), x {S.x_rows * sellm.LANE * 4 / 2**20:.1f} MiB "
+          f"in the reference's layout (VMEM budget "
+          f"{sellm._VMEM_X_BUDGET / 2**20:.0f} MiB), "
+          f"{sk.spmv_geometry(S.n_passes, S.shape[0])}; one product "
+          f"max_abs_err={err:.3e} tol={1e-6 * scale:.3e}")
+    print(f"scale: K4 {tag} loop of 20 products y = S y / 1.0001: launches "
+          f"{launched[0]} (of this plan {launched[1]}), sum(y*y) "
+          f"{s_k!r} against the plain version's {s_p!r} (relative "
+          f"{abs(s_k - s_p) / abs(s_p):.3e}, tol 1e-5; in float32 "
+          f"{float(y_k.square().sum())}); {t * 1e3:.4f} ms a product (best "
+          f"of 3, all {[round(v * 1e3, 4) for v in ts]}), "
+          f"{S.nnz / t / 1e9:.3f} Gnnz/s, {nbytes / t / 1e9:.1f} GB/s "
+          f"({nbytes} bytes a product, as the script counts them); peak "
+          f"device memory {torch.cuda.max_memory_allocated()} bytes")
+    check(err <= 1e-6 * scale, f"K3 in the K4 regime at {tag} disagrees "
+                               f"with its plain version")
+    check(launched == (20, 20), f"the 20-product loop launched K3/K4 "
+                                f"{launched} times, not 20")
+    check(np.isfinite(s_k) and abs(s_k - s_p) <= 1e-5 * abs(s_p),
+          f"the 20-product loop's sum(y*y) {s_k} is not within 1e-5 of the "
+          f"plain version's {s_p}")
+    return {tag: inputs}, {tag: per_op}, (Sd, S, x, err, launched[0])
+
+
+def scale_rows(dev, sms, rng, row, setup):
+    """Run ``scale_phase`` on ``setup`` (a ``ScaleSetup``) and return its
+    rows of the kernel table: K1 and K2 on the 3163^2 levels 0 and 1, K3
+    in the K4 regime on its plan."""
+    from pyamg_tpu_torch.sparse.sell import sell_to_scipy
+    t0 = time.perf_counter()
+    inputs, per_op, (Sd, S, x, err, launches) = scale_phase(dev, sms, rng,
+                                                            setup)
+    print(f"scale: phase before its times {time.perf_counter() - t0:.2f} s")
+    tag = f"{SCALE_N}^2"
+    ops = ((tag, "A0"), (tag, "A1"))
+    rows = dia_rows(dev, sms, row, inputs, per_op, ops, ops)
+    rows.append(sell_spmv_row(
+        row, dev, f"sell_spmv (K4 regime, 2-D Poisson {tag}, k_choices=(4,),"
+        f" the scale: loop of 20 products)",
+        "pyamg_tpu/ops/sell_kernels.py:108", Sd, sell_to_scipy(S), x, err,
+        f"sell_spmv K4 regime {tag}", launches))
+    print(f"scale: phase with its times {time.perf_counter() - t0:.2f} s")
+    return rows
+
+
+def main(only=None):
+    """Every phase; with ``only="scale"`` the device section and the
+    ``scale:`` phase alone (``python3 chip_smoke.py scale``)."""
+    t_start = time.perf_counter()
+    import torch
+    check(torch.cuda.is_available(), "no CUDA device")
+    from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import ds as dsm
+    from pyamg_tpu_torch.ops import sell_kernels as sk
+    from pyamg_tpu_torch.sparse import sell as sellm
+    from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
+                                                       make_coloring)
+    from pyamg_tpu_torch.sparse.matrix import (DIA, DIA_TILE, dia_from_ell,
+                                               to_scipy)
+    from pyamg_tpu_torch.gallery import poisson
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    # -- 1. device ---------------------------------------------------------
+    card, sms = device_section(dev)
+    # the scale: phase's minutes of host setup, in a process of its own
+    # beside the phases before it
+    scale_setup = ScaleSetup()
+
+    def mark(phase):
+        print(f"chip_smoke: {phase} starts at "
+              f"{time.perf_counter() - t_start:.1f} s")
+    if only == "scale":
+        # the scale: phase alone, with its rows of the kernel table
+        flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
+        row = functools.partial(kernel_row, flush, flush_ops(flush))
+        rows = scale_rows(dev, sms, rng, row, scale_setup)
+        print(f"chip_smoke: the scale: phase passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
+    mark("launch")
     # -- 1b. launch: device-stopped solves before any profiler session ---
     t0 = time.perf_counter()
     ml_l, b_l = launch_phase(dev)
@@ -3456,6 +3857,7 @@ def main():
     cupti_phase(ml_l, b_l)
     del ml_l, b_l
 
+    mark("kernels")
     # -- 2. kernels against their plain versions ---------------------------
     _, ml_k, _ = build_hierarchy(500, 0, dev, ds=False)
     t0 = time.perf_counter()
@@ -3848,6 +4250,7 @@ def main():
               f"per level do not add up to its total")
         return out
 
+    mark("main")
     # -- 3. main path --------------------------------------------------------
     dk.reset_launch_counts()
     sk.reset_launch_counts()
@@ -3903,6 +4306,7 @@ def main():
           f"(tol 1e-9)")
     check(diff < 1e-9, "the card's solve disagrees with the CPU's")
 
+    mark("sa3d")
     # -- 4. sa3d: 3-D Poisson 64^3, standard SA, SELL ----------------------
     t0 = time.perf_counter()
     A3, ml3 = build_sa3d(64)
@@ -3975,11 +4379,13 @@ def main():
           f"(tol 1e-9)")
     check(diff < 1e-9, "the card's 24^3 solve disagrees with the CPU's")
 
+    mark("spgemm")
     # -- 4b. spgemm: the device form of SpGEMM at full size ---------------
     t0 = time.perf_counter()
-    spgemm_phase(dev, smi.splitlines()[0])
+    spgemm_phase(dev, card)
     print(f"spgemm: phase {time.perf_counter() - t0:.2f} s")
 
+    mark("times")
     # -- 5. times -------------------------------------------------------------
     walls = []
     for _ in range(5):
@@ -4111,30 +4517,8 @@ def main():
     forms_gate("times", "64^3", sa3d_run, lambda it: len(it["inner"]), ml3,
                5, (sa3d_cold, sa3d_counts), "V", op_profile=True)
 
-    sell_src = "pyamg_tpu_torch/csrc/sell_kernels.cu"
-
-    def slot_model(S, vectors_bytes, tag):
-        """Print the bytes of the plan's padded slots beside the bound."""
-        T, Sy, _ = S.vals.shape
-        nbytes = T * Sy * sellm.LANE * 8 + vectors_bytes
-        print(f"times: {tag} plan-slot byte model ({T * Sy * sellm.LANE} "
-              f"slots for {S.nnz} stored entries): "
-              f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us ({nbytes / 1e6:.2f} "
-              f"MB)")
-
-    def sell_row(name, replaces, S, S_scipy, x, err, tag, launches):
-        """K3/K4 at one operator: bound from its stored entries (value and
-        column each), x read and y written; 2 flops per stored entry."""
-        lib = csr_on(S_scipy, dev)
-        e_lib, scale = rel_err(lib @ x, sk.sell_spmv_plain(S, x))
-        check(e_lib <= 1e-5 * scale, f"library CSR product disagrees ({tag})")
-        vectors = (S.shape[0] + S.shape[1]) * 4
-        r = row(name, replaces, launches, err, lambda: sk.sell_spmv(S, x),
-                lambda: sk.sell_spmv_plain(S, x), lambda: lib @ x,
-                S.nnz * 8 + vectors, 2 * S.nnz, source=sell_src,
-                plain_reps=5, tag=tag)
-        slot_model(S, vectors, tag)
-        return r
+    sell_src = SELL_SRC
+    sell_row = functools.partial(sell_spmv_row, row, dev)
 
     for name, (S, S_host) in sell_operators(ml_s).items():
         _, x, err = kernel_inputs[f"K3 {name}"]
@@ -4166,6 +4550,7 @@ def main():
             source=sell_src, plain_reps=2, tag=tag))
         slot_model(S, 4 * n * 4, tag)
 
+    mark("solvers")
     # -- 6. solvers: the rest of the solve phase -----------------------------
     t0 = time.perf_counter()
     paths = solver_paths(dev)
@@ -4175,6 +4560,7 @@ def main():
                                     JAX_S1_TRUE_RELRES)
     print(f"solvers: launches per solve {solver_launches}")
 
+    mark("krylov")
     # -- 6b. krylov: every Krylov method of solve, device-stopped ----------
     t0 = time.perf_counter()
     krylov_phase(dev, paths[0][8][0], paths[0][3],
@@ -4182,6 +4568,7 @@ def main():
     print(f"krylov: phase {time.perf_counter() - t0:.2f} s")
     del paths
 
+    mark("classical")
     # -- 7. classical: Ruge-Stuben 500^2 and AIR 256^2 ----------------------
     t0 = time.perf_counter()
     cinputs, cper_op = classical_phase(dev, sms, rng)
@@ -4210,6 +4597,7 @@ def main():
     slot_model(S, 4 * n * 4, tag)
     del cinputs
 
+    mark("sa_more")
     # -- 8. sa_more: anisotropic diffusion 512^2 and elasticity 100^2 -------
     t0 = time.perf_counter()
     sinputs, sper_op = sa_more_phase(dev, sms, rng, flush, skip)
@@ -4220,6 +4608,7 @@ def main():
     rows += dia_rows(dev, sms, row, sinputs, sper_op, aniso, aniso)
     del sinputs
 
+    mark("families")
     # -- 9. families: root-node, pairwise and adaptive SA on 500^2 ----------
     t0 = time.perf_counter()
     finputs, fper_op = families_phase(dev, sms, rng)
@@ -4255,6 +4644,7 @@ def main():
     slot_model(S, 4 * n * 4, tag)
     del finputs
 
+    mark("blackbox")
     # -- 10. blackbox: the one-call solve, Lloyd and Schwarz on 500^2 -------
     t0 = time.perf_counter()
     binputs, bper_op = blackbox_phase(dev, sms, rng)
@@ -4283,21 +4673,29 @@ def main():
     slot_model(S, 4 * n * 4, tag)
     del binputs
 
+    mark("classical2")
     # -- 10b. classical2: block AIR and complex RS/AIR ---------------------
     t0 = time.perf_counter()
     classical2_phase(dev)
     print(f"classical2: phase {time.perf_counter() - t0:.2f} s")
 
+    mark("parallel")
     # -- 11. parallel: the row-sharded solve on a one-rank NCCL group ------
     t0 = time.perf_counter()
     parallel_phase(dev)
     print(f"parallel: phase {time.perf_counter() - t0:.2f} s")
 
+    mark("parallel2")
     # -- 12. parallel2: the distributed setup and its solves ---------------
     t0 = time.perf_counter()
     parallel2_phase(dev)
     print(f"parallel2: phase {time.perf_counter() - t0:.2f} s")
 
+    mark("scale")
+    # -- 13. scale: the JAX package's 10M-unknown single-chip configurations
+    rows += scale_rows(dev, sms, rng, row, scale_setup)
+
+    mark("the JSON lines")
     print(f"chip_smoke: every check passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
@@ -4307,4 +4705,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    check(sys.argv[1:] in ([], ["scale"]),
+          f"usage: {sys.argv[0]} [scale] (got {sys.argv[1:]})")
+    main(*sys.argv[1:])

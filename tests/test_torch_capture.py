@@ -697,8 +697,10 @@ def test_profile_cycle_matches_the_reference_kind(ref, port):
 
 
 def test_profile_cycle_captured(port, captured):
+    # the default points, 50 cycles apart: a gap of a few cycles lies
+    # within the spread of the best-of-3 walls on a loaded host
     kept = dict(port._graphs().programs)
-    t = port.profile_cycle("W", k1=2, k2=5)
+    t = port.profile_cycle("W")
     assert isinstance(t, float) and t > 0
     assert port._graphs().programs == kept      # nothing kept
 

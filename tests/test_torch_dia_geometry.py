@@ -56,11 +56,19 @@ from pyamg_tpu_torch.sparse.matrix import DIA, DIA_TILE, dia_from_ell
 
 torch.set_num_threads(1)
 
-# (n, ndiag, halo) of the DIA operators chip_smoke.py runs K2 on
+# (n, ndiag, halo) of the DIA operators chip_smoke.py runs K2 on; the
+# 3163^2 levels are the scale: phase's 10M path (1055^2 on level 1)
 SHAPES = {"500^2 level 0": (250_000, 5, 500),
           "500^2 level 1": (27_889, 9, 168),
           "64^3 A0": (262_144, 7, 4096),
-          "2048^2": (4_194_304, 5, 2048)}
+          "2048^2": (4_194_304, 5, 2048),
+          "3163^2 level 0": (10_004_569, 5, 3163),
+          "3163^2 level 1": (1_113_025, 9, 1056)}
+# the shapes whose band is read each pass: 64^3 A0's halo of 4096 rows
+# reaches three blocks a side; the others' blocks do not fit in shared
+# memory (3163^2 level 0: 75,808 rows a block, about 2.4 MB staged; level
+# 1: 8,448 rows, about 490 KB)
+BAND_EACH_PASS = {"64^3 A0", "2048^2", "3163^2 level 0", "3163^2 level 1"}
 
 
 def _check_shape(g, n, ndiag, halo, itemsize, max_smem=dk.MAX_SMEM):
@@ -90,9 +98,7 @@ def test_main_path_geometry(name, itemsize):
     n, ndiag, halo = SHAPES[name]
     g = dk.gs_geometry(n, ndiag, halo, itemsize)
     _check_shape(g, n, ndiag, halo, itemsize)
-    # 2048^2 does not fit; 64^3 A0's halo of 4096 rows reaches three
-    # blocks a side
-    assert g.staged == (name not in ("2048^2", "64^3 A0"))
+    assert g.staged == (name not in BAND_EACH_PASS)
     # one block per SM
     assert dk.SM_COUNT - 8 <= g.blocks <= dk.SM_COUNT
     if name == "64^3 A0":
@@ -664,3 +670,52 @@ def test_rs_path_blocked_sweep_equals_plain(level):
     g = dk.gs_geometry(n, len(D.offsets), max(abs(o) for o in D.offsets), 4)
     assert g.staged == RS_SHAPES[level][3]
     assert torch.equal(_emulate(g, D, x, b, Dinv, colors, order, 1.0), want)
+
+
+# -- int32 indices at the 10M path's shapes -------------------------------------
+
+INT32_MAX = 2**31 - 1
+
+
+def _k1_int_indices(n, k, halo, itemsize, sms=132):
+    """The largest value of each int ``dia_spmv_kernel`` forms: the thread
+    index t, its first row i0 = t / k * rows (formed before the kernel
+    returns past n) and x's row j = i0 + r + offset.  The band's and x's
+    offsets (d * npad, j * k + c) are 64-bit."""
+    npad = -(-n // DIA_TILE) * DIA_TILE
+    g = dk.spmv_geometry(n, k, npad, itemsize, sms)
+    t = g.blocks * g.threads - 1
+    i0 = t // k * g.rows
+    return {"t": t, "i0": i0, "j": min(i0, n - 1) + g.rows - 1 + halo}
+
+
+def _k2_int_indices(n, ndiag, halo, itemsize, sms=132):
+    """The same for K2's kernels: a block's first row, x's row i +
+    offset, the last block it waits for and, staged, its shared band
+    index d * rows + li, its x buffer's rows and the rows it polls (r0 +
+    j); the words' and the band's offsets are 64-bit."""
+    g = dk.gs_geometry(n, ndiag, halo, itemsize, sms)
+    out = {"r0": (g.blocks - 1) * g.rows, "i + offset": n - 1 + halo,
+           "block + reach": g.blocks - 1 + g.reach}
+    if g.staged:
+        out.update({"d * rows + li": ndiag * g.rows,
+                    "rows + 2 * halo": g.rows + 2 * halo,
+                    "r0 + j": n + halo})
+    return out
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_kernel_indices_fit_int32(name, itemsize):
+    n, ndiag, halo = SHAPES[name]
+    for k in (1, 3):
+        assert max(_k1_int_indices(n, k, halo, itemsize).values()) <= \
+            INT32_MAX
+    got = _k2_int_indices(n, ndiag, halo, itemsize)
+    assert max(got.values()) <= INT32_MAX, got
+
+
+def test_int32_index_check_sees_an_overflow():
+    """The same arithmetic past 2^31 rows does not fit."""
+    assert _k1_int_indices(1 << 31, 1, 3163, 4)["j"] > INT32_MAX
+    assert _k2_int_indices(1 << 31, 5, 3163, 4)["i + offset"] > INT32_MAX

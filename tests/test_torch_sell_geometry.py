@@ -10,8 +10,10 @@ than the portable 8, and K5 keeps x in shared memory exactly when its
 size lets it.  The plans are the six of the 3-D Poisson 64^3 path (by
 their sizes, as ``chip_smoke.py`` checks them on the card), small plans
 built here as ``tests/test_torch_sell.py`` builds them, a synthetic deep
-fat plan, the 2-D Poisson 1800^2 plan's sizes (x past shared memory), and
-the classical paths' busiest plans, built here from the port's own
+fat plan, the 2-D Poisson 1800^2 and 3163^2 plans' sizes (x past shared
+memory; 3163^2 is the 10M plan of ``chip_smoke.py``'s ``scale:`` phase,
+whose K3 launch is checked but for coverage, as 1800^2's), and the
+classical paths' busiest plans, built here from the port's own
 hierarchies at full size (Ruge-Stuben on 2-D Poisson 500^2: P0, R0, A3
 and A4; AIR on 2-D advection 256^2: R0, lAIR's restriction).
 """
@@ -41,8 +43,12 @@ SIZES = {
     "64^3 R1": (839, 768, 8 * LANE, False),
     "64^3 A2": (89, 768, 8 * LANE, True),
     "1800^2": (5, 1800 * 1800, 25600 * LANE, True),
+    "3163^2": (5, 3163 * 3163, 78336 * LANE, True),
     "deep fat": (2000, 256, 8 * LANE, False),
 }
+# the square plans past the TPU's x budget (k_choices=(4,) for 3163^2, the
+# scale: phase's plan; K = 4 for both): the side of their 2-D Poisson
+LARGE = {"1800^2": 1800, "3163^2": 3163}
 BUILT = ["square48", "tall", "fat", "24^3 P0", "24^3 R0", "24^3 A1",
          "24^3 P1"]
 # (kind, t, passes, Sy) of the classical paths' plans, as the JAX package
@@ -50,7 +56,7 @@ BUILT = ["square48", "tall", "fat", "24^3 P0", "24^3 R0", "24^3 A1",
 CLASSICAL = {"RS P0": ("tall", 2, 5, 1960), "RS R0": ("fat", 2, 7, 984),
              "RS A3": ("tall", 1, 14, 64), "RS A4": ("tall", 1, 13, 16),
              "AIR R0": ("fat", 3, 24, 192)}
-SPMV_PLANS = [k for k in SIZES if k != "1800^2"] + BUILT + list(CLASSICAL)
+SPMV_PLANS = [k for k in SIZES if k not in LARGE] + BUILT + list(CLASSICAL)
 GS_PLANS = [k for k, v in SIZES.items() if v[3]] + ["square48", "24^3 A1",
                                                     "RS A3", "RS A4"]
 CHECKS = ["coverage", "pass_order", "shared_memory", "cluster"]
@@ -183,3 +189,64 @@ def test_geometry_regimes():
     assert sk.gs_geometry(66, 256 * LANE).chunk == 72     # one chunk a tile
     assert sk.gs_geometry(89, 8 * LANE).x_shared
     assert not sk.gs_geometry(5, 25600 * LANE).x_shared
+
+
+@pytest.mark.parametrize("check", [c for c in CHECKS if c != "coverage"])
+@pytest.mark.parametrize("plan", list(LARGE))
+def test_large_plan_spmv_geometry(plan, check):
+    """The K4-regime plans' K3 launch: one thread per row (5 passes over
+    10M rows leave no SM idle), every other check but the slot-by-slot
+    coverage replay."""
+    T, n, _, _ = SIZES[plan]
+    _spmv_check(check, T, n)
+    assert sk.spmv_geometry(T, n).direct
+
+
+# -- int32 indices at the K4-regime plans' shapes ------------------------------
+
+INT32_MAX = 2**31 - 1
+
+
+def _base_reach(side):
+    """A bound on |window base| of a square 2-D Poisson side^2 plan: an
+    entry's column is within ``side`` of its row."""
+    return -(-side // LANE) + 1
+
+
+def _k3_int_indices(T, n, base_hi, K, t=1, fat=False):
+    """The largest value of each int ``sell_spmv_kernel`` and its entry
+    point form (the row and the slot offsets are 64-bit): the grid size,
+    the slab, the slab's first column, a slot's column col0 + 128 * base
+    + delta, and the last pass a round stages."""
+    g = sk.spmv_geometry(T, n)
+    slab = g.blocks * sk.K3_DIRECT_SLABS - 1 if g.direct else g.slabs - 1
+    col0 = LANE * (slab * t if fat else slab // t)
+    return {"grid": g.slabs * g.cluster, "slab": slab, "col0": col0,
+            "column": col0 + LANE * (base_hi + K),
+            "pass": g.rounds * g.cluster * g.chunk}
+
+
+def _k5_int_indices(T, rows, base_hi, K):
+    """The same for ``sell_gs_kernel``: the padded rows, a slot's column,
+    the rows a block zeroes past n, and the chunk steps."""
+    g = sk.gs_geometry(T, rows)
+    padded = g.tiles * sk.GS_TILE
+    return {"rows": padded, "column": padded + LANE * (base_hi + K),
+            "pad row": padded + sk.GS_CLUSTER * g.groups * LANE,
+            "steps": g.tiles * -(-T // g.chunk)}
+
+
+@pytest.mark.parametrize("plan", list(LARGE))
+def test_large_plan_indices_fit_int32(plan):
+    T, n, rows, _ = SIZES[plan]
+    reach = _base_reach(LARGE[plan])
+    for got in (_k3_int_indices(T, n, reach, 4),
+                _k5_int_indices(T, rows, reach, 4)):
+        assert max(got.values()) <= INT32_MAX, got
+    assert _k3_int_indices(T, n, reach, 4)["column"] < 11_000_000
+
+
+def test_int32_index_check_sees_an_overflow():
+    """The same arithmetic past 2^31 rows does not fit."""
+    assert _k3_int_indices(5, 1 << 31, 30, 4)["column"] > INT32_MAX
+    assert _k5_int_indices(5, 1 << 31, 30, 4)["rows"] > INT32_MAX
