@@ -1,0 +1,13 @@
+"""K2's share of its byte bound over the profiled solves: the sum over
+its launches (one a sweep) of each launch's bound (bytes from the
+operator's shape at the HBM rate, ``yardstick/bounds.py``) over the sum of
+their device time in the trace, in percent."""
+
+from amg_bench.harness.roofline import share
+from amg_bench.yardstick.bounds import bound_seconds, dia_gs_sweep_bytes
+
+
+def read(rec):
+    return share(rec, "dia_gs_sweep", ("dia_gs_staged_kernel",
+                                       "dia_gs_device_kernel"),
+                 dia_gs_sweep_bytes, bound_seconds)
