@@ -60,17 +60,16 @@ import contextlib
 import ctypes
 import functools
 import os
-import time
 
 import torch
+
+from pyamg_tpu_torch import _trace
 
 _recording = None       # the replay hooks of the graph being recorded
 _owner = None           # owned() of the program warming up or recording
 _eager = False          # eager(): every program runs op by op
 _per_step = False       # per_step(): a captured loop runs on the host
 _quiet = False          # a device loop's warm-ups: launches not counted
-
-READ_SCOPE = "pyamg_tpu_torch::read"    # the profiler's name of a loop's read
 
 
 def on_replay(fn):
@@ -261,9 +260,8 @@ def read(tensors):
     (integers and flags as ints)."""
     if not tensors:
         return []
-    with torch.profiler.record_function(READ_SCOPE):
-        flat = torch.cat([t.reshape(-1).to(torch.float64)
-                          for t in tensors]).tolist()
+    flat = torch.cat([t.reshape(-1).to(torch.float64)
+                      for t in tensors]).tolist()
     out, i = [], 0
     for t in tensors:
         n = t.numel()
@@ -273,6 +271,15 @@ def read(tensors):
         out.append(vals if t.ndim else vals[0])
         i += n
     return out
+
+
+def _read_out(tensors, form):
+    """``read`` of a loop's results, the solve's one handoff from the
+    device (span ``graph.read``; ``form`` "step" after a loop run step by
+    step on the host in ``per_step()``, else "device")."""
+    with _trace.span("graph.read", form=form):
+        _trace.count("host_transfers")
+        return read(tensors)
 
 
 class Program:
@@ -297,7 +304,8 @@ class Program:
         trees) and return the values of the state's ``keys`` after it, in
         one host read (``read``)."""
         _host(nodes, {})
-        return read([self.state[k] for k in keys])
+        return _read_out([self.state[k] for k in keys],
+                         "step" if self.captured else "device")
 
     def static(self, key, make):
         """An object the steps write in place (a GMRES basis): made here,
@@ -541,6 +549,30 @@ class _DeviceLoop:
             self.lib.pyamg_graph_exec_free(ex)
 
 
+def _reserve(plan):
+    """Reserve, before a device loop's launch, for the most trips each of
+    its steps could make (``plan`` as ``Graphs._build`` makes it); the
+    branches of a Switch exclude each other, so a Switch reserves for its
+    largest branch."""
+    totals, branches = {}, {}
+    for prog, sname, most, _, branch in plan:
+        for h in prog.graphs[sname][1]:
+            if isinstance(h, tuple):
+                into = totals if branch is None else \
+                    branches.setdefault(branch, {})
+                held = into.setdefault(id(h[0]), [h[0], 0])
+                held[1] += h[1] * most
+    largest = {}
+    for (switch, _), held in branches.items():
+        for key, (holder, amount) in held.items():
+            top = largest.setdefault((switch, key), [holder, 0])
+            top[1] = max(top[1], amount)
+    for (_, key), (holder, amount) in largest.items():
+        totals.setdefault(key, [holder, 0])[1] += amount
+    for holder, amount in totals.values():
+        holder.take(amount)
+
+
 class Graphs(Program):
     """A captured program on ``device``: static state tensors, one graph a
     step name, recorded on ``stream`` into ``pool`` (shared by the programs
@@ -549,8 +581,9 @@ class Graphs(Program):
     ``graph_type(pool)`` makes a step's graph (``capture(body)``,
     ``replay()``, ``raw()``) and ``loop_type(nodes, tally, slots)`` a
     tree's (``launch()``); the tests pass stand-ins.  ``captures`` counts
-    the step graphs recorded and ``capture_s`` the seconds their warm-ups,
-    captures and trees took."""
+    the step graphs this program recorded and ``capture_s`` the seconds of
+    its warm-ups, recordings and device loops' builds, both from its spans
+    (``graph.warm``, ``graph.capture``, ``graph.build``)."""
 
     captured = True
 
@@ -567,8 +600,20 @@ class Graphs(Program):
         self.loops = {}
         self.objects = {}
         self.inputs = {}
-        self.captures = 0
-        self.capture_s = 0.0
+        self._spans = []
+
+    def _span(self, name):
+        s = _trace.span(name)
+        self._spans.append(s)
+        return s
+
+    @property
+    def captures(self):
+        return sum(s.name == "graph.capture" for s in self._spans)
+
+    @property
+    def capture_s(self):
+        return sum(s.seconds for s in self._spans)
 
     def put(self, key, value):
         st = self.state
@@ -593,8 +638,9 @@ class Graphs(Program):
             self._record(name, step)
             return
         graph, hooks = entry
-        _run_hooks(hooks)
-        graph.replay()
+        with _trace.span("graph.step", step=name):
+            _run_hooks(hooks)
+            graph.replay()
 
     def loop(self, name, nodes, keys=()):
         if _per_step:
@@ -603,35 +649,19 @@ class Graphs(Program):
         if entry is None:
             entry = self.loops[name] = self._build(nodes)
         dev, tally, plan = entry
-        # reserve for the most trips each step could make; the branches of
-        # a Switch exclude each other, so a Switch reserves for its
-        # largest branch
-        totals, branches = {}, {}
-        for prog, sname, most, _, branch in plan:
-            for h in prog.graphs[sname][1]:
-                if isinstance(h, tuple):
-                    into = totals if branch is None else \
-                        branches.setdefault(branch, {})
-                    held = into.setdefault(id(h[0]), [h[0], 0])
-                    held[1] += h[1] * most
-        largest = {}
-        for (switch, _), held in branches.items():
-            for key, (holder, amount) in held.items():
-                top = largest.setdefault((switch, key), [holder, 0])
-                top[1] = max(top[1], amount)
-        for (_, key), (holder, amount) in largest.items():
-            totals.setdefault(key, [holder, 0])[1] += amount
-        for holder, amount in totals.values():
-            holder.take(amount)
-        dev.launch()
-        vals = read([tally] + [self.state[k] for k in keys])
-        trips = vals[0]
-        for prog, sname, _, slot, _ in plan:
-            counts = [h for h in prog.graphs[sname][1]
-                      if not isinstance(h, tuple)]
-            for _ in range(1 if slot is None else trips[slot]):
-                for h in counts:
-                    h()
+        with _trace.span("graph.reserve"):
+            _reserve(plan)
+        with _trace.span("graph.launch"):
+            dev.launch()
+        vals = _read_out([tally] + [self.state[k] for k in keys], "device")
+        with _trace.span("graph.count"):
+            trips = vals[0]
+            for prog, sname, _, slot, _ in plan:
+                counts = [h for h in prog.graphs[sname][1]
+                          if not isinstance(h, tuple)]
+                for _ in range(1 if slot is None else trips[slot]):
+                    for h in counts:
+                        h()
         return vals[1:]
 
     def _build(self, nodes):
@@ -639,7 +669,6 @@ class Graphs(Program):
         then make the tree's device loop: (loop, tally, [(program, step,
         most runs, tally slot or None, Switch branch or None)])."""
         global _quiet
-        t0 = time.perf_counter()
         walked = list(_walk(nodes))
         slots, n_slots = _slots(nodes)
         walked = [w for w in walked if w[1] > 0]    # a loop of limit 0
@@ -666,7 +695,8 @@ class Graphs(Program):
                 prog._capture(name, fn)
             tally = torch.zeros(max(n_slots, 1), dtype=torch.int32,
                                 device=self.device)
-            loop = self.loop_type(nodes, tally, slots)
+            with self._span("graph.build"):
+                loop = self.loop_type(nodes, tally, slots)
         if cuda:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
         plan = []
@@ -676,7 +706,6 @@ class Graphs(Program):
                 slot = slots[id(body[0])] + body[1] \
                     if isinstance(body, tuple) else slots[id(body)]
             plan.append((s.prog, s.name, most, slot, branch))
-        self.capture_s += time.perf_counter() - t0
         return loop, tally, plan
 
     @contextlib.contextmanager
@@ -699,30 +728,31 @@ class Graphs(Program):
     def _warm(self, name, step):
         """The warm-up of step ``name``: the step itself, eagerly, into
         the state."""
-        self._apply(step(self.state), copy=True)
+        with self._span("graph.warm"):
+            self._apply(step(self.state), copy=True)
 
     def _capture(self, name, step):
         """Record ``step`` as graph ``name`` (its warm-up done)."""
         global _recording
         if _recording is not None:
             raise RuntimeError("a graph is already being recorded")
-        graph, hooks = self.graph_type(self.pool), []
-        _recording = hooks
-        try:
-            graph.capture(lambda: self._apply(step(self.state), copy=True))
-        finally:
-            _recording = None
+        with self._span("graph.capture"):
+            graph, hooks = self.graph_type(self.pool), []
+            _recording = hooks
+            try:
+                graph.capture(lambda: self._apply(step(self.state),
+                                                  copy=True))
+            finally:
+                _recording = None
         self.graphs[name] = (graph, hooks)
-        self.captures += 1
+        _trace.count("graph.recorded")
 
     def _record(self, name, step):
-        t0 = time.perf_counter()
         with self._side() as cuda:
             self._warm(name, step)
             self._capture(name, step)
         if cuda:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        self.capture_s += time.perf_counter() - t0
 
 
 class Cache:

@@ -11,7 +11,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
+
+from .. import _trace
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
@@ -20,26 +21,33 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
 def shared_library(source: str, cmd: list, name: str) -> dict:
     """Run ``cmd + ["-o", <library>, source]`` unless a library built from
     this source with this command exists; return ``{"path", "seconds",
-    "log"}``, where ``log`` holds the compiler's output when a build ran."""
-    digest = hashlib.sha256()
-    with open(source, "rb") as f:
-        digest.update(f.read())
-    digest.update("\0".join(cmd).encode())
-    path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(path):
+    "log"}``, where ``log`` holds the compiler's output when a build ran
+    and ``seconds`` its time (0.0 where the library was found): the span
+    ``native.build`` (attributes ``library`` and ``built``)."""
+    with _trace.span("native.build", library=name, built=False) as span:
+        digest = hashlib.sha256()
+        with open(source, "rb") as f:
+            digest.update(f.read())
+        digest.update("\0".join(cmd).encode())
+        path = os.path.join(BUILD_DIR,
+                            f"lib{name}-{digest.hexdigest()[:16]}.so")
+        log = ""
+        if not os.path.exists(path):
+            span.attrs["built"] = True
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.run([*cmd, "-o", tmp, source],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                                   f"({proc.returncode}):\n{proc.stdout}\n"
+                                   f"{proc.stderr}")
+            os.replace(tmp, path)
+            log = proc.stdout + proc.stderr
+    if not span.attrs["built"]:
         return {"path": path, "seconds": 0.0, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([*cmd, "-o", tmp, source], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
-                           f"({proc.returncode}):\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, path)
-    return {"path": path, "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+    _trace.count("native.builds")
+    return {"path": path, "seconds": span.seconds, "log": log}
 
 
 # nvcc for Hopper: sm_90a, a plain C ABI in a shared library; -Xptxas -v

@@ -158,7 +158,7 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
     lvl_idx = len(levels) - 1
     A, B = levels[-1].A, levels[-1].B
     nonsym = symmetry == "nonsymmetric"
-    clock = SetupClock()
+    clock = SetupClock(lvl_idx)
 
     AH = _transpose(A, conjugate=True) if nonsym else None
     C = strength_and_dominance(A, strength[lvl_idx], diagonal_dominance)

@@ -47,7 +47,7 @@ def pairwise_solver(A,
     while len(levels) < max_levels and levels[-1].A.shape[0] > max_coarse:
         lvl_idx = len(levels) - 1
         A_l = levels[-1].A
-        clock = SetupClock()
+        clock = SetupClock(lvl_idx)
         fn, akwargs = unpack_arg(aggregate[lvl_idx])
         if fn != "pairwise":
             raise ValueError("aggregate method must be 'pairwise'")

@@ -86,7 +86,7 @@ def _extend_hierarchy(levels, strength, aggregate, smooth,
     A, B = levels[-1].A, levels[-1].B
     bs = A.blocksize[0] if isinstance(A, BELL) else 1
     nonsym = symmetry == "nonsymmetric"
-    clock = SetupClock()
+    clock = SetupClock(lvl_idx)
 
     AH = _transpose(A, conjugate=True) if nonsym else None
     C = strength_and_dominance(A, strength[lvl_idx], diagonal_dominance)

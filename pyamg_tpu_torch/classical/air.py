@@ -68,7 +68,7 @@ def _extend_hierarchy(levels, strength, CF, interpolation, restrict,
     """One AIR coarsening step (reference ``air.py:136-242``); True when
     coarsening must stop."""
     A = levels[-1].A
-    clock = SetupClock()
+    clock = SetupClock(len(levels) - 1)
     if filter_operator is not None and filter_operator[1] != 0:
         from pyamg_tpu_torch.util.utils import filter_matrix_rows
         A = filter_matrix_rows(A, filter_operator[1], diagonal=True,

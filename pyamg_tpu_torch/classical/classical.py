@@ -89,7 +89,7 @@ def _extend_hierarchy(levels, strength, CF, interpolation, keep, seed):
     """One coarsening step (reference ``classical.py:123-203``); True when
     coarsening must stop."""
     A = levels[-1].A
-    clock = SetupClock()
+    clock = SetupClock(len(levels) - 1)
     C = strength_measure(A, strength)
     clock.mark("strength")
     splitting = splitting_of(C, CF, seed)

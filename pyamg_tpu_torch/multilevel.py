@@ -48,7 +48,7 @@ import warnings
 import numpy as np
 import torch
 
-from pyamg_tpu_torch import _graph
+from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch._device import as_tensor, resolve
 from pyamg_tpu_torch.krylov.common import finalize, reduction
 from pyamg_tpu_torch.parallel.partition import RowSharded, all_gather
@@ -411,6 +411,7 @@ class MultilevelSolver:
         return cyc
 
     # -- setup-phase layouts -------------------------------------------------
+    @_trace.traced("prep.compress_stencils")
     def compress_stencils(self, max_diags=64, sell=True):
         """Square ELL levels with few distinct offsets become ``DIA``;
         grid-tagged P/R become ``PhaseStencil`` (R as the adjoint of the
@@ -453,6 +454,7 @@ class MultilevelSolver:
                             setattr(lvl, attr, S)
         return self
 
+    @_trace.traced("prep.collapse_coarse")
     def collapse_coarse(self, max_n=4096, device="cuda"):
         """Cut the cycle at the first level with ``n <= max_n`` and solve
         there with its dense inverse, computed on ``device`` and checked
@@ -474,6 +476,7 @@ class MultilevelSolver:
         self.coarse_solver = CoarseSolver.from_factors("pinv", {"op": op})
         return self
 
+    @_trace.traced("prep.enable_ds_refinement")
     def enable_ds_refinement(self, A_fine64=None, device="cuda"):
         """Build the double-single form of the float64 fine operator on
         ``device`` for the outer residuals (``ops/ds.py``).  ``A_fine64``
@@ -486,6 +489,7 @@ class MultilevelSolver:
         self._ds_op = ds_operator(A_fine64, device=device)
         return self
 
+    @_trace.traced("prep.to_device")
     def to_device(self, device="cuda"):
         """Move every level's operators and smoother arrays, the coarse
         inverse and the DS operator onto ``device``; return self.  A
@@ -508,6 +512,7 @@ class MultilevelSolver:
         return self
 
     # -- solve ---------------------------------------------------------------
+    @_trace.entry
     def solve_refined_device(self, b, tol=1e-10, inner_tol=1e-5,
                              inner_maxiter=30, max_outer=10, cycle="V",
                              residuals=None, iterations_out=None):
@@ -540,8 +545,6 @@ class MultilevelSolver:
         if self._ds_op is None:
             self.enable_ds_refinement(device=self.device)
         A_ds = self._ds_op
-        bhi, blo = (as_tensor(v, self.device) for v in
-                    dsm.ds_from_f64(np.asarray(b, np.float64).reshape(-1)))
         A0 = self.levels[0].A
         cyc = self._make_cycle(cycle)
 
@@ -556,8 +559,12 @@ class MultilevelSolver:
                                int(inner_maxiter)))
         prog = self._program(("ds", cycle, float(tol), float(inner_tol),
                               int(inner_maxiter), int(max_outer)))
-        prog.put("bhi", bhi)
-        prog.put("blo", blo)
+        with _trace.span("solve.b_in"):
+            bhi, blo = (as_tensor(v, self.device) for v in
+                        dsm.ds_from_f64(np.asarray(b, np.float64).reshape(-1)))
+            _trace.count("host_transfers", 2)
+            prog.put("bhi", bhi)
+            prog.put("blo", blo)
         st = prog.state
 
         def start(s):
@@ -606,7 +613,9 @@ class MultilevelSolver:
         if iterations_out is not None:
             iterations_out["outer"] = k
             iterations_out["inner"] = itot
-        return dsm.ds_to_f64(st["xhi"], st["xlo"])
+        with _trace.span("solve.x_out"):
+            _trace.count("host_transfers")
+            return dsm.ds_to_f64(st["xhi"], st["xlo"])
 
     def aspreconditioner(self, cycle="V"):
         """One ``cycle`` from a zero guess, as a linear operator with
@@ -662,6 +671,7 @@ class MultilevelSolver:
             return x
         return all_gather(x, A0.mesh)[:self._fine_n]
 
+    @_trace.entry
     def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
               accel=None, callback=None, residuals=None, return_info=False,
               cycles_per_level=1):
@@ -707,8 +717,14 @@ class MultilevelSolver:
             self.to_device()
         A0 = self.levels[0].A
         dtype = A0.dtype
-        b = self._scatter(b, dtype)
-        x = torch.zeros_like(b) if x0 is None else self._scatter(x0, dtype)
+        with _trace.span("solve.b_in"):
+            _trace.count_in(b)
+            b = self._scatter(b, dtype)
+            if x0 is None:
+                x = torch.zeros_like(b)
+            else:
+                _trace.count_in(x0)
+                x = self._scatter(x0, dtype)
         red = reduction(A0)
         cycle = str(cycle).upper()
         captured = callback is None
@@ -719,8 +735,9 @@ class MultilevelSolver:
         def out(prog, x):
             """x whole, owned by the caller (a captured program's x is
             overwritten by its next run)."""
-            x = self._gather(x)
-            return x.clone() if prog.captured else x
+            with _trace.span("solve.x_out"):
+                x = self._gather(x)
+                return x.clone() if prog.captured else x
 
         if accel is not None:
             if accel == "cg" and not self.symmetric_smoothing:
@@ -750,7 +767,8 @@ class MultilevelSolver:
             if not isinstance(accel, str):
                 x, info = accel(A0, b, x0=x, tol=tol, maxiter=maxiter, M=M,
                                 callback=callback, residuals=residuals)
-                x = self._gather(x)
+                with _trace.span("solve.x_out"):
+                    x = self._gather(x)
                 return (x, info) if return_info else x
             from pyamg_tpu_torch import krylov
             if accel not in krylov.__all__:
@@ -869,6 +887,7 @@ class MultilevelSolver:
         prof.export_chrome_trace(os.path.join(path, "cycle_trace.json"))
         return path
 
+    @_trace.entry
     def solve_refined(self, b, A_fine=None, tol=1e-10, inner_tol=1e-5,
                       inner_maxiter=30, max_outer=10, cycle="V", accel="cg",
                       residuals=None, iterations_out=None):
@@ -922,7 +941,10 @@ class MultilevelSolver:
                             tol=inner_tol, maxiter=inner_maxiter,
                             cycle=cycle, accel=accel, residuals=res)
             inner_its.append(len(res) - 1)
-            x = x + nr * e.cpu().numpy().astype(np.float64)[:n]
+            with _trace.span("solve.x_out"):
+                _trace.count("host_transfers")
+                e = e.cpu().numpy()
+            x = x + nr * e.astype(np.float64)[:n]
         else:
             hist.append(float(np.linalg.norm(b64 - As @ x)))
         if residuals is not None:

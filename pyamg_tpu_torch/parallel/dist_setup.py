@@ -39,14 +39,13 @@ V-cycle reads nothing.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from pyamg_tpu_torch import _graph
+from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch._device import as_tensor, resolve
 from pyamg_tpu_torch.ops.rowops import dedup_rows
 from pyamg_tpu_torch.parallel.partition import RowMesh, count
@@ -393,6 +392,13 @@ def mis_hash(rows_g, shift=1):
     return ((rows_g.to(torch.int64) * 2654435761) & 0xFFFFFFFF) >> shift
 
 
+def _read(t, kind=int):
+    """``kind(t)``: one blocking host read of the set-up, counted
+    (``dist_setup.host_reads``)."""
+    _trace.count("dist_setup.host_reads")
+    return kind(t)
+
+
 def _nb_max_global(ex, cols_g, strong, x, row0, g, fill=-1):
     """The maximum over each node and its strong neighbours, across ranks,
     of integer per-node values."""
@@ -405,7 +411,8 @@ def _mis_global(ex, cols_g, strong, eligible, rows_g, row0, g, dist=2,
                 max_rounds=24, weights=None):
     """Luby distance-``dist`` MIS on the global strength graph; the
     priorities default to ``mis_hash`` of the global rows.  One host read
-    a round: the count of nodes still active, summed over the ranks.
+    a round: the count of nodes still active, summed over the ranks (each
+    round one span ``dist_setup.mis_round``, its read included).
     Returns the root mask."""
     w0 = mis_hash(rows_g) if weights is None else weights
 
@@ -416,16 +423,17 @@ def _mis_global(ex, cols_g, strong, eligible, rows_g, row0, g, dist=2,
 
     active = eligible
     roots = torch.zeros_like(eligible)
-    done = int(ex.psum(_per_rank(eligible))[0]) == 0
+    done = _read(ex.psum(_per_rank(eligible))[0]) == 0
     it = 0
     while not done and it < max_rounds:
-        wa = torch.where(active, w0, -1)
-        mk = nb_max_k(wa)
-        roots = roots | (active & (wa == mk) & (wa >= 0))
-        rk = nb_max_k(roots.to(torch.int64))
-        active = active & (rk < 1)
+        with _trace.span("dist_setup.mis_round", round=it):
+            wa = torch.where(active, w0, -1)
+            mk = nb_max_k(wa)
+            roots = roots | (active & (wa == mk) & (wa >= 0))
+            rk = nb_max_k(roots.to(torch.int64))
+            active = active & (rk < 1)
+            done = _read(ex.psum(_per_rank(active))[0]) == 0
         it += 1
-        done = int(ex.psum(_per_rank(active))[0]) == 0
     return roots
 
 
@@ -604,6 +612,12 @@ class DistHierarchy:
             b = b.view(ex.ndev, n_loc)[ex.ranks]
         return b.reshape(ex.R, n_loc)
 
+    def _put_b(self, prog, ex, b):
+        """b into the program (span ``solve.b_in``)."""
+        with _trace.span("solve.b_in"):
+            _trace.count_in(b)
+            prog.put("b", self._local(ex, b))
+
     def _operators(self, ex, nu):
         levs = self._shard_pytrees(ex)
         L, meta = levs[0]
@@ -635,9 +649,12 @@ class DistHierarchy:
         """Run the tree and read ``count`` and the relative residual once:
         ``(x, relres, count)``, x owned by the caller."""
         k, relres = prog.loop("solve", nodes, (count, "relres"))
-        x = prog.state["x"].reshape(-1)
-        return (x.clone() if prog.captured else x), relres, k
+        with _trace.span("solve.x_out"):
+            x = prog.state["x"].reshape(-1)
+            x = x.clone() if prog.captured else x
+        return x, relres, k
 
+    @_trace.entry
     def solve_cg(self, b, tol=1e-8, maxiter=100, nu=2):
         """V-cycle-preconditioned CG: ``(x, relres, iterations)``, x the
         rows of this process's ranks.  A tree of two steps, ``start`` and
@@ -648,7 +665,7 @@ class DistHierarchy:
         NCCL ``RowMesh``), else op by op with one read an iteration."""
         prog, (ex, Amv, Mmv) = self._program(
             ("cg", float(tol), int(maxiter), int(nu)), nu)
-        prog.put("b", self._local(ex, b))
+        self._put_b(prog, ex, b)
 
         def go_on(r, bnorm):
             nr = torch.sqrt(ex.vdot(r, r))
@@ -681,6 +698,7 @@ class DistHierarchy:
                                                  iteration)], maxiter)]
         return self._result(prog, nodes, "it")
 
+    @_trace.entry
     def solve_fgmres(self, b, tol=1e-8, restart=20, max_outer=10, nu=2):
         """V-cycle-preconditioned FGMRES (right preconditioning):
         ``(x, relres, restart * cycles)``.  Arnoldi by classical
@@ -692,7 +710,7 @@ class DistHierarchy:
         Rr = int(restart)
         prog, (ex, Amv, Mmv) = self._program(
             ("fgmres", float(tol), Rr, int(max_outer), int(nu)), nu)
-        prog.put("b", self._local(ex, b))
+        self._put_b(prog, ex, b)
 
         def vdots(V, w):
             """(1, Rr + 1): <V_k, w> summed over the ranks."""
@@ -890,7 +908,7 @@ def _margin_of(ex, cols, ok, n_loc):
     cols, ok = _blocks(ex, n_loc, cols, ok)
     rows = ex.row0(n_loc)[:, None] + torch.arange(n_loc, device=ex.device)
     d = torch.where(ok, torch.abs(cols.to(torch.int64) - rows[..., None]), 0)
-    return int(ex.pmax(torch.amax(d.reshape(ex.R, -1), dim=1))[0])
+    return _read(ex.pmax(torch.amax(d.reshape(ex.R, -1), dim=1))[0])
 
 
 def _diag_dinv(cols, vals, ok, rows_g):
@@ -931,7 +949,7 @@ def _power_rho(ex, cols, vals, ok, n_loc, g, iters=8, seed=0, use_dinv=True,
                start=None):
     """rho(D⁻¹ A) (or rho(A) with ``use_dinv=False``) by normalised power
     iteration across the ranks, from ``start(seed, rank, n_loc)`` on each
-    rank (default ``random_start``).  One host read."""
+    rank (default ``random_start``).  Two host reads: the ranks and rho."""
     start = random_start if start is None else start
     dt = vals.dtype
     if use_dinv:
@@ -942,7 +960,7 @@ def _power_rho(ex, cols, vals, ok, n_loc, g, iters=8, seed=0, use_dinv=True,
     cols = cols.to(torch.int64)
     base = ex.row0(n_loc) - g
     x = torch.stack([as_tensor(start(seed, r, n_loc), ex.device, dt)
-                     for r in ex.ranks.tolist()])
+                     for r in _read(ex.ranks, torch.Tensor.tolist)])
     x = x / torch.sqrt(ex.vdot(x, x))
     lam = torch.ones((1, 1), dtype=dt, device=ex.device)
     for _ in range(iters):
@@ -950,7 +968,7 @@ def _power_rho(ex, cols, vals, ok, n_loc, g, iters=8, seed=0, use_dinv=True,
         nrm = torch.sqrt(ex.vdot(y, y))
         lam = nrm / torch.clamp(torch.sqrt(ex.vdot(x, x)), min=1e-30)
         x = y / torch.clamp(nrm, min=1e-30)
-    return float(lam)
+    return _read(lam, float)
 
 
 def _identity_fill(ac_c, ac_v, ac_ok, used, own):
@@ -1177,67 +1195,74 @@ def _setup(step, cols, vals, ok, n_loc, mesh, *, max_levels, coarsen_until,
     ndev = ex.ndev
     levels: List[DistLevel] = []
     diagnostics = {"dropped": [], "nagg": [], "margins": [], "seconds": []}
-    t0 = time.perf_counter()
 
     def mk(c, v, o, nl, g, **kw):
         return DistLevel(cols=c, vals=v, ok=o, n_loc=nl, g=g, ndev=ndev,
                          mesh=mesh, **kw)
 
-    lc, lv, lo, nl = cols, vals, ok, n_loc
-    for lvl_i in range(max_levels):
-        n_glob = nl * ndev
-        g = _margin_of(ex, lc, lo, nl)
-        diagnostics["margins"].append(g)
-        if n_glob <= coarsen_until or g >= nl or nl // coarse_ratio < 1:
-            break
-        c_cap = max(nl // coarse_ratio, 1)
-        rho = _power_rho(ex, lc, lv, lo, nl, g, iters=rho_iters,
-                         seed=seed + lvl_i, start=rho_start)
-        om = omega / max(rho, 1e-30)
-        (p_cols, p_vals, p_ok, r_cols, r_vals, r_ok, ac_c, ac_v, ac_ok,
-         Dinv, nagg, dropped) = step(ex, *_blocks(ex, nl, lc, lv, lo), nl,
-                                     g, c_cap, om)
-        gp = transfer(g, nl)
-        cheb = None
-        if smoother == "chebyshev":
-            # reference setup_chebyshev (smoothing.py:627): minimal on
-            # [rho(A) / 30, 1.1 rho(A)], applied to b - A x
-            from pyamg_tpu_torch.relaxation.chebyshev import \
-                chebyshev_polynomial_coefficients
-            rho_A = _power_rho(ex, lc, lv, lo, nl, g, iters=rho_iters,
-                               seed=seed + 37 + lvl_i, use_dinv=False,
-                               start=rho_start)
-            co = -chebyshev_polynomial_coefficients(
-                rho_A / 30.0, 1.1 * rho_A, int(cheb_degree))[:-1]
-            cheb = torch.as_tensor(co, device=ex.device).to(lv.dtype)
-        i32 = torch.int32
-        levels.append(mk(
-            lc, lv, lo, nl, g, Dinv=Dinv.reshape(-1),
-            p_cols=_flat(p_cols)[0].to(i32), p_vals=_flat(p_vals)[0],
-            p_ok=_flat(p_ok)[0], r_cols=_flat(r_cols)[0].to(i32),
-            r_vals=_flat(r_vals)[0], r_ok=_flat(r_ok)[0], omega=float(om),
-            gp=gp, gcp=(-(-gp // nl)) * c_cap, cheb=cheb))
-        diagnostics["nagg"].append(int(ex.psum(nagg)[0]))
-        diagnostics["dropped"].append(int(ex.psum(dropped)[0]))
-        lc, lv, lo = _flat(ac_c.to(i32), ac_v, ac_ok)
-        nl = c_cap
-        t1 = time.perf_counter()
-        diagnostics["seconds"].append(t1 - t0)
-        t0 = t1
+    # one span a level, from the end of the level before; its seconds go
+    # to the diagnostics
+    level = _trace.span("dist_setup.level", level=0)
+    try:
+        lc, lv, lo, nl = cols, vals, ok, n_loc
+        for lvl_i in range(max_levels):
+            n_glob = nl * ndev
+            g = _margin_of(ex, lc, lo, nl)
+            diagnostics["margins"].append(g)
+            if n_glob <= coarsen_until or g >= nl or nl // coarse_ratio < 1:
+                break
+            c_cap = max(nl // coarse_ratio, 1)
+            rho = _power_rho(ex, lc, lv, lo, nl, g, iters=rho_iters,
+                             seed=seed + lvl_i, start=rho_start)
+            om = omega / max(rho, 1e-30)
+            (p_cols, p_vals, p_ok, r_cols, r_vals, r_ok, ac_c, ac_v, ac_ok,
+             Dinv, nagg, dropped) = step(ex, *_blocks(ex, nl, lc, lv, lo),
+                                         nl, g, c_cap, om)
+            gp = transfer(g, nl)
+            cheb = None
+            if smoother == "chebyshev":
+                # reference setup_chebyshev (smoothing.py:627): minimal on
+                # [rho(A) / 30, 1.1 rho(A)], applied to b - A x
+                from pyamg_tpu_torch.relaxation.chebyshev import \
+                    chebyshev_polynomial_coefficients
+                rho_A = _power_rho(ex, lc, lv, lo, nl, g, iters=rho_iters,
+                                   seed=seed + 37 + lvl_i, use_dinv=False,
+                                   start=rho_start)
+                co = -chebyshev_polynomial_coefficients(
+                    rho_A / 30.0, 1.1 * rho_A, int(cheb_degree))[:-1]
+                cheb = torch.as_tensor(co, device=ex.device).to(lv.dtype)
+            i32 = torch.int32
+            levels.append(mk(
+                lc, lv, lo, nl, g, Dinv=Dinv.reshape(-1),
+                p_cols=_flat(p_cols)[0].to(i32), p_vals=_flat(p_vals)[0],
+                p_ok=_flat(p_ok)[0], r_cols=_flat(r_cols)[0].to(i32),
+                r_vals=_flat(r_vals)[0], r_ok=_flat(r_ok)[0],
+                omega=float(om), gp=gp, gcp=(-(-gp // nl)) * c_cap,
+                cheb=cheb))
+            diagnostics["nagg"].append(_read(ex.psum(nagg)[0]))
+            diagnostics["dropped"].append(_read(ex.psum(dropped)[0]))
+            lc, lv, lo = _flat(ac_c.to(i32), ac_v, ac_ok)
+            nl = c_cap
+            level.close()
+            diagnostics["seconds"].append(level.seconds)
+            level = _trace.span("dist_setup.level", level=lvl_i + 1)
 
-    # the coarsest level: replicated, applied through a dense pinv
-    g = diagnostics["margins"][-1] if not levels else \
-        _margin_of(ex, lc, lo, nl)
-    rho = _power_rho(ex, lc, lv, lo, nl, g, iters=rho_iters, seed=seed + 99,
-                     start=rho_start)
-    levels.append(mk(lc, lv, lo, nl, g,
-                     Dinv=_dinv_sharded(ex, lc, lv, lo, nl),
-                     omega=float(1.0 / max(rho, 1e-30))))
-    nc = nl * ndev
-    dense = _densify_replicated(ex, lc, lv, lo, nc)
-    hier = DistHierarchy(levels=levels, mesh=mesh, coarse_dense=_pinv(dense),
-                         coarse_n=nc, diagnostics=diagnostics)
-    diagnostics["seconds"].append(time.perf_counter() - t0)
+        # the coarsest level: replicated, applied through a dense pinv
+        g = diagnostics["margins"][-1] if not levels else \
+            _margin_of(ex, lc, lo, nl)
+        rho = _power_rho(ex, lc, lv, lo, nl, g, iters=rho_iters,
+                         seed=seed + 99, start=rho_start)
+        levels.append(mk(lc, lv, lo, nl, g,
+                         Dinv=_dinv_sharded(ex, lc, lv, lo, nl),
+                         omega=float(1.0 / max(rho, 1e-30))))
+        nc = nl * ndev
+        dense = _densify_replicated(ex, lc, lv, lo, nc)
+        hier = DistHierarchy(levels=levels, mesh=mesh,
+                             coarse_dense=_pinv(dense), coarse_n=nc,
+                             diagnostics=diagnostics)
+    finally:
+        level.close()
+    diagnostics["seconds"].append(level.seconds)
     return hier
 
 

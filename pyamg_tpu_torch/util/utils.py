@@ -6,11 +6,10 @@ spectrum, and the setup clock of the solver constructors."""
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
+from pyamg_tpu_torch import _trace
 from pyamg_tpu_torch.sparse.matrix import BELL, ELL
 
 
@@ -365,14 +364,17 @@ def get_Cpt_params(A, Cnodes, AggOp=None, T=None):
 
 
 class SetupClock:
-    """Wall time of the setup phases of one level, summed by key:
-    ``mark(key)`` charges the time since the last mark to ``key``."""
+    """Wall time of the setup phases of level ``level``, summed by key:
+    ``mark(key)`` charges the time since the last mark to ``key`` and
+    records it as the span ``setup.<key>`` (``_trace.py``)."""
 
-    def __init__(self):
+    def __init__(self, level=None):
         self.times = {}
-        self._t0 = time.perf_counter()
+        self.level = level
+        self._t0 = _trace.now()
 
     def mark(self, key):
-        now = time.perf_counter()
-        self.times[key] = self.times.get(key, 0.0) + (now - self._t0)
+        now = _trace.now()
+        ns = _trace.add("setup." + key, self._t0, now, level=self.level)
+        self.times[key] = self.times.get(key, 0.0) + ns / 1e9
         self._t0 = now
