@@ -869,9 +869,10 @@ def build_kernels():
     kernels and the conditional graph nodes of the device loops."""
     from concurrent.futures import ThreadPoolExecutor
     from pyamg_tpu_torch import _graph
-    from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
+    from pyamg_tpu_torch.ops import dia_kernels, dist_kernels, sell_kernels
     builds = {"dia_kernels": dia_kernels.build,
-              "sell_kernels": sell_kernels.build, "graph_cond": _graph.build}
+              "sell_kernels": sell_kernels.build,
+              "dist_kernels": dist_kernels.build, "graph_cond": _graph.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
         return {name: f.result() for name, f in futures.items()}
@@ -1214,11 +1215,12 @@ def counters():
     """Every kernel wrapper's counters: {kernel: (launches, per operator,
     color passes)}."""
     from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import dist_kernels as tk
     from pyamg_tpu_torch.ops import sell_kernels as sk
     return {k.__name__: (k.launches, dict(k.by_op if hasattr(k, "by_op")
                                           else k.by_plan),
                          dict(getattr(k, "passes", {})))
-            for k in dk.KERNELS + sk.KERNELS}
+            for k in dk.KERNELS + sk.KERNELS + tk.KERNELS}
 
 
 def total_iterations(it):
@@ -2771,15 +2773,19 @@ def gate_history(tag, got, want, rtol):
 
 def kernel_launches():
     from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import dist_kernels as tk
     from pyamg_tpu_torch.ops import sell_kernels as sk
-    return {k.__name__: k.launches for k in dk.KERNELS + sk.KERNELS}
+    return {k.__name__: k.launches
+            for k in dk.KERNELS + sk.KERNELS + tk.KERNELS}
 
 
 def reset_kernel_launches():
     from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import dist_kernels as tk
     from pyamg_tpu_torch.ops import sell_kernels as sk
     dk.reset_launch_counts()
     sk.reset_launch_counts()
+    tk.reset_launch_counts()
 
 
 def led_in_ops(fn, dev):
@@ -3148,13 +3154,17 @@ def gate_dist_solve(tag, solve, got, want, S, b, x):
 
 
 def dist_flow(tag, mesh, n, want, setup="sa", smoother="jacobi", reps=5,
-              timed=False, keep=False):
+              timed=False, keep=False, row=None, krows=None):
     """One distributed flow of the ``parallel2:`` phase: 2-D Poisson n^2,
     float32, on ``mesh``, the power iterations from ``hashed_start`` (as
     the JAX reference), gated against ``want``; with ``timed`` the setup
     seconds by level, the warm median of ``reps`` solves, one profiled
     solve, the peak memory beside the port's model and the collectives
-    per solve.  Returns (hierarchy, b, result of the cold solve)."""
+    per solve.  Every K6 product of the hierarchy against its plain
+    version (``k6_gate``; with ``row``, timed, its rows added to
+    ``krows``), K6's launches a CG, and whether two solves of one b give
+    one x bit for bit.  Returns (hierarchy, b, result of the cold
+    solve)."""
     import torch
     import scipy.sparse as sp
     from pyamg_tpu_torch.parallel import (StackedMesh, dist_stencil_grid,
@@ -3223,13 +3233,29 @@ def dist_flow(tag, mesh, n, want, setup="sa", smoother="jacobi", reps=5,
     partition.reset_counts()
     x, relres, it = solve()
     launched = kernel_launches()
+    k6_by_op = counters()["dist_slice_apply"][1]
     colls = dict(partition.COUNTS)
     true = gate_dist_solve(tag, solve_name, (it, relres), want, S, b, x)
     print(f"parallel2: {tag} kernel launches around the cold solve "
           f"{launched}; collectives of the solve {colls}")
-    check(all(v == 0 for v in launched.values()),
-          f"{tag}: a CUDA kernel launched on the distributed path: "
-          f"{launched}")
+    k6 = launched.pop("dist_slice_apply")
+    check(all(v == 0 for v in launched.values()) and k6 > 0,
+          f"{tag}: a K1-K5 kernel launched on the distributed path, or no "
+          f"K6: {launched}, K6 {k6}")
+    if setup == "sa" and smoother == "jacobi":
+        # a V-cycle is 7 products on each level above the dense one (two
+        # sweeps, residual, R, correction, two sweeps); CG runs it once
+        # before its loop and once an iteration, beside A p
+        cyc = 7 * (len(hier.levels) - 1)
+        check(k6 == cyc * (it + 1) + it,
+              f"{tag}: {k6} K6 launches for {it} CG iterations, want "
+              f"{cyc * (it + 1) + it}")
+    x2 = solve()[0]
+    print(f"parallel2: {tag} two solves of one b give the same x bit for "
+          f"bit: {bool(torch.equal(x, x2))}")
+    got_rows = k6_gate(tag, hier, k6_by_op, row)
+    if krows is not None:
+        krows += got_rows
     if timed:
         med = forms_gate("parallel2", f"{tag} {solve_name}", solve,
                          reps=reps)["medians"]
@@ -3241,6 +3267,99 @@ def dist_flow(tag, mesh, n, want, setup="sa", smoother="jacobi", reps=5,
         print_profile(f"{tag} {solve_name} (one graph a step)",
                       *profiled(per_step(solve)), top=8, phase="parallel2")
     return hier, b, (x, relres, it, true)
+
+
+def k6_products(hier):
+    """Every K6 product of ``hier``'s V-cycle: (level, name, layout,
+    stored entries it reads, the mode's vectors)."""
+    from pyamg_tpu_torch.parallel.dist_setup import exchange_of
+    ex = exchange_of(hier.mesh)
+    out = []
+    for i, S in enumerate(hier._slices(ex)):
+        L = hier.levels[i]
+        A, P, R = (int(a.sum()) for a in (L.ok, L.p_ok, L.r_ok))
+        out += [(i, "A apply", S.A, A, ()),
+                (i, "A residual", S.A, A, ("b",)),
+                (i, "A jacobi", S.A, A, ("x", "b", "w")),
+                (i, "A jacobi0", S.A, 0, ("b", "w")),
+                (i, "P correct", S.P, P, ("x",)),
+                (i, "R apply", S.R, R, ())]
+    return out
+
+
+def k6_gate(tag, hier, by_op, row=None):
+    """K6 on every product of ``hier``'s V-cycle in its mode, against the
+    plain version on the card, bit for bit (random src and vectors); with
+    ``row`` (``kernel_row`` with its flush) each product's device time
+    beside its bound: stored entries (4-byte column and value) read once,
+    src, the mode's vectors and y once each, and torch.sparse's CSR
+    product of the same entries as the library call; its launches a solve
+    from ``by_op`` (K6's counts of one cold solve).  Returns the rows."""
+    import torch
+    from pyamg_tpu_torch.ops import dist_kernels as tk
+    gen = torch.Generator(device=hier.coarse_dense.device).manual_seed(7)
+    rows, worst = [], 0
+    for lvl, name, L, stored, needs in k6_products(hier):
+        dt, dev = L.vals.dtype, L.vals.device
+
+        def rand(n):
+            return torch.randn(n, generator=gen, device=dev, dtype=dt)
+        mode = name.split()[1] if name != "R apply" else "apply"
+        src = rand(L.src_len) if mode != "jacobi0" else None
+        vecs = {k: rand(L.rows) for k in needs}
+        before = tk.dist_slice_apply.launches
+        got = tk.dist_slice_apply(L, src, mode, **vecs)
+        launched = tk.dist_slice_apply.launches - before
+        want = tk.dist_slice_apply_plain(L, src, mode, **vecs)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        err = float((got - want).abs().max()) if L.rows else 0.0
+        worst = max(worst, err)
+        check(same and launched == 1,
+              f"{tag}: K6 level {lvl} {name} differs from its plain version "
+              f"(max_abs_err {err:.3e}) or took {launched} launches")
+        if row is None:
+            continue
+        es = L.vals.element_size()
+        nbytes = stored * (4 + es) + (L.rows * (1 + len(vecs)) + (
+            0 if src is None else L.src_len)) * es
+        if src is None:         # jacobi0: no product, no library call
+            rows.append(row(
+                f"K6 {tag} level {lvl} {name}", "none", by_op.get(
+                    (L.rows, L.width_sum, mode), 0), err,
+                lambda: tk.dist_slice_apply(L, None, mode, **vecs),
+                lambda: tk.dist_slice_apply_plain(L, None, mode, **vecs),
+                None, nbytes, 2 * L.rows,
+                source="pyamg_tpu_torch/csrc/dist_kernels.cu",
+                plain_reps=5, tag=f"K6 {tag} level {lvl} {name} ({L.rows} "
+                                  f"rows)"))
+            continue
+        keep = L.vals != 0
+        slot = torch.arange(L.vals.numel(), device=dev)
+        r_of = (torch.repeat_interleave(
+            torch.arange(L.slices, device=dev),
+            (L.sptr[1:] - L.sptr[:-1])) * tk.SLICE + slot % tk.SLICE)
+        order = torch.argsort(r_of[keep], stable=True)
+        crow = torch.zeros(L.rows + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(r_of[keep],
+                                               minlength=L.rows), 0)
+        lib = torch.sparse_csr_tensor(crow, L.cols[keep][order].long(),
+                                      L.vals[keep][order],
+                                      (L.rows, L.src_len))
+        rows.append(row(
+            f"K6 {tag} level {lvl} {name}",
+            "none (pyamg_tpu/parallel/dist_setup.py:87-125, jnp gathers)",
+            by_op.get((L.rows, L.width_sum, mode), 0), err,
+            lambda: tk.dist_slice_apply(L, src, mode, **vecs),
+            lambda: tk.dist_slice_apply_plain(L, src, mode, **vecs),
+            lambda: lib @ src, nbytes, 2 * stored,
+            source="pyamg_tpu_torch/csrc/dist_kernels.cu", plain_reps=5,
+            tag=f"K6 {tag} level {lvl} {name} ({L.rows} rows, {stored} "
+                f"stored in {tk.SLICE * L.width_sum} slots)"))
+    print(f"parallel2: {tag} K6 on every product of {len(hier.levels) - 1} "
+          f"levels in its mode equals its plain version bit for bit "
+          f"(max_abs_err {worst:.3e})")
+    return rows
 
 
 def same_dist(tag, h1, r1, h2, r2):
@@ -3272,7 +3391,8 @@ def same_dist(tag, h1, r1, h2, r2):
           f"{tag}: the two forms differ (max_abs_err {worst:.3e})")
 
 
-def parallel2_phase(dev, want=None, full=1414, cl=500, small=32, reps=5):
+def parallel2_phase(dev, want=None, full=1414, cl=500, small=32, reps=5,
+                    row=None):
     """The ``parallel2:`` phase, the distributed setup and its solves
     (``pyamg_tpu_torch.parallel.dist_setup``) on 2-D Poisson, float32,
     against the JAX package's runs (``want``, JAX_DIST): (1) the dryrun's
@@ -3281,7 +3401,9 @@ def parallel2_phase(dev, want=None, full=1414, cl=500, small=32, reps=5):
     (3) the same SA on a one-rank NCCL group, timed, with its collectives;
     (4) classical AMG with FGMRES at ``cl``^2 on 8 ranks, timed; (5) flow
     3 again on a one-rank ``StackedMesh``: bit for bit equal to flow 3.
-    No K1-K5 launch on any."""
+    No K1-K5 launch on any; K6 on every product of every flow equals its
+    plain version bit for bit, and with ``row`` (``kernel_row`` with its
+    flush) flow 3's products are timed.  Returns those kernel rows."""
     import torch
     import torch.distributed as dist
     from pyamg_tpu_torch.parallel import StackedMesh, make_row_mesh
@@ -3312,8 +3434,9 @@ def parallel2_phase(dev, want=None, full=1414, cl=500, small=32, reps=5):
         print(f"parallel2: one-rank {dist.get_backend()} group on "
               f"{mesh.device}: the ring carries nothing (no neighbour), "
               f"the sums gather one partial each")
+        rows = []
         h3, _, r3 = dist_flow(f"sa{full}r1", mesh, full, want[f"sa{full}r1"],
-                              reps=reps, timed=True)
+                              reps=reps, timed=True, row=row, krows=rows)
     finally:
         dist.destroy_process_group()
     print(f"parallel2: flow 3 {time.perf_counter() - t0:.2f} s")
@@ -3329,6 +3452,7 @@ def parallel2_phase(dev, want=None, full=1414, cl=500, small=32, reps=5):
     dist_flow(f"cl{cl}", stacked, cl, want[f"cl{cl}"], setup="classical",
               reps=reps, timed=True)
     print(f"parallel2: flow 4 {time.perf_counter() - t0:.2f} s")
+    return rows
 
 
 def classical2_paths(dev, n_el=100, n_c=256):
@@ -3808,7 +3932,9 @@ def scale_rows(dev, sms, rng, row, setup):
 
 def main(only=None):
     """Every phase; with ``only="scale"`` the device section and the
-    ``scale:`` phase alone (``python3 chip_smoke.py scale``)."""
+    ``scale:`` phase alone (``python3 chip_smoke.py scale``), with
+    ``only="parallel2"`` the device section and the ``parallel2:`` phase
+    alone (``python3 chip_smoke.py parallel2``)."""
     t_start = time.perf_counter()
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -3829,6 +3955,18 @@ def main(only=None):
 
     # -- 1. device ---------------------------------------------------------
     card, sms = device_section(dev)
+    if only == "parallel2":
+        # the parallel2: phase alone, with K6's rows of the kernel table
+        flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
+        row = functools.partial(kernel_row, flush, flush_ops(flush))
+        rows = parallel2_phase(dev, row=row)
+        print(f"chip_smoke: the parallel2: phase passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     # the scale: phase's minutes of host setup, in a process of its own
     # beside the phases before it
     scale_setup = ScaleSetup()
@@ -4688,7 +4826,7 @@ def main(only=None):
     mark("parallel2")
     # -- 12. parallel2: the distributed setup and its solves ---------------
     t0 = time.perf_counter()
-    parallel2_phase(dev)
+    rows += parallel2_phase(dev, row=row)
     print(f"parallel2: phase {time.perf_counter() - t0:.2f} s")
 
     mark("scale")
@@ -4706,6 +4844,6 @@ def main(only=None):
 
 if __name__ == "__main__":
     import sys
-    check(sys.argv[1:] in ([], ["scale"]),
-          f"usage: {sys.argv[0]} [scale] (got {sys.argv[1:]})")
+    check(sys.argv[1:] in ([], ["scale"], ["parallel2"]),
+          f"usage: {sys.argv[0]} [scale|parallel2] (got {sys.argv[1:]})")
     main(*sys.argv[1:])

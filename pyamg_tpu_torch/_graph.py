@@ -39,13 +39,13 @@ back to the eager loop.
 
 The kernel wrappers count their launches in Python, which a replay does
 not reach.  So a wrapper hands its bookkeeping to ``on_replay`` (a count,
-run after the work) and ``ahead`` (a reservation, made before it: K2's
-epochs): outside a capture it runs at once; during a capture it is
-recorded.  Before a step's replay the program runs what the step
-recorded; around a device-stopped replay it reserves for the most trips
-each step could make, and counts each step as many times as the device
-ran it (the trips are tallied on the device and come back in the one
-read).
+run after the work), ``tally`` (a count folded into one a graph) and
+``ahead`` (a reservation, made before it: K2's epochs): outside a
+capture it runs at once; during a capture it is recorded.  Before a
+step's replay the program runs what the step recorded; around a
+device-stopped replay it reserves for the most trips each step could
+make, and counts each step as many times as the device ran it (the trips
+are tallied on the device and come back in the one read).
 
 A graph keeps the addresses of the memory it recorded.  What a kernel
 wrapper keeps between launches (K2's exchange memory) therefore belongs,
@@ -80,6 +80,37 @@ def on_replay(fn):
         _recording.append(fn)
     elif not _quiet:
         fn()
+
+
+class _Tally:
+    """The launches of one kind recorded in one graph, by key: ``kind``
+    counts them all in one call after each replay."""
+
+    __slots__ = ("kind", "counts")
+
+    def __init__(self, kind):
+        self.kind, self.counts = kind, {}
+
+    def __call__(self):
+        self.kind(self.counts)
+
+
+def tally(kind, key):
+    """Count one launch under ``key`` through ``kind({key: launches})``:
+    now or, while a program records a graph, into the graph's one tally
+    of that kind, counted on every replay (one host call a replay for all
+    the graph's launches of the kind, where ``on_replay`` makes one a
+    launch)."""
+    if _recording is None:
+        if not _quiet:
+            kind({key: 1})
+        return
+    held = next((h for h in _recording
+                 if isinstance(h, _Tally) and h.kind == kind), None)
+    if held is None:
+        held = _Tally(kind)
+        _recording.append(held)
+    held.counts[key] = held.counts.get(key, 0) + 1
 
 
 def ahead(holder, amount):

@@ -32,8 +32,10 @@ ranks this process computes, and takes the exchange as an argument:
 The public arrays are the rows of the ranks this process computes, in
 rank order: a ``StackedMesh`` holds the whole padded operator, a
 ``RowMesh`` one block.  The setup reads on the host once a level (the
-margin, the spectral radius, the diagnostics) and once a Luby round; the
-V-cycle reads nothing.
+margin, the spectral radius, the diagnostics) and once a Luby round.  The
+first solve lays each level's A, P and R out for the CUDA kernel K6
+(``ops/dist_kernels.py``), one read a level; after that the V-cycle reads
+nothing, and each of its sparse products is one K6 launch.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch.distributed as dist
 
 from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch._device import as_tensor, resolve
+from pyamg_tpu_torch.ops.dist_kernels import dist_slice_apply, slice_layouts
 from pyamg_tpu_torch.ops.rowops import dedup_rows
 from pyamg_tpu_torch.parallel.partition import RowMesh, count
 
@@ -71,11 +74,15 @@ class StackedMesh:
 
 class _Exchange:
     """What a per-rank body needs of the mesh: ``ndev`` ranks in all, the
-    ``ranks`` this process computes (a (R,) tensor), margins and sums."""
+    ``ranks`` this process computes (a (R,) tensor), margins and sums.
+    ``direct``: every margin of every local rank is rows this process
+    holds (all ranks in it, or one rank in all), so a product may read the
+    local rows themselves in place of each rank's extended block."""
 
     ndev: int
     ranks: torch.Tensor
     device: torch.device
+    direct: bool
 
     @property
     def R(self):
@@ -95,6 +102,7 @@ class _Stacked(_Exchange):
         self.ndev = mesh.size
         self.device = mesh.device
         self.ranks = torch.arange(mesh.size, device=mesh.device)
+        self.direct = True
 
     def ext_rows(self, x, g):
         """[previous ranks' last g rows | x | next ranks' first g rows] of
@@ -124,6 +132,7 @@ class _Ring(_Exchange):
         self.ndev = mesh.size
         self.device = mesh.device
         self.ranks = torch.tensor([mesh.rank], device=mesh.device)
+        self.direct = self.ndev == 1
 
     def _shift(self, blocks):
         """One hop: ``blocks[0]`` goes to the next rank and ``blocks[1]``
@@ -244,20 +253,6 @@ def _gather_ext(x_ext, cols_g, base, valid):
 def _spmv_shard(vals, cols_g, valid, x_ext, base):
     g, _ = _gather_ext(x_ext, cols_g, base, valid)
     return torch.sum(torch.where(valid, vals, 0) * g, dim=-1)
-
-
-def _spmv_shard_overlap(vals, cols_g, valid, x, x_ext, row0, g_margin):
-    """A x on each rank as an interior term, which reads only the rank's
-    own block of x, plus a ghost term from the margins."""
-    n = x.shape[1]
-    loc = cols_g - row0.view(-1, 1, 1)
-    is_local = valid & (loc >= 0) & (loc < n)
-    gl = _flat_take(x, torch.clamp(loc, 0, n - 1))
-    y_int = torch.sum(torch.where(is_local, vals * gl, 0), dim=-1)
-    ghost = valid & ~is_local
-    ge, _ = _gather_ext(x_ext, cols_g, row0 - g_margin, ghost)
-    y_gh = torch.sum(torch.where(ghost, vals * ge, 0), dim=-1)
-    return y_int + y_gh
 
 
 def _per_rank(t):
@@ -518,6 +513,98 @@ def _lu_solve(A, b):
     return torch.linalg.solve_triangular(LU, y, upper=True)[:, 0]
 
 
+def _entries(ex, cols, vals, ok, rows, n_src, g, ext=False):
+    """(index, value, kept, source length) of an operator's (R rows, W)
+    entries for K6, read from a vector of ``n_src`` rows a rank with
+    margin ``g``: ``cols`` global rows of that vector, or with ``ext``
+    places in each rank's extended block.  Kept where stored and inside
+    the block and the vector, as ``_gather_ext`` reads them; the index is
+    the global row where the exchange is ``direct`` (the vector's own
+    rows), else the place in the stacked extended blocks."""
+    R, ne = ex.R, n_src + 2 * g
+    base = (ex.ranks * n_src - g).view(-1, 1, 1)
+    e = cols.to(torch.int64).view(R, rows, -1)
+    if not ext:
+        e = e - base
+    glob = e + base
+    keep = ok.view(R, rows, -1) & (e >= 0) & (e < ne) & (glob >= 0) & \
+        (glob < ex.ndev * n_src)
+    if ex.direct:
+        idx, length = glob, ex.ndev * n_src
+    else:
+        idx, length = e + (torch.arange(R, device=e.device) * ne).view(
+            -1, 1, 1), R * ne
+    W = e.shape[-1]
+    return (idx.reshape(-1, W), vals.reshape(-1, W), keep.reshape(-1, W),
+            length)
+
+
+class _Slices:
+    """One level of the solve phase as K6 products
+    (``ops/dist_kernels.py``): A (margin ``g``), and above the coarsest
+    level P (coarse vector, margin ``gc``) and R (the residual, margin
+    ``gp``); ``w`` = omega D⁻¹ of the Jacobi sweep.  Vectors are (R, rows)
+    blocks; each product is one launch on a card."""
+
+    def __init__(self, L, A, P=None, R=None, gc=0):
+        self.A, self.P, self.R = A, P, R
+        self.g, self.gp, self.gc = L.g, L.gp, gc
+        self.cheb = L.cheb
+        self.w = L.omega * L.Dinv
+
+    @staticmethod
+    def _source(ex, v, g):
+        """The vector a product reads for the (R, rows) blocks ``v``."""
+        return (v if ex.direct else ex.ext_rows(v, g)).reshape(-1)
+
+    def _run(self, ex, op, v, g, mode, x=None, b=None, w=None):
+        flat = [None if t is None else t.reshape(-1) for t in (x, b)]
+        y = dist_slice_apply(op, self._source(ex, v, g), mode, *flat, w=w)
+        return y.view(ex.R, -1)
+
+    def apply(self, ex, v):
+        return self._run(ex, self.A, v, self.g, "apply")
+
+    def residual(self, ex, x, b):
+        return self._run(ex, self.A, x, self.g, "residual", b=b)
+
+    def jacobi(self, ex, x, b):
+        """One damped-Jacobi sweep, x + omega D⁻¹ (b - A x), into a new
+        tensor; from x = 0 where ``x`` is None (no product: A 0 is 0)."""
+        if x is None:
+            y = dist_slice_apply(self.A, None, "jacobi0", b=b.reshape(-1),
+                                 w=self.w)
+            return y.view(ex.R, -1)
+        return self._run(ex, self.A, x, self.g, "jacobi", x, b, self.w)
+
+    def restrict(self, ex, r):
+        return self._run(ex, self.R, r, self.gp, "apply")
+
+    def correct(self, ex, x, xc):
+        """x + P xc."""
+        return self._run(ex, self.P, xc, self.gc, "correct", x)
+
+
+def _solve_slices(ex, levels):
+    """Each level's ``_Slices`` but the coarsest's (solved densely; level 0
+    always, for the Krylov loops' A x), built on the levels' device with
+    one host read a level (``_read``: the layouts' sizes)."""
+    out = []
+    for i, L in enumerate(levels[:max(len(levels) - 1, 1)]):
+        n = L.n_loc
+        ops = [_entries(ex, L.cols, L.vals, L.ok, n, n, L.g)]
+        gc = 0
+        if L.p_cols is not None:
+            nc = levels[i + 1].n_loc
+            gc = max(levels[i + 1].g, L.gcp)
+            ops += [_entries(ex, L.p_cols, L.p_vals, L.p_ok, n, nc, gc),
+                    _entries(ex, L.r_cols, L.r_vals, L.r_ok, nc, n, L.gp,
+                             ext=True)]
+        layouts = slice_layouts(ops, lambda t: _read(t, torch.Tensor.tolist))
+        out.append(_Slices(L, *layouts, gc=gc))
+    return out
+
+
 @dataclasses.dataclass
 class DistHierarchy:
     levels: List[DistLevel]
@@ -531,74 +618,49 @@ class DistHierarchy:
         return sum(l.nnz() for l in self.levels) / max(fine, 1)
 
     # ---------------- solve phase ----------------
+    def _slices(self, ex):
+        """The levels' solve layouts (``_solve_slices``), built at the
+        first solve and kept: every later solve and program reuses them."""
+        levs = self.__dict__.get("_solve_layout")
+        if levs is None:
+            levs = self._solve_layout = _solve_slices(ex, self.levels)
+        return levs
+
     def _vcycle_shard(self, ex, levs, x, b, nu=2):
-        """V(nu, nu) cycle over (R, n_loc) blocks; ``levs`` from
-        ``_shard_pytrees``.  Reads nothing on the host."""
+        """V(nu, nu) cycle over (R, n_loc) blocks from x (None: from 0);
+        ``levs`` from ``_slices``: every sparse product one K6 launch, with
+        the sweep, the residual and the correction fused into it, and each
+        level's first sweep from 0 without its product.  Reads nothing on
+        the host."""
+        last = len(self.levels) - 1
 
-        def smooth(L, meta, x, b, sweeps):
-            g = meta["g"]
-
-            def Amv(v):
-                return _spmv_shard_overlap(L["vals"], L["cols"], L["ok"], v,
-                                           ex.ext_rows(v, g), meta["base"],
-                                           g)
-
-            if L.get("cheb") is not None:
-                # x += p(A)(b - A x) by Horner (reference smoothing.py:627)
-                co = L["cheb"]
-                r = b - Amv(x)
-                h = co[0] * r
-                for i in range(1, co.shape[0]):
-                    h = co[i] * r + Amv(h)
-                return x + h
-            for _ in range(sweeps):
-                x = x + meta["omega"] * L["Dinv"] * (b - Amv(x))
-            return x
+        def smooth(S, x, b):
+            if S.cheb is None:
+                for _ in range(nu):
+                    x = S.jacobi(ex, x, b)
+                return torch.zeros_like(b) if x is None else x
+            if x is None:
+                x = torch.zeros_like(b)
+            # x += p(A)(b - A x) by Horner (reference smoothing.py:627)
+            co = S.cheb
+            r = S.residual(ex, x, b)
+            h = co[0] * r
+            for i in range(1, co.shape[0]):
+                h = co[i] * r + S.apply(ex, h)
+            return x + h
 
         def cycle(l, x, b):
-            L, meta = levs[l]
-            if l == len(levs) - 1:
+            if l == last:
                 # the whole dense coarse solve on every rank
                 xg = self.coarse_dense @ ex.gather_rows(b)
                 return xg.view(ex.ndev, -1)[ex.ranks]
-            x = smooth(L, meta, x, b, nu)
-            g = meta["g"]
-            r = b - _spmv_shard_overlap(L["vals"], L["cols"], L["ok"], x,
-                                        ex.ext_rows(x, g), meta["base"], g)
-            r_ext = ex.ext_rows(r, meta["gp"])
-            bc = torch.sum(torch.where(L["r_ok"], L["r_vals"], 0) *
-                           _flat_take(r_ext, L["r_cols"]), dim=-1)
-            xc = cycle(l + 1, torch.zeros_like(bc), bc)
-            _, metac = levs[l + 1]
-            gc = max(metac["g"], meta["gcp"])
-            e = _spmv_shard(L["p_vals"], L["p_cols"], L["p_ok"],
-                            ex.ext_rows(xc, gc), metac["base"] - gc)
-            return smooth(L, meta, x + e, b, nu)
+            S = levs[l]
+            x = smooth(S, x, b)
+            bc = S.restrict(ex, S.residual(ex, x, b))
+            xc = cycle(l + 1, None, bc)
+            return smooth(S, S.correct(ex, x, xc), b)
 
         return cycle(0, x, b)
-
-    def _shard_pytrees(self, ex):
-        """Each level's arrays as (R, n_loc, ...) views and its static
-        numbers, with ``base`` the (R,) first global row of each rank."""
-        out = []
-        for L in self.levels:
-            R, n = ex.R, L.n_loc
-
-            def v(a, rows=n):
-                return a.view((R, rows) + tuple(a.shape[1:]))
-            d = {"cols": v(L.cols), "vals": v(L.vals), "ok": v(L.ok),
-                 "Dinv": v(L.Dinv)}
-            if L.cheb is not None:
-                d["cheb"] = L.cheb
-            if L.p_cols is not None:
-                nc = L.r_cols.shape[0] // R
-                d.update(p_cols=v(L.p_cols), p_vals=v(L.p_vals),
-                         p_ok=v(L.p_ok), r_cols=v(L.r_cols, nc),
-                         r_vals=v(L.r_vals, nc), r_ok=v(L.r_ok, nc))
-            out.append((d, {"g": L.g, "omega": L.omega, "n_loc": n,
-                            "gp": L.gp, "gcp": L.gcp,
-                            "base": ex.row0(n).to(torch.int32)}))
-        return out
 
     def _local(self, ex, b):
         """b as (R, n_loc) blocks: the rows of this process's ranks, or the
@@ -619,16 +681,13 @@ class DistHierarchy:
             prog.put("b", self._local(ex, b))
 
     def _operators(self, ex, nu):
-        levs = self._shard_pytrees(ex)
-        L, meta = levs[0]
+        levs = self._slices(ex)
 
         def Amv(x):
-            return _spmv_shard_overlap(L["vals"], L["cols"], L["ok"], x,
-                                       ex.ext_rows(x, meta["g"]),
-                                       meta["base"], meta["g"])
+            return levs[0].apply(ex, x)
 
         def Mmv(r):
-            return self._vcycle_shard(ex, levs, torch.zeros_like(r), r, nu)
+            return self._vcycle_shard(ex, levs, None, r, nu)
 
         return Amv, Mmv
 

@@ -334,12 +334,23 @@ def test_dist_solve_cg_counts_two_transfers(one_rank_group, monkeypatch):
         x, relres, it = hier.solve_cg(b, tol=1e-6, maxiter=40)
     assert relres <= 1e-6 and x.shape == (24 * 24,)
     snap = _trace.snapshot()
-    assert snap["counters"] == {"host_transfers": 2}
+    # the first solve builds the solve layout: one read a level
+    assert snap["counters"] == {"host_transfers": 2,
+                                "dist_setup.host_reads": _layouts(hier)}
     root = snap["spans"][-1]
     assert root["attrs"] == {"entry": "DistHierarchy.solve_cg"}
     assert [s["name"] for s in snap["spans"]
             if s["parent"] == root["id"]] == ["solve.b_in", "graph.read",
                                               "solve.x_out"]
+    _trace.reset()
+    hier.solve_cg(b, tol=1e-6, maxiter=40)
+    assert _trace.snapshot()["counters"] == {"host_transfers": 2}
+
+
+def _layouts(hier):
+    """The levels whose products the solve layout holds: all but the
+    coarsest, solved densely (level 0 always)."""
+    return max(len(hier.levels) - 1, 1)
 
 
 def test_dist_solve_fgmres_is_one_root(one_rank_group, monkeypatch):
@@ -350,4 +361,5 @@ def test_dist_solve_fgmres_is_one_root(one_rank_group, monkeypatch):
     assert relres <= 1e-6
     snap = _trace.snapshot()
     assert snap["totals"]["solve"]["n"] == 1
-    assert snap["counters"] == {"host_transfers": 2}
+    assert snap["counters"] == {"host_transfers": 2,
+                                "dist_setup.host_reads": _layouts(hier)}
