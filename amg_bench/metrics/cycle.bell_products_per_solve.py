@@ -1,0 +1,11 @@
+"""Block (BELL) products a solve: the program's counter ``bell.products``
+(each block product on the device, the one inside each block
+Gauss-Seidel color pass included, counted on every replay of a captured
+graph) over its ``solve`` spans.  None where the program has no such
+counter."""
+
+from amg_bench.harness.program_store import counter, per_solve
+
+
+def read(rec):
+    return per_solve(counter("bell.products"))

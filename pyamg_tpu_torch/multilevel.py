@@ -480,7 +480,7 @@ class MultilevelSolver:
     def enable_ds_refinement(self, A_fine64=None, device="cuda"):
         """Build the double-single form of the float64 fine operator on
         ``device`` for the outer residuals (``ops/ds.py``).  ``A_fine64``
-        defaults to the stored fine ELL in float64."""
+        defaults to the stored fine ELL or BELL in float64."""
         from pyamg_tpu_torch.ops.ds import ds_operator
         if A_fine64 is None:
             A = getattr(self.levels[0], "A_ell", self.levels[0].A)

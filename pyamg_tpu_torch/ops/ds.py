@@ -154,11 +154,16 @@ def ds_residual(A_ds, xhi, xlo, bhi, blo):
 
 
 def ds_operator(A64, kind=None, device="cuda"):
-    """The DS form of a f64 fine operator (host DIA or ELL), with its
-    float32 pairs on ``device``.  Prefers the DIA form when the operator
-    is banded, unless ``kind='ell'``."""
-    from pyamg_tpu_torch.sparse.matrix import DIA, ELL, dia_from_ell
+    """The DS form of a f64 fine operator (host DIA, ELL or BELL), with
+    its float32 pairs on ``device``.  Prefers the DIA form when an ELL is
+    banded, unless ``kind='ell'``.  A BELL takes the ELL form of its
+    scalar rows, every entry of its stored blocks: one outer residual a
+    few V-cycles is no place for a block product of its own."""
+    from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, dia_from_ell,
+                                               from_scipy, to_scipy)
     device = resolve(device)
+    if isinstance(A64, BELL):
+        A64, kind = from_scipy(to_scipy(A64).tocsr()), "ell"
     if isinstance(A64, ELL) and kind != "ell":
         D = dia_from_ell(A64)
         if D is not None:

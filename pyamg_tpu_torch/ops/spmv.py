@@ -5,7 +5,8 @@ Tensor operands are the solve phase: a DIA product is kernel K1 on CUDA
 (``ops/dia_kernels.py``), a SELL product kernel K3/K4
 (``ops/sell_kernels.py``), an ELL product a gather-multiply-reduce, a BELL
 product a gather of x's blocks and one einsum (torch ops on the tensors'
-device: the reference computes it outside any Pallas kernel).  A
+device: the reference computes it outside any Pallas kernel), counted in
+the store by its shape, on every replay of a captured graph.  A
 row-sharded operator (``parallel``) computes its rank's rows, gathering
 or exchanging its input across the ranks first.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
@@ -76,12 +78,24 @@ def bspmv(A: BELL, x):
         check_matmul_precision()
     br, bc = A.blocksize
     nb, nbc = A.n_block_rows, A.n_block_cols
+    _graph.tally(count_bell_products,
+                 (nb, nbc, br, bc, A.width, A.vals.element_size()))
     if x.ndim == 1:
         xg = x.reshape(nbc, bc)[A.cols]                 # (nb, W, bc)
         return torch.einsum("nwij,nwj->ni", A.vals, xg).reshape(nb * br)
     k = x.shape[1]
     xg = x.reshape(nbc, bc, k)[A.cols]                  # (nb, W, bc, k)
     return torch.einsum("nwij,nwjk->nik", A.vals, xg).reshape(nb * br, k)
+
+
+def count_bell_products(counts):
+    """Add {(block rows, block columns, br, bc, width, itemsize):
+    products} to the store's counters: ``bell.products`` and one counter
+    a shape, ``bell.products[nb=..,nbc=..,bs=BRxBC,w=..,item=..]``."""
+    for (nb, nbc, br, bc, width, itemsize), k in counts.items():
+        _trace.count(f"bell.products[nb={nb},nbc={nbc},bs={br}x{bc},"
+                     f"w={width},item={itemsize}]", k)
+    _trace.count("bell.products", sum(counts.values()))
 
 
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:

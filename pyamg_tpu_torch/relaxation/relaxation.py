@@ -20,7 +20,8 @@
   ``block_gauss_seidel`` over a coloring of the block graph.  A color
   pass is one full product ``A x`` (``bspmv``), one batched product with
   ``Dinv`` and a masked update, as in the reference; on tensors these are
-  torch ops on their device.
+  torch ops on their device, and each pass is counted in the store
+  (``bell.gs_passes``), on every replay of a captured graph.
 * ``schwarz``: additive overlapping Schwarz on an ELL operator, the JAX
   package's method (not PyAMG's multiplicative one): every subdomain's
   dense block ``A[S, S]`` solves its part of the residual at once, and
@@ -42,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch.sparse.matrix import BELL, DIA, ELL, from_scipy, to_scipy
 from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
 from pyamg_tpu_torch.ops.spmv import extract_diagonal, matvec
@@ -458,7 +460,15 @@ def block_gauss_seidel(A, x, b, iterations=1, sweep="forward", Dinv=None,
     for _ in range(iterations):
         for c in passes[sweep]:
             x = x + omega * _block_update(A, x, b, Dinv, colors == c)
+            if isinstance(x, torch.Tensor):
+                _graph.tally(_count_gs_passes, None)
     return x
+
+
+def _count_gs_passes(counts):
+    """Add the block Gauss-Seidel color passes to the store's counter
+    ``bell.gs_passes``."""
+    _trace.count("bell.gs_passes", sum(counts.values()))
 
 
 def block_jacobi_indexed(A, x, b, indices, Dinv=None, iterations=1,

@@ -187,6 +187,60 @@ def test_solve_counts_its_handoffs(grid40, accel):
         assert snap["totals"][name]["n"] == 1
 
 
+def _bell_counts():
+    c = _trace.snapshot()["counters"]
+    shapes = {k: v for k, v in c.items() if k.startswith("bell.products[")}
+    return c.get("bell.products", 0), c.get("bell.gs_passes", 0), shapes
+
+
+@pytest.fixture(scope="module")
+def elasticity24():
+    from pyamg_tpu_torch.gallery import linear_elasticity
+    A64, B = linear_elasticity((24, 24))
+    ml = smoothed_aggregation_solver(A64.astype(np.float32), B=B,
+                                     max_coarse=50)
+    ml.compress_stencils()
+    ml.collapse_coarse(max_n=100, device="cpu")
+    ml.enable_ds_refinement(A64, device="cpu")
+    ml.to_device("cpu")
+    return ml
+
+
+def test_block_products_and_passes_count_once_a_replay(elasticity24):
+    """A captured solve's replay counts the block products (each by its
+    shape, the sum in ``bell.products``) and the block Gauss-Seidel color
+    passes that an op-by-op solve of the same b counts, in the same
+    iterations: one V-cycle a CG iteration and one a correction, each a
+    residual, a restriction and a prolongation and 4 x (colors) color
+    passes on each level above the dense tail, and one product with A a
+    CG iteration, one a correction and one every 8th iteration."""
+    from torch_stand_in import stand_in_programs
+    ml = elasticity24
+    b = np.random.default_rng(9).standard_normal(ml.levels[0].A.shape[0])
+
+    def counted(run):
+        _trace.reset()
+        it = {}
+        with run():
+            ml.solve_refined_device(b, inner_maxiter=60, max_outer=20,
+                                    iterations_out=it)
+        return _bell_counts(), it
+
+    eager, it = counted(_graph.eager)
+    with stand_in_programs():
+        ml.solve_refined_device(b, inner_maxiter=60, max_outer=20)
+        replay, it2 = counted(contextlib.nullcontext)
+    assert replay == eager and it2 == it
+    products, passes, shapes = eager
+    assert sum(shapes.values()) == products
+    active = ml.levels[:-1]
+    colors = [lvl.pre[1]["ncolors"] for lvl in active]
+    cycles = it["outer"] + it["inner"]
+    assert passes == cycles * sum(4 * c for c in colors)
+    extra = products - cycles * sum(4 * c + 3 for c in colors)
+    assert cycles <= extra <= cycles + it["inner"] // 8
+
+
 def test_solve_refined_nests_its_inner_solves(grid40):
     """``solve_refined`` is one root; each inner ``solve`` adds its b in
     and its read, and each correction comes back once."""
