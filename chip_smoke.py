@@ -111,12 +111,18 @@ Phases, each printed on its own lines (and the second each starts at):
    before any solve; K1 on every anisotropic DIA level and K2 (each
    level's symmetric sweep) on every level it smooths, each to 0 against
    its plain version; each solve driven with the counts reset around it
-   (K1 and K2 on every DIA level the cycle visits; no kernel on the
-   elasticity path, whose ``bspmv`` and block smoothers are torch ops),
+   (K1 and K2 on every DIA level the cycle visits; K7 alone on the
+   elasticity path, whose block products and block smoothers it runs),
    warm and profiled; the elasticity fine level's ``bspmv``, block
-   Gauss-Seidel color pass and sweep by their torch operations; 64^2 and
+   Gauss-Seidel color pass and sweep by their device operations; 64^2 and
    24^2 solves on the card against the CPU; and time rows for K1 and K2
    on the anisotropic A0 and A3;
+8b. bell: K7 (the block product and block smoother pass) against its
+   plain version, every mode, at the shapes of the benchmark's 2-D
+   elasticity cell at 708^2 (levels 0-2, P0, R0, P1, float64 on level
+   0, and runtime block sides on random 4 x 4 and 2 x 5 blocks), one
+   solve of that cell, and K7's time rows (``bell_phase``; alone:
+   ``python3 chip_smoke.py bell``);
 9. families: root-node SA (energy-minimising P, float64), pairwise
    aggregation (float32) and adaptive SA (one bootstrapped candidate,
    float64) on 2-D Poisson 500^2, built with their defaults and
@@ -240,7 +246,8 @@ each by GMRES to 1e-8 (block AIR with its default F/C Jacobi and with
 block Jacobi, the JAX package's reference) and by 10 standalone cycles,
 each device-stopped with one host sync: every solve the same bit for bit
 in its three forms,
-no K1-K5 launch, iterations within 1 of the JAX package's, the true
+no K1-K6 launch (block AIR's block products and sweeps are K7's),
+iterations within 1 of the JAX package's, the true
 relative residual of the complex paths at most twice its.
 
 Phase 13, ``scale:`` (``scale_phase``), runs the JAX package's two
@@ -869,10 +876,12 @@ def build_kernels():
     kernels and the conditional graph nodes of the device loops."""
     from concurrent.futures import ThreadPoolExecutor
     from pyamg_tpu_torch import _graph
-    from pyamg_tpu_torch.ops import dia_kernels, dist_kernels, sell_kernels
+    from pyamg_tpu_torch.ops import (bell_kernels, dia_kernels, dist_kernels,
+                                     sell_kernels)
     builds = {"dia_kernels": dia_kernels.build,
               "sell_kernels": sell_kernels.build,
-              "dist_kernels": dist_kernels.build, "graph_cond": _graph.build}
+              "dist_kernels": dist_kernels.build,
+              "bell_kernels": bell_kernels.build, "graph_cond": _graph.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(fn) for name, fn in builds.items()}
         return {name: f.result() for name, f in futures.items()}
@@ -1214,13 +1223,14 @@ def krylov_phase(dev, ml, S, b, want=None, reps=3):
 def counters():
     """Every kernel wrapper's counters: {kernel: (launches, per operator,
     color passes)}."""
+    from pyamg_tpu_torch.ops import bell_kernels as bk
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import dist_kernels as tk
     from pyamg_tpu_torch.ops import sell_kernels as sk
     return {k.__name__: (k.launches, dict(k.by_op if hasattr(k, "by_op")
                                           else k.by_plan),
                          dict(getattr(k, "passes", {})))
-            for k in dk.KERNELS + sk.KERNELS + tk.KERNELS}
+            for k in dk.KERNELS + sk.KERNELS + tk.KERNELS + bk.KERNELS}
 
 
 def total_iterations(it):
@@ -2185,7 +2195,7 @@ def sa_more_paths(dev, n_aniso=512, n_el=100):
           "max_coarse": 20}, ("dia_spmv", "dia_gs_sweep"),
          (outer_near_inner_capped,
           f"outer within 1 and every inner at most {SA_INNER_CAP}")),
-        ("elasticity", A_el, B_el, {"max_coarse": 50}, (),
+        ("elasticity", A_el, B_el, {"max_coarse": 50}, ("bell_apply",),
          (iterations_near, "within 1"))]
     out = []
     for name, A64, B, kw, must, rule in specs:
@@ -2249,12 +2259,13 @@ def ops_per_call(fn, flush, skip, reps=20):
 
 
 def block_ops(dev, ml, rng, flush, skip):
-    """The elasticity cycle's block work on its fine level, by its torch
-    operations: one ``bspmv``, one block Gauss-Seidel color pass (a full
-    ``bspmv``, the batched product with the inverted diagonal blocks and
-    the masked update) and the level's whole pre-smoothing sweep.  Prints
-    each one's device time per call (L2-warm), its time with the host, and
-    its device operations (``ops_per_call``, L2 flushed)."""
+    """The elasticity cycle's block work on its fine level, by its device
+    operations: one ``bspmv`` (one K7 launch), the torch formula of a
+    block Gauss-Seidel color pass that K7's pass replaced (a full product,
+    the batched product with the inverted diagonal blocks and the masked
+    update) and the level's whole pre-smoothing sweep (K7's passes).
+    Prints each one's device time per call (L2-warm), its time with the
+    host, and its device operations (``ops_per_call``, L2 flushed)."""
     import torch
     from pyamg_tpu_torch.ops.spmv import bspmv
     from pyamg_tpu_torch.relaxation import relaxation as rx
@@ -2282,6 +2293,307 @@ def block_ops(dev, ml, rng, flush, skip):
               f"of device time per call, {cuda_ms(fn, reps=50) * 1e3:.2f} us "
               f"per call with the host; device operations per call (L2 "
               f"flushed before each): {ops}")
+
+
+BELL_SRC = "pyamg_tpu_torch/csrc/bell_kernels.cu"
+
+
+def k7_tolerance(L, x, mode, b=None, dinv=None, omega=1.0, mask=None):
+    """Per output, how far K7 and its plain version may differ: each is a
+    sum of m = width * bc products (and, for an update, br more terms and
+    two adds), in float32 or float64 rounding, in different orders (the
+    kernel's slot order with FMA, the einsum's library order), so each
+    lies within gamma(m + br + 2) = k u / (1 - k u) of the magnitude of
+    its terms (|A| |x| and |b| for the residual; |x| + |omega| |Dinv|
+    (|b| + |A| |x|) for an update) from the exact value (the standard
+    bound for a dot product); their difference within twice that, and
+    within four times here."""
+    import torch
+    br, bc = L.blocksize
+    f64 = torch.float64
+    ax = torch.einsum("nwij,nwj->ni", L.a_vals.abs().to(f64),
+                      x.abs().to(f64).reshape(L.nbc, bc)[L.a_cols])
+    if mode != "apply":
+        ax = ax + b.abs().to(f64).reshape(L.nb, br)
+    if mode in ("gs_color", "jacobi"):
+        ax = x.abs().to(f64).reshape(L.nb, br) + abs(omega) * torch.einsum(
+            "nij,nj->ni", dinv.abs().to(f64), ax)
+    u = torch.finfo(L.vals.dtype).eps / 2
+    k = L.width * bc + br + 2
+    return (4 * k * u / (1 - k * u) * ax).reshape(-1)
+
+
+def k7_case(L, x, mode, tag, b=None, dinv=None, omega=1.0, group=None,
+            mask=None):
+    """K7 once against its plain version: every output within
+    ``k7_tolerance``; a color pass leaves the other colors' rows of x bit
+    for bit as they were, a masked sweep the rows off its mask.  One
+    launch.  Returns the largest error over its tolerance."""
+    import torch
+    from pyamg_tpu_torch.ops import bell_kernels as bk
+    x0 = x.clone()
+    before = bk.bell_apply.launches
+    got = bk.bell_apply(L, x0.clone() if mode == "gs_color" else x0, mode,
+                        b=b, dinv=dinv, omega=omega, group=group, mask=mask)
+    launched = bk.bell_apply.launches - before
+    want = bk.bell_apply_plain(L, x0.clone(), mode, b=b, dinv=dinv,
+                               omega=omega, group=group, mask=mask)
+    torch.cuda.synchronize()
+    tol = k7_tolerance(L, x0, mode, b, dinv, omega, mask)
+    err = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    ratio = float((err / tol.clamp_min(1e-300)).max())
+    br = L.blocksize[0]
+    kept = None
+    if group is not None or mask is not None:
+        upd = torch.zeros(L.nb, dtype=torch.bool, device=x.device)
+        if group is not None:
+            upd[L.rows(group)] = True
+        else:
+            upd = mask
+        off = ~upd.repeat_interleave(br)
+        kept = bool(torch.equal(got[off], x0[off]))
+    print(f"bell: K7 {tag} {mode}{'' if group is None else f' color {group}'}"
+          f"{' masked' if mask is not None else ''} {str(L.vals.dtype)[6:]}: "
+          f"max |kernel - plain| {float(err.max()):.3e}, at most "
+          f"{ratio:.3e} of its rounding bound; other rows unchanged bit for "
+          f"bit {kept}; launches {launched}")
+    check(ratio <= 1.0 and launched == 1 and kept in (None, True),
+          f"K7 {tag} {mode} disagrees with its plain version")
+    return ratio
+
+
+def random_bell(rng, nb, blocksize, mb, density=4):
+    """A random host BELL of ``nb`` x ``mb`` blocks of ``blocksize``,
+    about ``density`` stored blocks a row; square: a symmetric pattern
+    with every diagonal block."""
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.sparse.matrix import bell_from_scipy
+    br, bc = blocksize
+    P = sp.random(nb, mb, density=density / mb, format="csr",
+                  random_state=int(rng.integers(1 << 31)))
+    if nb == mb:
+        P = P + P.T + sp.eye(nb)
+    P = P.tocsr()
+    P.sort_indices()
+    data = rng.standard_normal((P.nnz, br, bc)).astype(np.float32)
+    return bell_from_scipy(sp.bsr_matrix((data, P.indices, P.indptr),
+                                         shape=(nb * br, mb * bc)))
+
+
+def k7_bytes(L, mode, rows, item):
+    """Bytes a K7 launch reads and writes at least, each once: its rows'
+    slots (a block and an int32 column each; the BELL's padding slots
+    too, which it stores), x once, and its rows' b, Dinv and y."""
+    br, bc = L.blocksize
+    n = rows * L.width * (br * bc * item + 4) + L.nbc * bc * item + \
+        rows * br * item
+    if mode != "apply":
+        n += rows * br * item
+    if mode in ("gs_color", "jacobi"):
+        n += rows * br * br * item
+    return n
+
+
+def bell_phase(dev, row, n=708, seed=SEED):
+    """The ``bell:`` phase: K7 (``ops/bell_kernels.py``) at the shapes of
+    the benchmark's ``elastsa_708sq.rhs`` cell.  Its hierarchy is built as
+    the cell builds it (PyAMG's operator from ``amg_bench/reference/
+    elasticity.py``, SA with the rigid-body modes, ``max_coarse=50``,
+    float32, the cell's prep steps); every K7 mode against its plain
+    version (``k7_case``) on levels 0-2 (apply, residual, Jacobi on every
+    row and on a mask, a color pass of every color), float64 on level 0,
+    P0, R0 and P1, and the kernel of runtime block sides on 4 x 4, 2 x 5,
+    9 x 9, 4 x 10 and 11 x 11 blocks (random BELLs, the square ones'
+    color passes too); one solve as the cell runs it, its true residual and its
+    launches (every product and pass one K7 launch); and the time rows
+    (``row``: ``kernel_row``) of level 0's modes, a color pass on levels
+    1 and 2, and P0, R0 and P1, beside today's torch formula of each (the
+    library column).  Returns the rows."""
+    import dataclasses
+    import torch
+    from amg_bench.reference.elasticity import operator
+    from pyamg_tpu_torch import _trace
+    from pyamg_tpu_torch.aggregation import smoothed_aggregation_solver
+    from pyamg_tpu_torch.ops import bell_kernels as bk
+    from pyamg_tpu_torch.relaxation.relaxation import (block_pattern,
+                                                       make_coloring)
+    from pyamg_tpu_torch.sparse.matrix import BELL, bell_from_scipy
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    S, B = operator(n)
+    A64 = bell_from_scipy(S)
+    ml = smoothed_aggregation_solver(A64.astype(np.float32), B=B,
+                                     max_coarse=50)
+    ml.compress_stencils()
+    ml.collapse_coarse(max_n=4096, device=dev)
+    ml.enable_ds_refinement(A64, device=dev)
+    ml.to_device(dev)
+    print(f"bell: {n}^2 elasticity set up and placed in "
+          f"{time.perf_counter() - t0:.1f} s: levels "
+          f"{[(l.A.shape[0], l.A.blocksize) for l in ml.levels]}")
+
+    def vec(m, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(m), device=dev).to(dtype)
+
+    cases = {}
+    for i, lvl in enumerate(ml.levels[:-1][:3]):
+        A = lvl.A
+        kind, sopts, params = lvl.pre
+        check(isinstance(A, BELL) and kind == "block_gauss_seidel",
+              f"level {i} is not a BELL with block Gauss-Seidel")
+        colors, D = params["colors"], params["Dinv"]
+        # the layout to_device built: grouped by the coloring that both
+        # smoothers of the level share
+        L = bk.layout_of(A)
+        check(L.colors is colors is lvl.post[2]["colors"] and
+              len(L.groups) == sopts["ncolors"],
+              f"level {i}: its K7 layout is not grouped by its smoothers' "
+              f"coloring")
+        x, b = vec(A.shape[1]), vec(A.shape[0])
+        tag = f"A{i} ({A.n_block_rows} block rows, {A.blocksize[0]}x" \
+              f"{A.blocksize[1]}, width {A.width})"
+        k7_case(L, x, "apply", tag)
+        k7_case(L, x, "residual", tag, b=b)
+        k7_case(L, x, "jacobi", tag, b=b, dinv=D, omega=0.7)
+        mask = torch.as_tensor(np.arange(A.n_block_rows) % 3 == 0,
+                               device=dev)
+        k7_case(bk.build_layout(A), x, "jacobi", tag, b=b, dinv=D,
+                omega=0.7, mask=mask)
+        for c in range(sopts["ncolors"]):
+            k7_case(L, x, "gs_color", tag, b=b, dinv=D, omega=1.0, group=c)
+        cases[f"A{i}"] = (A, L, x, b, D, colors)
+        if i == 0:
+            A64d = dataclasses.replace(A, vals=A.vals.double())
+            D64 = D.double()
+            L64 = bk.build_layout(A64d, colors, sopts["ncolors"])
+            x64, b64 = x.double(), b.double()
+            k7_case(L64, x64, "apply", tag)
+            k7_case(L64, x64, "gs_color", tag, b=b64, dinv=D64, group=0)
+    for name, op in (("P0", ml.levels[0].P), ("R0", ml.levels[0].R),
+                     ("P1", ml.levels[1].P)):
+        if op is None:
+            continue
+        L = bk.layout_of(op)
+        x = vec(op.shape[1])
+        k7_case(L, x, "apply", f"{name} ({op.n_block_rows} block rows, "
+                f"{op.blocksize[0]}x{op.blocksize[1]}, width {op.width})")
+        cases[name] = (op, L, x, None, None, None)
+    # the kernel of runtime block sides (no hierarchy here has them): in
+    # registers up to 8 block rows, wider blocks 8 rows at a time with the
+    # residual of a sweep through a work vector; a square pattern
+    # symmetric, with its block coloring, so that its passes run too
+    for (br, bc), nb in (((4, 4), 3000), ((2, 5), 2000), ((9, 9), 1500),
+                         ((4, 10), 1500), ((11, 11), 700)):
+        H = random_bell(rng, nb, (br, bc), nb if br == bc else nb // 2)
+        G = H.to(dev)
+        L = bk.layout_of(G)
+        x = vec(G.shape[1])
+        tag = f"random {br}x{bc} ({nb} block rows, width {G.width})"
+        k7_case(L, x, "apply", tag)
+        if br == bc:
+            b = vec(G.shape[0])
+            D = torch.as_tensor(rng.standard_normal((nb, br, br)) / br,
+                                device=dev).float()
+            k7_case(L, x, "residual", tag, b=b)
+            k7_case(L, x, "jacobi", tag, b=b, dinv=D, omega=0.8)
+            colors, nc = make_coloring(block_pattern(H))
+            LC = bk.build_layout(G, torch.as_tensor(colors, device=dev), nc)
+            for c in range(min(nc, 2)):
+                k7_case(LC, x, "gs_color", tag, b=b, dinv=D, group=c)
+
+    # one solve as the cell runs it: every block product and pass one
+    # launch, and a true residual at tol
+    bs = rng.standard_normal(S.shape[0])
+    ml.solve_refined_device(bs, tol=1e-10, inner_maxiter=60, max_outer=20)
+    _trace.reset()
+    bk.reset_launch_counts()
+    it = {}
+    t0 = time.perf_counter()
+    xs = ml.solve_refined_device(bs, tol=1e-10, inner_maxiter=60,
+                                 max_outer=20, iterations_out=it)
+    wall = time.perf_counter() - t0
+    c = _trace.snapshot()["counters"]
+    relres = float(np.linalg.norm(bs - S @ xs) / np.linalg.norm(bs))
+    launches, products, passes = (c.get(k, 0) for k in (
+        "bell_kernels.launches", "bell.products", "bell.gs_passes"))
+    print(f"bell: {n}^2 solve {wall * 1e3:.1f} ms (warm, host clock), "
+          f"iterations {it}, true relres {relres:.3e}, K7 launches "
+          f"{launches} = {passes} color passes + {products} products")
+    check(relres <= 1.01e-10 and launches == passes + products > 0,
+          "bell: the solve missed tol or K7's launches are not its passes "
+          "and products")
+    per_solve = {k: v for k, v in c.items()
+                 if k.startswith("bell_kernels.launches[")}
+
+    def launched(L, mode, rows):
+        br, bc = L.blocksize
+        return per_solve.get(
+            f"bell_kernels.launches[mode={mode},nb={L.nb},rows={rows},"
+            f"bs={br}x{bc},w={L.width},item={L.vals.element_size()}]", 0)
+
+    # the time rows, L2 flushed; the library column is the torch formula
+    # the same work ran before K7 (the einsum product, the full pass)
+    rows = []
+
+    def einsum_product(A, x):
+        br, bc = A.blocksize
+        return torch.einsum("nwij,nwj->ni", A.vals, x.reshape(
+            A.n_block_cols, bc)[A.cols]).reshape(-1)
+
+    def einsum_pass(A, x, b, D, omega, m=None):
+        """The torch formula of a block smoother pass before K7: a full
+        einsum product, the batched product with Dinv, a masked
+        update."""
+        nb, br = A.n_block_rows, A.blocksize[0]
+        dx = torch.einsum("nij,nj->ni", D, (b - einsum_product(A, x))
+                          .reshape(nb, br))
+        if m is not None:
+            dx = torch.where(m[:, None], dx, 0)
+        return x + omega * dx.reshape(-1)
+
+    def timed(name, L, mode, rows_n, fn, plain, library, item=4):
+        br, bc = L.blocksize
+        ops = 2 * rows_n * L.width * br * bc
+        return row(name, "none", launched(L, mode, rows_n), 0.0, fn, plain,
+                   library, k7_bytes(L, mode, rows_n, item), ops,
+                   source=BELL_SRC, plain_reps=5, tag=name)
+
+    A, L, x, b, D, colors = cases["A0"]
+    nb = L.nb
+    rows.append(timed("K7 bell_apply A0 apply", L, "apply", nb,
+                      lambda: bk.bell_apply(L, x),
+                      lambda: bk.bell_apply_plain(L, x),
+                      lambda: einsum_product(A, x)))
+    rows.append(timed("K7 bell_apply A0 residual", L, "residual", nb,
+                      lambda: bk.bell_apply(L, x, "residual", b=b),
+                      lambda: bk.bell_apply_plain(L, x, "residual", b=b),
+                      lambda: b - einsum_product(A, x)))
+    rows.append(timed("K7 bell_apply A0 jacobi", L, "jacobi", nb,
+                      lambda: bk.bell_apply(L, x, "jacobi", b=b, dinv=D,
+                                            omega=0.7),
+                      lambda: bk.bell_apply_plain(L, x, "jacobi", b=b,
+                                                  dinv=D, omega=0.7),
+                      lambda: einsum_pass(A, x, b, D, 0.7)))
+    for name in [a for a in ("A0", "A1", "A2") if a in cases]:
+        A, L, x, b, D, colors = cases[name]
+        n0 = L.groups[0][1]
+        xc = x.clone()
+        rows.append(timed(
+            f"K7 bell_apply {name} gs_color (color 0, {n0} of {L.nb} block "
+            f"rows)", L, "gs_color", n0,
+            lambda L=L, xc=xc, b=b, D=D: bk.bell_apply(
+                L, xc, "gs_color", b=b, dinv=D, group=0),
+            lambda L=L, xc=xc, b=b, D=D: bk.bell_apply_plain(
+                L, xc, "gs_color", b=b, dinv=D, group=0),
+            lambda A=A, x=x, b=b, D=D, m=colors == 0: einsum_pass(
+                A, x, b, D, 1.0, m)))
+    for name in [a for a in ("A1", "A2", "P0", "R0", "P1") if a in cases]:
+        A, L, x = cases[name][:3]
+        rows.append(timed(f"K7 bell_apply {name} apply", L, "apply", L.nb,
+                          lambda L=L, x=x: bk.bell_apply(L, x),
+                          lambda L=L, x=x: bk.bell_apply_plain(L, x),
+                          lambda A=A, x=x: einsum_product(A, x)))
+    return rows
 
 
 def sa_more_phase(dev, sms, rng, flush, skip, want=None, small=None,
@@ -2772,20 +3084,23 @@ def gate_history(tag, got, want, rtol):
 
 
 def kernel_launches():
+    from pyamg_tpu_torch.ops import bell_kernels as bk
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import dist_kernels as tk
     from pyamg_tpu_torch.ops import sell_kernels as sk
     return {k.__name__: k.launches
-            for k in dk.KERNELS + sk.KERNELS + tk.KERNELS}
+            for k in dk.KERNELS + sk.KERNELS + tk.KERNELS + bk.KERNELS}
 
 
 def reset_kernel_launches():
+    from pyamg_tpu_torch.ops import bell_kernels as bk
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import dist_kernels as tk
     from pyamg_tpu_torch.ops import sell_kernels as sk
     dk.reset_launch_counts()
     sk.reset_launch_counts()
     tk.reset_launch_counts()
+    bk.reset_launch_counts()
 
 
 def led_in_ops(fn, dev):
@@ -3519,7 +3834,7 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
     the JAX package, which raises there; then with block Jacobi, as the
     JAX package's reference), and by 10 cycles of standalone cycling,
     device-stopped, one host sync; every solve equal in its three forms
-    (``forms_gate``), with no K1-K5 launch; GMRES's iterations within
+    (``forms_gate``), with no K1-K6 launch; GMRES's iterations within
     one of the JAX package's, its preconditioned residual below tol and,
     on the complex paths, its true one at most twice the JAX package's."""
     want = JAX_CLASSICAL2 if want is None else want
@@ -3551,7 +3866,7 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
 
         launched = forms_gate("classical2", f"{name} standalone, 10 cycles",
                               standalone, ml=ml, reps=0)["launches"]
-        check(all(v == 0 for v in launched.values()),
+        check(all(v == 0 for k, v in launched.items() if k != "bell_apply"),
               f"{name}: a kernel launched: {launched}")
         solves = [("GMRES", ml)]
         if name == "BAIR":
@@ -3572,7 +3887,8 @@ def classical2_phase(dev, want=None, n_el=100, n_c=256, reps=3):
                   f"{ref['true_relres']:.3e}), warm median of {reps} "
                   f"{gate['medians']['device-stopped'] * 1e3:.3f} ms, "
                   f"launches {launched}")
-            check(all(v == 0 for v in launched.values()),
+            check(all(v == 0 for k, v in launched.items()
+                      if k != "bell_apply"),
                   f"{name}: a kernel launched: {launched}")
             check(x.shape == b.shape and np.isfinite(x).all() and pre < 1e-8,
                   f"{name} {what}: preconditioned relres {pre:.3e} not "
@@ -3934,7 +4250,11 @@ def main(only=None):
     """Every phase; with ``only="scale"`` the device section and the
     ``scale:`` phase alone (``python3 chip_smoke.py scale``), with
     ``only="parallel2"`` the device section and the ``parallel2:`` phase
-    alone (``python3 chip_smoke.py parallel2``)."""
+    alone (``python3 chip_smoke.py parallel2``), with ``only="bell"`` the
+    device section and the ``bell:`` phase alone (``python3 chip_smoke.py
+    bell``), with ``only="blocks"`` the device section and the phases
+    whose paths run K7: ``sa_more:``, ``bell:`` and ``classical2:``
+    (``python3 chip_smoke.py blocks``)."""
     t_start = time.perf_counter()
     import torch
     check(torch.cuda.is_available(), "no CUDA device")
@@ -3955,6 +4275,40 @@ def main(only=None):
 
     # -- 1. device ---------------------------------------------------------
     card, sms = device_section(dev)
+    if only == "bell":
+        # the bell: phase alone, with K7's rows of the kernel table
+        flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
+        row = functools.partial(kernel_row, flush, flush_ops(flush))
+        rows = bell_phase(dev, row)
+        print(f"chip_smoke: the bell: phase passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if only == "blocks":
+        # every phase whose paths run K7: sa_more (elasticity 100^2), bell
+        # and classical2 (block AIR), with K7's rows of the kernel table
+        flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
+        skip = flush_ops(flush)
+        row = functools.partial(kernel_row, flush, skip)
+        print(f"chip_smoke: sa_more starts at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        sa_more_phase(dev, sms, rng, flush, skip)
+        print(f"chip_smoke: bell starts at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        rows = bell_phase(dev, row)
+        print(f"chip_smoke: classical2 starts at "
+              f"{time.perf_counter() - t_start:.1f} s")
+        classical2_phase(dev)
+        print(f"chip_smoke: the sa_more:, bell: and classical2: phases "
+              f"passed in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if only == "parallel2":
         # the parallel2: phase alone, with K6's rows of the kernel table
         flush = torch.zeros(1 << 26, dtype=torch.float32, device=dev)
@@ -4746,6 +5100,10 @@ def main(only=None):
     rows += dia_rows(dev, sms, row, sinputs, sper_op, aniso, aniso)
     del sinputs
 
+    mark("bell")
+    # -- 8b. bell: K7 at the elasticity cell's shapes ----------------------
+    rows += bell_phase(dev, row)
+
     mark("families")
     # -- 9. families: root-node, pairwise and adaptive SA on 500^2 ----------
     t0 = time.perf_counter()
@@ -4844,6 +5202,8 @@ def main(only=None):
 
 if __name__ == "__main__":
     import sys
-    check(sys.argv[1:] in ([], ["scale"], ["parallel2"]),
-          f"usage: {sys.argv[0]} [scale|parallel2] (got {sys.argv[1:]})")
+    check(sys.argv[1:] in ([], ["scale"], ["parallel2"], ["bell"],
+                          ["blocks"]),
+          f"usage: {sys.argv[0]} [scale|parallel2|bell|blocks] (got "
+          f"{sys.argv[1:]})")
     main(*sys.argv[1:])

@@ -55,8 +55,9 @@ from pyamg_tpu_torch.parallel.partition import RowSharded, all_gather
 from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
-from pyamg_tpu_torch.ops.spmv import matvec
-from pyamg_tpu_torch.relaxation.smoothing import apply_smoother
+from pyamg_tpu_torch.ops.spmv import matvec, residual
+from pyamg_tpu_torch.relaxation.smoothing import (apply_smoother,
+                                                  place_block_layouts)
 
 _NUMPY_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -368,7 +369,7 @@ class MultilevelSolver:
         def go(lvl, x, b, kind):
             L = levels[lvl]
             x = apply_smoother(*L.pre, L.A, x, b)
-            bc = matvec(L.R, b - matvec(L.A, x))
+            bc = matvec(L.R, residual(L.A, x, b))
             xc = torch.zeros_like(bc)
             if lvl == nlev - 2:
                 xc = csolve(levels[-1].A, bc)
@@ -492,7 +493,8 @@ class MultilevelSolver:
     @_trace.traced("prep.to_device")
     def to_device(self, device="cuda"):
         """Move every level's operators and smoother arrays, the coarse
-        inverse and the DS operator onto ``device``; return self.  A
+        inverse and the DS operator onto ``device``, and build kernel K7's
+        layout of each BELL (``_place_block_layouts``); return self.  A
         sharded hierarchy stays on its mesh's devices."""
         if self._sharded():
             raise ValueError("a sharded hierarchy lives on its mesh's "
@@ -508,8 +510,23 @@ class MultilevelSolver:
         self.coarse_solver.params = _put(self.coarse_solver.params, device)
         if self._ds_op is not None:
             self._ds_op = _put(self._ds_op, device)
+        self._place_block_layouts()
         self.device = device
         return self
+
+    def _place_block_layouts(self):
+        """K7's layout of every placed BELL, kept on it: each level's A
+        grouped by its block Gauss-Seidel's coloring (the coarse solver's
+        on the coarsest level), P and R in order."""
+        cs = self.coarse_solver
+        for i, lvl in enumerate(self.levels):
+            smoothers = [lvl.pre, lvl.post]
+            if i == len(self.levels) - 1 and "smoother" in cs.static:
+                smoothers.append(cs.static["smoother"] +
+                                 (cs.params["smoother"],))
+            place_block_layouts(lvl.A, smoothers)
+            for op in (lvl.P, lvl.R):
+                place_block_layouts(op)
 
     # -- solve ---------------------------------------------------------------
     @_trace.entry
@@ -1030,6 +1047,7 @@ class MultilevelSolver:
             op = _put(op, self.device)
             pre, post = (sm[:2] + (_put(sm[2], self.device),)
                          for sm in (pre, post))
+            place_block_layouts(op, (pre, post))
         self._drop_graphs()
         if getattr(self, "_f64_twin", None) is not None:
             self._f64_twin._drop_graphs()

@@ -4,11 +4,14 @@ Host (numpy) operands take scipy's CSR product: that is the setup phase.
 Tensor operands are the solve phase: a DIA product is kernel K1 on CUDA
 (``ops/dia_kernels.py``), a SELL product kernel K3/K4
 (``ops/sell_kernels.py``), an ELL product a gather-multiply-reduce, a BELL
-product a gather of x's blocks and one einsum (torch ops on the tensors'
-device: the reference computes it outside any Pallas kernel), counted in
-the store by its shape, on every replay of a captured graph.  A
-row-sharded operator (``parallel``) computes its rank's rows, gathering
-or exchanging its input across the ranks first.
+product with a vector kernel K7 (``ops/bell_kernels.py``: one launch over
+the BELL's block layout, the residual ``b - A x`` fused into it by
+``residual``; on CPU tensors its plain version), and a BELL product with
+several vectors a gather of x's blocks and one einsum (the reference
+computes both as that einsum, outside any Pallas kernel).  Block products
+are counted in the store by their shape, on every replay of a captured
+graph.  A row-sharded operator (``parallel``) computes its rank's rows,
+gathering or exchanging its input across the ranks first.
 """
 
 from __future__ import annotations
@@ -16,11 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyamg_tpu_torch import _graph, _trace
+from pyamg_tpu_torch import _graph
 from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
-from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
+from pyamg_tpu_torch.ops import bell_kernels, dia_kernels, sell_kernels
+from pyamg_tpu_torch.ops.bell_kernels import count_bell_products
 from pyamg_tpu_torch.parallel.partition import RowSharded
 
 
@@ -67,12 +71,24 @@ def row_max_abs_offdiag(A: ELL):
     return np.max(np.where(offd, np.abs(A.vals), 0), axis=1)
 
 
+def on_bell_kernel(A, x):
+    """Whether a block product of A with x is K7's: a BELL of float32 or
+    float64 tensors and a vector (K7 takes no complex blocks and one
+    vector a launch)."""
+    return isinstance(A, BELL) and isinstance(x, torch.Tensor) and \
+        x.ndim == 1 and A.vals.dtype in bell_kernels.FLOATS
+
+
 def bspmv(A: BELL, x):
     """y = A @ x for block-ELL A; x flat of shape (n_cols,) or (n_cols, k):
-    scipy's BSR product for host arrays, else x's blocks gathered by
+    scipy's BSR product for host arrays; for a vector K7 (mode apply, over
+    A's layout, ``bell_kernels.layout_of``); else x's blocks gathered by
     block column and contracted with the blocks in one einsum."""
     if isinstance(x, np.ndarray):
         return _scipy_memo(A) @ x
+    if on_bell_kernel(A, x):
+        return bell_kernels.bell_apply(bell_kernels.layout_of(A),
+                                       x.contiguous())
     if x.is_cuda:
         from pyamg_tpu_torch.ops.dense import check_matmul_precision
         check_matmul_precision()
@@ -88,14 +104,14 @@ def bspmv(A: BELL, x):
     return torch.einsum("nwij,nwjk->nik", A.vals, xg).reshape(nb * br, k)
 
 
-def count_bell_products(counts):
-    """Add {(block rows, block columns, br, bc, width, itemsize):
-    products} to the store's counters: ``bell.products`` and one counter
-    a shape, ``bell.products[nb=..,nbc=..,bs=BRxBC,w=..,item=..]``."""
-    for (nb, nbc, br, bc, width, itemsize), k in counts.items():
-        _trace.count(f"bell.products[nb={nb},nbc={nbc},bs={br}x{bc},"
-                     f"w={width},item={itemsize}]", k)
-    _trace.count("bell.products", sum(counts.values()))
+def residual(A, x, b):
+    """b - A @ x: one K7 launch (mode residual) for a BELL and vectors on
+    which it runs (``on_bell_kernel``), else ``b - matvec(A, x)``."""
+    if on_bell_kernel(A, x) and isinstance(b, torch.Tensor):
+        return bell_kernels.bell_apply(bell_kernels.layout_of(A),
+                                       x.contiguous(), "residual",
+                                       b=b.contiguous())
+    return b - matvec(A, x)
 
 
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:

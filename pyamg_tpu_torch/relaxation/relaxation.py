@@ -17,11 +17,21 @@
 * Block smoothers on a BELL, with the pseudo-inverted diagonal blocks
   ``Dinv`` (nb, br, br): ``block_jacobi``, ``block_jacobi_indexed``,
   ``cf_block_jacobi``, ``fc_block_jacobi`` and the multicolor
-  ``block_gauss_seidel`` over a coloring of the block graph.  A color
-  pass is one full product ``A x`` (``bspmv``), one batched product with
-  ``Dinv`` and a masked update, as in the reference; on tensors these are
-  torch ops on their device, and each pass is counted in the store
-  (``bell.gs_passes``), on every replay of a captured graph.
+  ``block_gauss_seidel`` over a coloring of the block graph.  On a vector
+  tensor a sweep is K7 (``ops/bell_kernels.py``): a Jacobi sweep one
+  launch (on every block row, or on an index set's rows, the others
+  copied), and on a placed hierarchy, whose operators' K7 layouts are
+  grouped by their smoothers' colorings, a color pass one launch that
+  computes the product, ``Dinv``'s product and the update on that
+  color's rows alone and writes them into a copy of x in place (exact,
+  the coloring being proper on the block graph, which the layout build
+  checks); on CPU tensors K7's plain version, the reference's formula on
+  those rows.  Otherwise (host arrays, several vectors, a coloring the
+  layout does not follow) a color pass is one full product ``A x``
+  (``bspmv``), one batched product with ``Dinv`` and a masked update, as
+  in the reference.
+  Each pass is counted in the store (``bell.gs_passes``), on every replay
+  of a captured graph.
 * ``schwarz``: additive overlapping Schwarz on an ELL operator, the JAX
   package's method (not PyAMG's multiplicative one): every subdomain's
   dense block ``A[S, S]`` solves its part of the residual at once, and
@@ -46,8 +56,9 @@ import torch
 from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch.sparse.matrix import BELL, DIA, ELL, from_scipy, to_scipy
 from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
-from pyamg_tpu_torch.ops.spmv import extract_diagonal, matvec
-from pyamg_tpu_torch.ops import dia_kernels, sell_kernels
+from pyamg_tpu_torch.ops.spmv import (extract_diagonal, matvec,
+                                      on_bell_kernel)
+from pyamg_tpu_torch.ops import bell_kernels, dia_kernels, sell_kernels
 
 
 def _bcast(v, x):
@@ -434,6 +445,13 @@ def _block_operands(A, x, b, Dinv):
 def block_jacobi(A, x, b, Dinv=None, iterations=1, omega=1.0):
     """Block Jacobi: x <- x + omega blockdiag(Dinv) (b - A x)."""
     x, b, Dinv = _block_operands(A, x, b, Dinv)
+    if on_bell_kernel(A, x):
+        L = bell_kernels.layout_of(A)
+        for _ in range(iterations):
+            x = bell_kernels.bell_apply(L, x.contiguous(), "jacobi",
+                                        b=b.contiguous(), dinv=Dinv,
+                                        omega=omega)
+        return x
     for _ in range(iterations):
         x = x + omega * _block_update(A, x, b, Dinv, None)
     return x
@@ -444,10 +462,17 @@ def block_gauss_seidel(A, x, b, iterations=1, sweep="forward", Dinv=None,
     """Multicolor block Gauss-Seidel: per color c of the block graph's
     coloring (forward, backward or forward then backward for
     'symmetric', ``iterations`` times, no pass dropped), the block rows of
-    c get omega blockdiag(Dinv) (b - A x)."""
+    c get omega blockdiag(Dinv) (b - A x).  On a vector tensor, where A's
+    K7 layout is grouped by this ``colors`` tensor (a placed hierarchy's
+    smoothers: ``smoothing.place_block_layouts``), a pass is one K7 launch
+    on its color's rows; else a full product and a masked update."""
     x, b, Dinv = _block_operands(A, x, b, Dinv)
     if colors is None:
         colors, ncolors = make_coloring(block_pattern(A))
+    L = bell_kernels.layout_of(A) if on_bell_kernel(A, x) else None
+    if L is not None and (L.colors is not colors or
+                          len(L.groups) != int(ncolors)):
+        L = None
     if isinstance(x, torch.Tensor):
         colors = torch.as_tensor(colors, device=x.device)
     else:
@@ -457,6 +482,15 @@ def block_gauss_seidel(A, x, b, iterations=1, sweep="forward", Dinv=None,
               "symmetric": order + order[::-1]}
     if sweep not in passes:
         raise ValueError(f"unknown sweep {sweep!r}")
+    if L is not None:
+        # every pass in place on one copy of x (K7, one launch a pass)
+        x, b = x.clone(memory_format=torch.contiguous_format), \
+            b.contiguous()
+        for _ in range(iterations):
+            for c in passes[sweep]:
+                bell_kernels.bell_apply(L, x, "gs_color", b=b, dinv=Dinv,
+                                        omega=omega, group=c)
+        return x
     for _ in range(iterations):
         for c in passes[sweep]:
             x = x + omega * _block_update(A, x, b, Dinv, colors == c)
@@ -477,6 +511,13 @@ def block_jacobi_indexed(A, x, b, indices, Dinv=None, iterations=1,
     a bool mask over block rows); the others keep their values."""
     x, b, Dinv = _block_operands(A, x, b, Dinv)
     mask = _index_mask(indices, A.n_block_rows, x)
+    if on_bell_kernel(A, x):
+        L = bell_kernels.layout_of(A)
+        for _ in range(iterations):
+            x = bell_kernels.bell_apply(L, x.contiguous(), "jacobi",
+                                        b=b.contiguous(), dinv=Dinv,
+                                        omega=omega, mask=mask)
+        return x
     for _ in range(iterations):
         x = x + omega * _block_update(A, x, b, Dinv, mask)
     return x

@@ -13,7 +13,9 @@ for ``MultilevelSolver.change_solve_matrix`` to rebuild from.
 
 On a block (BELL) operator the Gauss-Seidel and block names set up the
 block smoothers: the pseudo-inverted diagonal blocks and, for
-Gauss-Seidel, a first-fit coloring of the block graph.
+Gauss-Seidel, a first-fit coloring of the block graph.  Once the level
+is placed, ``place_block_layouts`` groups kernel K7's layout of its
+operator by that coloring.
 """
 
 from __future__ import annotations
@@ -440,3 +442,27 @@ def apply_smoother(kind, sopts, params, A, x, b):
         if kind == "krylov_cgnr":
             return inner.inner_cgnr(A, params["AH"], x, b, sopts["maxiter"])
     raise ValueError(f"unknown smoother kind {kind!r}")
+
+
+def place_block_layouts(A, smoothers=()):
+    """Build kernel K7's layout of the placed operator A if it is a BELL
+    on which K7 runs (``ops/bell_kernels.attach``), its block rows grouped
+    by the coloring of the first block Gauss-Seidel among ``smoothers``
+    (placed ``(kind, sopts, params)`` of A), else in order; each later
+    block Gauss-Seidel of the same coloring is given that one colors
+    tensor (its ``params`` changed in place), so that its passes run on
+    the layout too.  Set-up work: it reads the colorings on the host."""
+    import torch
+    from pyamg_tpu_torch.ops import bell_kernels
+    if not (isinstance(A, BELL) and isinstance(A.vals, torch.Tensor) and
+            A.vals.dtype in bell_kernels.FLOATS):
+        return
+    gs = [(s, p) for kind, s, p in smoothers if kind == "block_gauss_seidel"]
+    if not gs:
+        bell_kernels.attach(A)
+        return
+    (s0, p0), colors = gs[0], gs[0][1]["colors"]
+    bell_kernels.attach(A, colors, s0["ncolors"])
+    for s, p in gs[1:]:
+        if s["ncolors"] == s0["ncolors"] and torch.equal(p["colors"], colors):
+            p["colors"] = colors

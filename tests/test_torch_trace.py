@@ -190,7 +190,10 @@ def test_solve_counts_its_handoffs(grid40, accel):
 def _bell_counts():
     c = _trace.snapshot()["counters"]
     shapes = {k: v for k, v in c.items() if k.startswith("bell.products[")}
-    return c.get("bell.products", 0), c.get("bell.gs_passes", 0), shapes
+    launches = {k: v for k, v in c.items()
+                if k.startswith("bell_kernels.launches[")}
+    return c.get("bell.products", 0), c.get("bell.gs_passes", 0), shapes, \
+        c.get("bell_kernels.launches", 0), launches
 
 
 @pytest.fixture(scope="module")
@@ -208,12 +211,15 @@ def elasticity24():
 
 def test_block_products_and_passes_count_once_a_replay(elasticity24):
     """A captured solve's replay counts the block products (each by its
-    shape, the sum in ``bell.products``) and the block Gauss-Seidel color
-    passes that an op-by-op solve of the same b counts, in the same
-    iterations: one V-cycle a CG iteration and one a correction, each a
-    residual, a restriction and a prolongation and 4 x (colors) color
-    passes on each level above the dense tail, and one product with A a
-    CG iteration, one a correction and one every 8th iteration."""
+    shape, the sum in ``bell.products``), the block Gauss-Seidel color
+    passes and K7's launches (each by mode and shape, the sum in
+    ``bell_kernels.launches``) that an op-by-op solve of the same b
+    counts, in the same iterations: one V-cycle a CG iteration and one a
+    correction, each a residual, a restriction and a prolongation (full
+    products) and 4 x (colors) color passes (a pass computes its color's
+    rows alone: no full product) on each level above the dense tail, and
+    one product with A a CG iteration, one a correction and one every 8th
+    iteration; every product and every pass one K7 launch."""
     from torch_stand_in import stand_in_programs
     ml = elasticity24
     b = np.random.default_rng(9).standard_normal(ml.levels[0].A.shape[0])
@@ -231,13 +237,16 @@ def test_block_products_and_passes_count_once_a_replay(elasticity24):
         ml.solve_refined_device(b, inner_maxiter=60, max_outer=20)
         replay, it2 = counted(contextlib.nullcontext)
     assert replay == eager and it2 == it
-    products, passes, shapes = eager
+    products, passes, shapes, launches, by_mode = eager
     assert sum(shapes.values()) == products
+    assert sum(by_mode.values()) == launches == passes + products
+    assert sum(v for k, v in by_mode.items()
+               if "mode=gs_color," in k) == passes
     active = ml.levels[:-1]
     colors = [lvl.pre[1]["ncolors"] for lvl in active]
     cycles = it["outer"] + it["inner"]
     assert passes == cycles * sum(4 * c for c in colors)
-    extra = products - cycles * sum(4 * c + 3 for c in colors)
+    extra = products - cycles * 3 * len(active)
     assert cycles <= extra <= cycles + it["inner"] // 8
 
 
