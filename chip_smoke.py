@@ -875,15 +875,11 @@ def build_kernels():
     """Build every CUDA source of the port at once (one nvcc each): the
     kernels and the conditional graph nodes of the device loops."""
     from concurrent.futures import ThreadPoolExecutor
-    from pyamg_tpu_torch import _graph
-    from pyamg_tpu_torch.ops import (bell_kernels, dia_kernels, dist_kernels,
-                                     sell_kernels)
-    builds = {"dia_kernels": dia_kernels.build,
-              "sell_kernels": sell_kernels.build,
-              "dist_kernels": dist_kernels.build,
-              "bell_kernels": bell_kernels.build, "graph_cond": _graph.build}
-    with ThreadPoolExecutor(len(builds)) as pool:
-        futures = {name: pool.submit(fn) for name, fn in builds.items()}
+    from pyamg_tpu_torch.ops import launch
+    names = ("dia_kernels", "sell_kernels", "dist_kernels", "bell_kernels",
+             "graph_cond")
+    with ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(launch.build, name) for name in names}
         return {name: f.result() for name, f in futures.items()}
 
 
@@ -1064,8 +1060,7 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
     kernels = dk.KERNELS + sk.KERNELS
     out = {}
     for name, what, run, S, b, tol, must, M, captured in paths:
-        dk.reset_launch_counts()
-        sk.reset_launch_counts()
+        reset_kernel_launches()
         res = []
         with warnings.catch_warnings(record=True) as warned:
             warnings.simplefilter("always")
@@ -1076,8 +1071,7 @@ def solvers_phase(dev, paths, jax_counts, jax_s1_relres, reps=5):
         counts = counters()
         x_cold = x
         launches = {k.__name__: k.launches for k in kernels}
-        per_op = {k.__name__: dict(getattr(k, "by_op", None) or k.by_plan)
-                  for k in kernels if k.launches}
+        per_op = {k.__name__: dict(k.by_op) for k in kernels if k.launches}
         x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
         r = b - S @ x.astype(np.float64)
         relres = float(np.linalg.norm(r) / np.linalg.norm(b))
@@ -1227,8 +1221,7 @@ def counters():
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import dist_kernels as tk
     from pyamg_tpu_torch.ops import sell_kernels as sk
-    return {k.__name__: (k.launches, dict(k.by_op if hasattr(k, "by_op")
-                                          else k.by_plan),
+    return {k.__name__: (k.launches, dict(k.by_op),
                          dict(getattr(k, "passes", {})))
             for k in dk.KERNELS + sk.KERNELS + tk.KERNELS + bk.KERNELS}
 
@@ -2049,10 +2042,9 @@ def path_launches(ml):
                     out["dia_gs_sweep"][name] = dk.dia_gs_sweep.by_op[key]
             elif isinstance(op, SELL):
                 key = sk.plan_key(op)
-                out["sell_spmv"][name] = sk.sell_spmv.by_plan[key]
+                out["sell_spmv"][name] = sk.sell_spmv.by_op[key]
                 if attr == "A" and lvl.pre[0] == "gauss_seidel":
-                    out["sell_gs_sweep"][name] = \
-                        sk.sell_gs_sweep.by_plan[key]
+                    out["sell_gs_sweep"][name] = sk.sell_gs_sweep.by_op[key]
     return out
 
 
@@ -2506,7 +2498,7 @@ def bell_phase(dev, row, n=708, seed=SEED):
     bs = rng.standard_normal(S.shape[0])
     ml.solve_refined_device(bs, tol=1e-10, inner_maxiter=60, max_outer=20)
     _trace.reset()
-    bk.reset_launch_counts()
+    reset_kernel_launches()
     it = {}
     t0 = time.perf_counter()
     xs = ml.solve_refined_device(bs, tol=1e-10, inner_maxiter=60,
@@ -2522,14 +2514,12 @@ def bell_phase(dev, row, n=708, seed=SEED):
     check(relres <= 1.01e-10 and launches == passes + products > 0,
           "bell: the solve missed tol or K7's launches are not its passes "
           "and products")
-    per_solve = {k: v for k, v in c.items()
-                 if k.startswith("bell_kernels.launches[")}
+    per_solve = dict(bk.bell_apply.by_op)
 
     def launched(L, mode, rows):
         br, bc = L.blocksize
-        return per_solve.get(
-            f"bell_kernels.launches[mode={mode},nb={L.nb},rows={rows},"
-            f"bs={br}x{bc},w={L.width},item={L.vals.element_size()}]", 0)
+        return per_solve.get((mode, L.nb, L.nbc, rows, br, bc, L.width,
+                              L.vals.element_size()), 0)
 
     # the time rows, L2 flushed; the library column is the torch formula
     # the same work ran before K7 (the einsum product, the full pass)
@@ -3093,14 +3083,8 @@ def kernel_launches():
 
 
 def reset_kernel_launches():
-    from pyamg_tpu_torch.ops import bell_kernels as bk
-    from pyamg_tpu_torch.ops import dia_kernels as dk
-    from pyamg_tpu_torch.ops import dist_kernels as tk
-    from pyamg_tpu_torch.ops import sell_kernels as sk
-    dk.reset_launch_counts()
-    sk.reset_launch_counts()
-    tk.reset_launch_counts()
-    bk.reset_launch_counts()
+    from pyamg_tpu_torch.ops import launch
+    launch.reset_launch_counts()
 
 
 def led_in_ops(fn, dev):
@@ -4185,7 +4169,7 @@ def scale_phase(dev, sms, rng, setup, n=SCALE_N, want=None, reps=5):
     reset_kernel_launches()
     y_k = loop(sk.sell_spmv)
     torch.cuda.synchronize()
-    launched = (sk.sell_spmv.launches, sk.sell_spmv.by_plan[sk.plan_key(Sd)])
+    launched = (sk.sell_spmv.launches, sk.sell_spmv.by_op[sk.plan_key(Sd)])
     y_p = loop(sk.sell_spmv_plain)
     s_k, s_p = (float(v.double().square().sum()) for v in (y_k, y_p))
     start = torch.cuda.Event(enable_timing=True)
@@ -4260,6 +4244,7 @@ def main(only=None):
     check(torch.cuda.is_available(), "no CUDA device")
     from pyamg_tpu_torch.ops import dia_kernels as dk
     from pyamg_tpu_torch.ops import ds as dsm
+    from pyamg_tpu_torch.ops import launch
     from pyamg_tpu_torch.ops import sell_kernels as sk
     from pyamg_tpu_torch.sparse import sell as sellm
     from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
@@ -4358,7 +4343,8 @@ def main(only=None):
     print(f"kernels: 64^3 setup+compress+place {time.perf_counter() - t0:.2f}"
           f" s")
     kernel_inputs = {}
-    k1_capacity = dk._lib().spmv_capacity
+    k1_capacity = dk.spmv_capacity(launch.library("dia_kernels",
+                                                  dk.ENTRY_POINTS))
 
     def k1_case(name, band, offsets, n, dtype, cols=1, x=None):
         """K1 once against its plain version to 0 (non-finite at the same
@@ -4744,8 +4730,7 @@ def main(only=None):
 
     mark("main")
     # -- 3. main path --------------------------------------------------------
-    dk.reset_launch_counts()
-    sk.reset_launch_counts()
+    reset_kernel_launches()
     t0 = time.perf_counter()
     A64, ml, (nlev_setup, oc) = build_hierarchy(500, 4096, dev)
     ml.to_device(dev)
@@ -4817,8 +4802,7 @@ def main(only=None):
           "the 64^3 layouts differ from the reference's")
     S3 = to_scipy(A3)
     b3 = np.random.default_rng(0).standard_normal(A3.shape[0])
-    dk.reset_launch_counts()
-    sk.reset_launch_counts()
+    reset_kernel_launches()
     it3, res3 = {}, []
     t0 = time.perf_counter()
     x3 = ml3.solve_refined(b3, A_fine=S3, tol=1e-10, accel="cg",
@@ -4842,7 +4826,7 @@ def main(only=None):
           "a kernel of the 64^3 path was never launched")
     # the same launches per operator (keyed by plan, as the wrappers count)
     ops3 = sell_operators(ml3)
-    per_op3 = {k.__name__: {name: k.by_plan[sk.plan_key(S)]
+    per_op3 = {k.__name__: {name: k.by_op[sk.plan_key(S)]
                             for name, (S, _) in ops3.items()
                             if k is sk.sell_spmv or S.square}
                for k in sk.KERNELS}

@@ -58,6 +58,7 @@ def main():
     from pyamg_tpu_torch._native.build import NVCC_FLAGS, shared_library
     from pyamg_tpu_torch.gallery import poisson
     from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops import launch
     from pyamg_tpu_torch.sparse.matrix import dia_from_ell, to_scipy
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -66,15 +67,16 @@ def main():
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nvcc = "/usr/local/cuda/bin/nvcc"
-    builds = {"generic": (dk.SOURCE, ["-DPYAMG_DIA_SPMV_GENERIC"])}
-    builds.update({f"offsets {c}": (dk.SOURCE,
+    src = launch.source("dia_kernels")
+    builds = {"generic": (src, ["-DPYAMG_DIA_SPMV_GENERIC"])}
+    builds.update({f"offsets {c}": (src,
                                     [f"-DPYAMG_DIA_SPMV_OFFSETS={c}"])
                    for c in OFFSETS})
     if args.parent:
         builds["parent"] = (os.path.abspath(args.parent), [])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds) + 1) as pool:
-        new = pool.submit(dk.build)
+        new = pool.submit(launch.build, "dia_kernels")
         futures = {k: pool.submit(shared_library, src, [nvcc, *NVCC_FLAGS,
                                                         *flags],
                                   "dia_kernels_" + k.replace(" ", "_"))
@@ -82,9 +84,9 @@ def main():
         paths = {k: f.result()["path"] for k, f in futures.items()}
         new.result()
     print(f"k1: {len(builds) + 1} builds in {time.perf_counter() - t0:.1f} s")
-    libs = {k: ctypes.CDLL(p) if k == "parent" else dk.bind(p)
-            for k, p in paths.items()}
-    libs["new"] = dk._lib()
+    libs = {k: ctypes.CDLL(p) if k == "parent" else
+            launch.bind(p, dk.ENTRY_POINTS) for k, p in paths.items()}
+    libs["new"] = launch.library("dia_kernels", dk.ENTRY_POINTS)
     if "parent" in libs:       # the parent's C entry point
         libs["parent"].pyamg_dia_spmv_f32.restype = ctypes.c_int
         libs["parent"].pyamg_dia_spmv_f32.argtypes = [
@@ -101,9 +103,10 @@ def main():
         if label == "parent":
             def call():
                 y = torch.empty_like(x)
-                dk._check(fn(data.data_ptr(), nd, data.shape[1],
-                             offs.data_ptr(), n, x.data_ptr(), y.data_ptr(),
-                             dk._stream(dev)), "dia_spmv (parent)")
+                launch.check_rc(fn(data.data_ptr(), nd, data.shape[1],
+                                   offs.data_ptr(), n, x.data_ptr(),
+                                   y.data_ptr(), launch.stream(dev)),
+                                "dia_spmv (parent)")
                 return y
             return call
         g = dk.spmv_geometry(n, 1, data.shape[1], 4, sms)
@@ -111,13 +114,13 @@ def main():
         groups = -(-n // g.rows)
         blocks = -(-groups // t)
         host = dk._host_ints(tuple(offsets))
-        far = offs.data_ptr() if nd > lib.spmv_capacity else None
+        far = offs.data_ptr() if nd > dk.spmv_capacity(lib) else None
 
         def call():
             y = torch.empty_like(x)
-            dk._check(fn(data.data_ptr(), nd, data.shape[1], host, far, n, 1,
-                         x.data_ptr(), y.data_ptr(), t, blocks,
-                         dk._stream(dev)), f"dia_spmv ({label})")
+            launch.check_rc(fn(data.data_ptr(), nd, data.shape[1], host, far,
+                               n, 1, x.data_ptr(), y.data_ptr(), t, blocks,
+                               launch.stream(dev)), f"dia_spmv ({label})")
             return y
         return call
 

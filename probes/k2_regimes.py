@@ -107,6 +107,7 @@ def main():
     from pyamg_tpu_torch._native.build import NVCC_FLAGS, shared_library
     from pyamg_tpu_torch.gallery import poisson
     from pyamg_tpu_torch.ops import dia_kernels as dk
+    from pyamg_tpu_torch.ops.launch import bind, library, source
     from pyamg_tpu_torch.relaxation.relaxation import (dinv_vec, gs_order,
                                                        make_coloring)
     from pyamg_tpu_torch.sparse.matrix import dia_from_ell, to_scipy
@@ -117,9 +118,11 @@ def main():
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nvcc = "/usr/local/cuda/bin/nvcc"
-    libs = {"staged": dk._lib(), "staged generic": dk.bind(shared_library(
-        dk.SOURCE, [nvcc, *NVCC_FLAGS, "-DPYAMG_DIA_GS_GENERIC"],
-        "dia_kernels_variant")["path"])}
+    generic = shared_library(source("dia_kernels"),
+                             [nvcc, *NVCC_FLAGS, "-DPYAMG_DIA_GS_GENERIC"],
+                             "dia_kernels_variant")["path"]
+    libs = {"staged": library("dia_kernels", dk.ENTRY_POINTS),
+            "staged generic": bind(generic, dk.ENTRY_POINTS)}
     rng = np.random.default_rng(2022)
 
     _, ml2, _ = cs.build_hierarchy(500, 4096, dev)

@@ -3,10 +3,8 @@
 
     python3 probes/k6_variants.py [--n 1414] [--rounds 3] [--solves 30]
 
-Builds ``csrc/dist_kernels.cu`` as it is (``base``: groups of 4 slots),
-with ``-DPYAMG_DIST_STREAM`` (the layout's columns and values read with
-streaming loads, which L2 evicts first: ``stream``) and with
-``-DPYAMG_DIST_GROUP=2`` and ``=8`` (the slots a thread loads before it
+Builds ``csrc/dist_kernels.cu`` as it is (``base``: groups of 4 slots)
+and with ``-DPYAMG_DIST_GROUP=2`` and ``=8`` (the slots a thread loads before it
 adds; 16 measured slower than 8, and 8 than 4).  Each variant then runs in a process of its own, the variants in
 turn for ``--rounds`` rounds (reversed every other round): 2-D Poisson
 n^2, float32, on a one-rank NCCL group (the ``distsa_1414sq.rhs``
@@ -27,7 +25,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-VARIANTS = {"base": [], "stream": ["-DPYAMG_DIST_STREAM"],
+VARIANTS = {"base": [],
             "group2": ["-DPYAMG_DIST_GROUP=2"],
             "group8": ["-DPYAMG_DIST_GROUP=8"]}
 TIMED = ("level 0 A jacobi", "level 0 A jacobi0", "level 0 P correct",
@@ -44,11 +42,11 @@ def one(path, n, solves):
     import torch.distributed as dist
     import chip_smoke as cs
     from pyamg_tpu_torch.ops import dist_kernels as tk
+    from pyamg_tpu_torch.ops import launch
     from pyamg_tpu_torch.parallel import (dist_stencil_grid,
                                           distributed_sa_setup,
                                           make_row_mesh)
-    lib = tk.bind(path)
-    tk._lib = lambda: lib
+    launch._LIBRARIES["dist_kernels"] = launch.bind(path, tk.ENTRY_POINTS)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -113,14 +111,15 @@ def main():
         one(args.one, args.n, args.solves)
         return
     from pyamg_tpu_torch._native.build import NVCC_FLAGS, shared_library
-    from pyamg_tpu_torch.ops import dist_kernels as tk
+    from pyamg_tpu_torch.ops import launch
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     nvcc = "/usr/local/cuda/bin/nvcc"
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        futures = {k: pool.submit(shared_library, tk.SOURCE,
+        futures = {k: pool.submit(shared_library,
+                                  launch.source("dist_kernels"),
                                   [nvcc, *NVCC_FLAGS, *flags],
                                   "dist_kernels_" + k)
                    for k, flags in VARIANTS.items()}

@@ -38,14 +38,14 @@ not counted) and recorded.  A capture that fails raises; nothing falls
 back to the eager loop.
 
 The kernel wrappers count their launches in Python, which a replay does
-not reach.  So a wrapper hands its bookkeeping to ``on_replay`` (a count,
-run after the work), ``tally`` (a count folded into one a graph) and
-``ahead`` (a reservation, made before it: K2's epochs): outside a
-capture it runs at once; during a capture it is recorded.  Before a
-step's replay the program runs what the step recorded; around a
-device-stopped replay it reserves for the most trips each step could
-make, and counts each step as many times as the device ran it (the trips
-are tallied on the device and come back in the one read).
+not reach.  So a launch hands its bookkeeping to ``tally`` (a count,
+folded into one call a graph and kind) and ``ahead`` (a reservation,
+made before it: K2's epochs): outside a capture it runs at once; during
+a capture it is recorded.  Before a step's replay the program runs what
+the step recorded; around a device-stopped replay it reserves for the
+most trips each step could make, and adds each step's counts once, times
+the trips the device made of it (tallied on the device and read back in
+the one read), so the host's count work does not grow with the trips.
 
 A graph keeps the addresses of the memory it recorded.  What a kernel
 wrapper keeps between launches (K2's exchange memory) therefore belongs,
@@ -58,8 +58,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
-import os
 
 import torch
 
@@ -72,45 +70,36 @@ _per_step = False       # per_step(): a captured loop runs on the host
 _quiet = False          # a device loop's warm-ups: launches not counted
 
 
-def on_replay(fn):
-    """Host work ``fn`` done after a kernel launch (its count): now or,
-    while a program records a graph, once for every time the device runs
-    the recorded launch."""
-    if _recording is not None:
-        _recording.append(fn)
-    elif not _quiet:
-        fn()
-
-
 class _Tally:
-    """The launches of one kind recorded in one graph, by key: ``kind``
-    counts them all in one call after each replay."""
+    """The counts of one kind recorded in one graph, by key: ``kind``
+    adds them all in one call after each run of the graph, or, called
+    with ``times``, after a device loop that ran it ``times`` times."""
 
     __slots__ = ("kind", "counts")
 
     def __init__(self, kind):
         self.kind, self.counts = kind, {}
 
-    def __call__(self):
-        self.kind(self.counts)
+    def __call__(self, times=1):
+        self.kind(self.counts if times == 1 else
+                  {key: n * times for key, n in self.counts.items()})
 
 
-def tally(kind, key):
-    """Count one launch under ``key`` through ``kind({key: launches})``:
-    now or, while a program records a graph, into the graph's one tally
-    of that kind, counted on every replay (one host call a replay for all
-    the graph's launches of the kind, where ``on_replay`` makes one a
-    launch)."""
+def tally(kind, key, n=1):
+    """Count ``n`` under ``key`` through ``kind({key: n})``: now or, while
+    a program records a graph, into the graph's one tally of that kind,
+    counted once for every run of the graph (one host call a run, or a
+    device loop's, for all the graph's counts of the kind)."""
     if _recording is None:
         if not _quiet:
-            kind({key: 1})
+            kind({key: n})
         return
     held = next((h for h in _recording
                  if isinstance(h, _Tally) and h.kind == kind), None)
     if held is None:
         held = _Tally(kind)
         _recording.append(held)
-    held.counts[key] = held.counts.get(key, 0) + 1
+    held.counts[key] = held.counts.get(key, 0) + n
 
 
 def ahead(holder, amount):
@@ -399,39 +388,30 @@ class _Graph:
         return self.graph.raw_cuda_graph()
 
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                      "graph_cond.cu")
+_VP, _I32, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+_P = ctypes.POINTER
+# the entry points of csrc/graph_cond.cu (each named pyamg_graph_<name>)
+ENTRY_POINTS = {f"pyamg_graph_{name}": args for name, args in [
+    ("new", [_P(_VP)]), ("free", [_VP]),
+    ("zero", [_VP, _VP, _VP, _I32, _P(_VP)]),
+    ("child", [_VP, _VP, _VP, _P(_VP)]),
+    ("while", [_VP, _VP, _VP, _VP, _I32, _P(_U64), _P(_VP), _P(_VP)]),
+    ("while_close", [_VP, _VP, _U64, _VP, _VP, _I32, _VP, _P(_VP)]),
+    ("every", [_VP, _VP, _VP, _I32, _VP, _P(_VP), _P(_VP), _P(_VP)]),
+    ("switch", [_VP, _VP, _VP, _I32, _VP, _P(_VP), _P(_VP)]),
+    ("empty", [_VP, _VP, _P(_VP)]),
+    ("switch_probe", [_VP, _VP, _VP, _VP, _VP]),
+    ("node_types", [_VP, _VP, _I32]),
+    ("alloc_context", [_VP, ctypes.c_char_p, _I32]),
+    ("instantiate", [_P(_VP), _VP]), ("launch", [_VP, _VP]),
+    ("exec_free", [_VP])]}
 
 
-def build() -> dict:
-    """Compile ``csrc/graph_cond.cu`` (the conditional nodes of a device
-    loop) unless built already: ``{"path", "seconds", "log"}``."""
-    from pyamg_tpu_torch._native.build import cuda_library
-    return cuda_library(SOURCE, "graph_cond")
-
-
-@functools.cache
 def _lib():
-    lib = ctypes.CDLL(build()["path"])
-    vp, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
-    P = ctypes.POINTER
-    for name, args in [
-            ("new", [P(vp)]), ("free", [vp]),
-            ("zero", [vp, vp, vp, i32, P(vp)]),
-            ("child", [vp, vp, vp, P(vp)]),
-            ("while", [vp, vp, vp, vp, i32, P(u64), P(vp), P(vp)]),
-            ("while_close", [vp, vp, u64, vp, vp, i32, vp, P(vp)]),
-            ("every", [vp, vp, vp, i32, vp, P(vp), P(vp), P(vp)]),
-            ("switch", [vp, vp, vp, i32, vp, P(vp), P(vp)]),
-            ("empty", [vp, vp, P(vp)]),
-            ("switch_probe", [vp, vp, vp, vp, vp]),
-            ("node_types", [vp, vp, i32]),
-            ("alloc_context", [vp, ctypes.c_char_p, i32]),
-            ("instantiate", [P(vp), vp]), ("launch", [vp, vp]),
-            ("exec_free", [vp])]:
-        f = getattr(lib, f"pyamg_graph_{name}")
-        f.restype, f.argtypes = i32, args
-    return lib
+    """``csrc/graph_cond.cu`` (the conditional nodes of a device loop),
+    built and bound at first use."""
+    from pyamg_tpu_torch.ops import launch
+    return launch.library("graph_cond", ENTRY_POINTS)
 
 
 def _ok(rc, what):
@@ -688,11 +668,11 @@ class Graphs(Program):
         with _trace.span("graph.count"):
             trips = vals[0]
             for prog, sname, _, slot, _ in plan:
-                counts = [h for h in prog.graphs[sname][1]
-                          if not isinstance(h, tuple)]
-                for _ in range(1 if slot is None else trips[slot]):
-                    for h in counts:
-                        h()
+                times = 1 if slot is None else trips[slot]
+                if times:
+                    for h in prog.graphs[sname][1]:
+                        if isinstance(h, _Tally):
+                            h(times)
         return vals[1:]
 
     def _build(self, nodes):

@@ -72,15 +72,10 @@ constexpr int kMaxThreads = 256;    // a block, at most (ops: MAX_THREADS)
 #endif
 constexpr int kGroup = PYAMG_DIST_GROUP;
 
-// the layout's columns and values: read-only loads, or (a build for a
-// timing probe) streaming loads marked to leave L2 first
+// the layout's columns and values: read-only loads
 template <typename T>
 __device__ __forceinline__ T load_entry(const T* p) {
-#ifdef PYAMG_DIST_STREAM
-  return __ldcs(p);
-#else
   return __ldg(p);
-#endif
 }
 
 template <typename T>

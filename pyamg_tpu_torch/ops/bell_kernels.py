@@ -40,40 +40,35 @@ the einsum's order of additions is the library's).  The wrapper given
 CUDA tensors launches the kernel or raises; given CPU tensors it runs the
 plain version.
 
-Counting, through ``_graph.tally`` (so a launch recorded in a CUDA graph
-counts on every replay), on either device: ``launches`` and ``by_op``
-(keyed by mode and shape) on the wrapper, and in the store the counter
-``bell_kernels.launches`` and one a mode and shape,
-``bell_kernels.launches[mode=..,nb=..,rows=..,bs=BRxBC,w=..,item=..]``
-(``rows``: the block rows the launch computed, ``w``: the BELL's width;
-a masked Jacobi sweep is mode ``jacobi_indexed``, its rows all of them);
-a product over every block row (apply, residual, jacobi) is also a full
-block product, ``bell.products`` and ``bell.products[nb=..,nbc=..,
-bs=..,w=..,item=..]``, and a color pass is ``bell.gs_passes``.
+Counting, through ``ops/launch.py`` (so a launch recorded in a CUDA
+graph counts on every run of it), on either device: ``launches`` and
+``by_op`` on the wrapper, keyed by ``(mode, nb, nbc, rows, br, bc, width,
+itemsize)`` (``rows``: the block rows the launch computed; a masked
+Jacobi sweep is mode ``jacobi_indexed``, its rows all of them), and in
+the store the counter ``bell_kernels.launches``; a product over every
+block row (apply, residual, jacobi) is also a full block product,
+``bell.products`` and ``bell.products[nb=..,nbc=..,bs=BRxBC,w=..,
+item=..]`` (``count_bell_products``), and a color pass is
+``bell.gs_passes`` (``count_gs_passes``).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
-import os
 
 import numpy as np
 import torch
 
-from .. import _graph, _trace
-from .._native.build import cuda_library
-
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "bell_kernels.cu")
+from .. import _trace
+from . import launch
+from .launch import SM_COUNT, check_vector, ptr
 
 FLOATS = (torch.float32, torch.float64)
 SLICE = 32                  # layout rows a slice: one warp
 MAX_THREADS = 256           # threads a block, at most (kMaxThreads)
 MAX_SIDE = 8                # block rows summed in registers (kMaxSide)
-SM_COUNT = 132              # the H100 SXM's SMs (the wrapper asks the card)
 MODES = {"apply": 0, "residual": 1, "gs_color": 2, "jacobi": 2}
 
 
@@ -212,29 +207,12 @@ def layout_of(A):
     return attach(A) if L is None else L
 
 
-def build() -> dict:
-    """Compile ``csrc/bell_kernels.cu`` (unless this source was built with
-    these flags already) and return ``{"path", "seconds", "log"}``;
-    ``log`` holds the compiler's register/spill report when a build ran."""
-    return cuda_library(SOURCE, "bell_kernels")
-
-
-@functools.cache
-def _lib():
-    return bind(build()["path"])
-
-
-def bind(path):
-    """The library at ``path`` built from ``csrc/bell_kernels.cu``, its
-    entry points typed for ctypes."""
-    lib = ctypes.CDLL(path)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"pyamg_bell_apply_{suffix}")
-        fn.restype = i32
-        fn.argtypes = [vp, vp, i32, vp, i32, i32, i32, i32, i32, vp, vp, vp,
-                       vp, ctypes.c_double, vp, vp, i32, i32, i32, vp]
-    return lib
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+ENTRY_POINTS = {                    # of csrc/bell_kernels.cu
+    f"pyamg_bell_apply_{sfx}": [_VP, _VP, _I32, _VP, _I32, _I32, _I32, _I32,
+                                _I32, _VP, _VP, _VP, _VP, ctypes.c_double,
+                                _VP, _VP, _I32, _I32, _I32, _VP]
+    for sfx in ("f32", "f64")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,20 +272,6 @@ def bell_apply_plain(L, x, mode="apply", b=None, dinv=None, omega=1.0,
     return new.reshape(nb * br)
 
 
-def _check_vector(name, v, n, dtype, device):
-    if not isinstance(v, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if tuple(v.shape) != (n,):
-        raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
-                         f"({n},)")
-    if v.dtype != dtype:
-        raise TypeError(f"{name} has dtype {v.dtype}, expected {dtype}")
-    if v.device != device:
-        raise ValueError(f"{name} is on {v.device}, expected {device}")
-    if not v.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check(L, x, mode, b, dinv, omega, group, mask):
     """Validate K7's operands (on every device, so the CPU tests reach
     the same checks)."""
@@ -331,12 +295,12 @@ def _check(L, x, mode, b, dinv, omega, group, mask):
             tuple(mask.shape) != (L.nb,) or mask.device != dev):
         raise ValueError(f"a mask is a bool ({L.nb},) tensor on {dev}, for "
                          f"a Jacobi sweep")
-    _check_vector("x", x, L.nbc * bc, dtype, dev)
+    check_vector("x", x, (L.nbc * bc,), dtype, dev)
     if mode == "apply":
         if b is not None or dinv is not None:
             raise ValueError("mode 'apply' reads no b and no Dinv")
         return
-    _check_vector("b", b, L.nb * br, dtype, dev)
+    check_vector("b", b, (L.nb * br,), dtype, dev)
     if mode == "residual":
         if dinv is not None:
             raise ValueError("mode 'residual' reads no Dinv")
@@ -365,8 +329,14 @@ def bell_apply(L, x, mode="apply", b=None, dinv=None, omega=1.0,
     row0, nrows = _span(L, group)
     kind = "jacobi_indexed" if mask is not None else mode
     rows = L.groups[group][1] if group is not None else L.nb
-    _graph.tally(_count, (kind, L.nb, L.nbc, rows, br, bc, L.width,
-                          L.vals.element_size()))
+    item = L.vals.element_size()
+    launch.launched(bell_apply, (kind, L.nb, L.nbc, rows, br, bc, L.width,
+                                 item))
+    if mode == "gs_color":
+        launch.tally(count_gs_passes, None)
+    elif mask is None:
+        launch.tally(count_bell_products,
+                     (L.nb, L.nbc, br, bc, L.width, item))
     if L.vals.device.type == "cpu":
         return bell_apply_plain(L, x, mode, b, dinv, omega, group, mask)
     dev = L.vals.device
@@ -381,20 +351,20 @@ def bell_apply(L, x, mode="apply", b=None, dinv=None, omega=1.0,
     # the residual of a block wider than the registers hold (kMaxSide)
     work = torch.empty(L.nb * br, dtype=L.vals.dtype, device=dev) \
         if relax and br > MAX_SIDE else None
-    g = geometry(nrows, _sm_count(dev))
-    suffix = "f32" if L.vals.dtype == torch.float32 else "f64"
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    rc = getattr(_lib(), f"pyamg_bell_apply_{suffix}")(
+    g = geometry(nrows, launch.sm_count(dev))
+    fn = getattr(launch.library("bell_kernels", ENTRY_POINTS),
+                 f"pyamg_bell_apply_{launch.suffix(L.vals.dtype)}")
+    launch.check_rc(fn(
         L.cols.data_ptr(), L.vals.data_ptr(), L.width, ptr(L.rowmap), row0,
         nrows, L.nb, br, bc, x.data_ptr(), ptr(b), ptr(dinv), ptr(mask),
         float(omega), y.data_ptr(), ptr(work), MODES[mode], g.threads,
-        g.blocks, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bell_apply: CUDA error {rc}")
+        g.blocks, launch.stream(dev)), "bell_apply")
     return y
+
+
+launch.countable(bell_apply, store="bell_kernels.launches")
+
+KERNELS = (bell_apply,)
 
 
 def count_bell_products(counts):
@@ -407,44 +377,7 @@ def count_bell_products(counts):
     _trace.count("bell.products", sum(counts.values()))
 
 
-def _count(counts):
-    """Add {(mode, nb, nbc, rows, br, bc, width, itemsize): launches} to
-    the wrapper's and the store's counters: every launch in
-    ``bell_kernels.launches`` (and by mode and shape), a product over
-    every block row (apply, residual, jacobi) as a block product, a color
-    pass as a pass."""
-    n = passes = 0
-    products = collections.Counter()
-    for key, k in counts.items():
-        mode, nb, nbc, rows, br, bc, width, item = key
-        bell_apply.by_op[key] += k
-        _trace.count(f"bell_kernels.launches[mode={mode},nb={nb},"
-                     f"rows={rows},bs={br}x{bc},w={width},item={item}]", k)
-        n += k
-        if mode == "gs_color":
-            passes += k
-        elif mode != "jacobi_indexed":
-            products[(nb, nbc, br, bc, width, item)] += k
-    bell_apply.launches += n
-    _trace.count("bell_kernels.launches", n)
-    if passes:
-        _trace.count("bell.gs_passes", passes)
-    if products:
-        count_bell_products(products)
-
-
-@functools.cache
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-bell_apply.launches = 0
-bell_apply.by_op = collections.Counter()
-
-KERNELS = (bell_apply,)
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        k.launches = 0
-        k.by_op.clear()
+def count_gs_passes(counts):
+    """Add the block Gauss-Seidel color passes ({key: passes}) to the
+    store's counter ``bell.gs_passes``."""
+    _trace.count("bell.gs_passes", sum(counts.values()))

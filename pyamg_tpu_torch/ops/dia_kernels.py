@@ -34,81 +34,55 @@ bit for bit.
 Both take any number of diagonals and x of shape ``(n,)`` or ``(n, k)``;
 on CUDA tensors K2 runs once per column of a 2-D x.
 
-The kernels live in ``csrc/dia_kernels.cu``, built with ``nvcc`` for
-``sm_90a`` at first use (``_native/build.py``) and called through a plain
-C ABI with ctypes.  A wrapper given CUDA tensors launches its kernel or
+The kernels live in ``csrc/dia_kernels.cu``, built and called through
+``ops/launch.py``.  A wrapper given CUDA tensors launches its kernel or
 raises; given CPU tensors it runs the plain version.  Each wrapper's
 ``launches`` counts the kernels it launched (one per K1 product and one
 per K2 sweep and column of x), and its ``by_op`` the same per operator,
 keyed by ``(n, ndiag)``; ``dia_gs_sweep.passes`` counts the color passes
-K2 ran, keyed the same.  The counts go through ``_graph.on_replay``, so
-a launch recorded in a CUDA graph counts on every replay of the graph.
+K2 ran, keyed the same (``launch.countable``).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
-import os
 
 import torch
 
 from .. import _graph
-from .._native.build import cuda_library
-
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "dia_kernels.cu")
+from . import launch
+from .launch import MAX_SMEM, SM_COUNT, check_vector
+# every wrapper's counters zeroed, under the name the benchmark calls
+from .launch import reset_launch_counts  # noqa: F401
 
 _FLOATS = (torch.float32, torch.float64)
-
-# the H100 SXM (data sheet): SMs, and the dynamic shared memory one block
-# may use (kMaxSmem); the wrapper passes the card's own SM count
-SM_COUNT = 132
-MAX_SMEM = 232_448
 SPMV_THREADS = 256          # K1 threads a block, at most (kSpmvThreads)
 MAX_THREADS = 1024          # K2 threads a block, at most (kMaxThreads)
 FLAG_BLOCKS = 1024          # entries of a pass-counter array (kMaxFlagBlocks)
 GS_MIN_ROWS = 128           # rows a K2 block takes, at least
 
 
-def build() -> dict:
-    """Compile ``csrc/dia_kernels.cu`` (unless this source was built with
-    these flags already) and return ``{"path", "seconds", "log"}``;
-    ``log`` holds the compiler's register/spill report when a build ran."""
-    return cuda_library(SOURCE, "dia_kernels")
+def _entry_points():
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    table = {"pyamg_dia_spmv_capacity": []}
+    for sfx, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        table[f"pyamg_dia_spmv_{sfx}"] = [vp, i32, i64, vp, vp, i32, i32, vp,
+                                          vp, i32, i32, vp]
+        table[f"pyamg_dia_gs_sweep_{sfx}"] = [
+            vp, i32, i64, vp, i32, vp, vp, vp, vp, i32, real, vp, vp, vp, vp,
+            vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
+    return table
+
+
+ENTRY_POINTS = _entry_points()     # of csrc/dia_kernels.cu
 
 
 @functools.cache
-def _lib():
-    return bind(build()["path"])
-
-
-def bind(path):
-    """The library at ``path`` built from ``csrc/dia_kernels.cu``, its
-    entry points typed for ctypes, and ``spmv_capacity``: the most
-    offsets a K1 launch takes by value."""
-    lib = ctypes.CDLL(path)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
-        spmv = getattr(lib, f"pyamg_dia_spmv_{suffix}")
-        spmv.restype = i32
-        spmv.argtypes = [vp, i32, i64, vp, vp, i32, i32, vp, vp, i32, i32,
-                         vp]
-        gs = getattr(lib, f"pyamg_dia_gs_sweep_{suffix}")
-        gs.restype = i32
-        gs.argtypes = [vp, i32, i64, vp, i32, vp, vp, vp, vp, i32, real,
-                       vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                       i32, i32, vp]
-    lib.pyamg_dia_spmv_capacity.restype = i32
-    lib.pyamg_dia_spmv_capacity.argtypes = []
-    lib.spmv_capacity = lib.pyamg_dia_spmv_capacity()
-    return lib
-
-
-def _suffix(dtype) -> str:
-    return "f32" if dtype == torch.float32 else "f64"
+def spmv_capacity(lib):
+    """The most offsets a K1 launch of ``lib`` takes by value."""
+    return lib.pyamg_dia_spmv_capacity()
 
 
 _INTS = {}
@@ -130,25 +104,6 @@ def _host_ints(values):
     return (ctypes.c_int * len(values))(*(int(v) for v in values))
 
 
-def _check(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
-
-
-def _check_vector(name, v, shape, dtype, device):
-    if not isinstance(v, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if tuple(v.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
-                         f"{tuple(shape)}")
-    if v.dtype != dtype:
-        raise TypeError(f"{name} has dtype {v.dtype}, expected {dtype}")
-    if v.device != device:
-        raise ValueError(f"{name} is on {v.device}, expected {device}")
-    if not v.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_band(data, offsets, n, x):
     """Validate the DIA operands of both kernels (on every device, so the
     CPU tests reach the same checks): x is ``(n,)`` or ``(n, k)``."""
@@ -165,7 +120,7 @@ def _check_band(data, offsets, n, x):
     if x.ndim not in (1, 2) or x.shape[0] != n:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({n},) or "
                          f"({n}, k)")
-    _check_vector("x", x, x.shape, data.dtype, data.device)
+    check_vector("x", x, x.shape, data.dtype, data.device)
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {data.device}")
 
@@ -177,10 +132,6 @@ def _columns(fn, x, *more):
         return fn(x, *more)
     return torch.stack([fn(*(t[:, j].contiguous() for t in (x, *more)))
                         for j in range(x.shape[1])], dim=1)
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -237,30 +188,25 @@ def dia_spmv(data, offsets, n, x):
     if data.device.type == "cpu":
         return dia_spmv_plain(data, offsets, n, x)
     dev = data.device
-    lib = _lib()
+    lib = launch.library("dia_kernels", ENTRY_POINTS)
     k = 1 if x.ndim == 1 else x.shape[1]
     g = spmv_geometry(n, k, data.shape[1], data.element_size(),
-                      _sm_count(dev))
+                      launch.sm_count(dev))
     offs = tuple(int(o) for o in offsets)
     # past the by-value capacity, the offsets go through device memory
     far = _device_ints(offs, dev).data_ptr() \
-        if len(offs) > lib.spmv_capacity else None
+        if len(offs) > spmv_capacity(lib) else None
     y = torch.empty_like(x)
-    _check(getattr(lib, f"pyamg_dia_spmv_{_suffix(data.dtype)}")(
-        data.data_ptr(), len(offs), data.shape[1], _host_ints(offs), far, n,
-        k, x.data_ptr(), y.data_ptr(), g.threads, g.blocks, _stream(dev)),
-        "dia_spmv")
-    _graph.on_replay(functools.partial(_count_spmv, (n, len(offs))))
+    fn = getattr(lib, f"pyamg_dia_spmv_{launch.suffix(data.dtype)}")
+    launch.check_rc(fn(data.data_ptr(), len(offs), data.shape[1],
+                       _host_ints(offs), far, n, k, x.data_ptr(),
+                       y.data_ptr(), g.threads, g.blocks, launch.stream(dev)),
+                    "dia_spmv")
+    launch.launched(dia_spmv, (n, len(offs)))
     return y
 
 
-def _count_spmv(key):
-    dia_spmv.launches += 1
-    dia_spmv.by_op[key] += 1
-
-
-dia_spmv.launches = 0
-dia_spmv.by_op = collections.Counter()
+launch.countable(dia_spmv)
 
 
 # ---------------------------------------------------------------------------
@@ -472,14 +418,15 @@ def _gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega,
     new x.  Counts nothing: the wrapper does."""
     dev = data.device
     out = torch.empty_like(x)
-    stream = _stream(dev)
+    stream = launch.stream(dev)
     ex = _exchange(dev, stream)
     words = scratch = None
     if g.staged:
         words = ex.words_for(2 * n * (data.element_size() // 4))
     elif len(order) > 1:
         scratch = torch.empty_like(x)
-    fn = getattr(lib or _lib(), f"pyamg_dia_gs_sweep_{_suffix(data.dtype)}")
+    fn = getattr(lib or launch.library("dia_kernels", ENTRY_POINTS),
+                 f"pyamg_dia_gs_sweep_{launch.suffix(data.dtype)}")
     _graph.ahead(ex, len(order) + 1)
     rc = fn(data.data_ptr(), len(offsets), data.shape[1],
             _device_ints(offsets, dev).data_ptr(), n, b.data_ptr(),
@@ -490,7 +437,7 @@ def _gs_launch(g, data, offsets, n, x, b, Dinv, colors, order, omega,
             None if words is None else words.data_ptr(),
             ex.flags.data_ptr(), ex.ctl.data_ptr(), int(g.staged),
             g.blocks, g.threads, g.rows, g.reach, g.halo, g.smem, stream)
-    _check(rc, "dia_gs_sweep")
+    launch.check_rc(rc, "dia_gs_sweep")
     return out
 
 
@@ -501,9 +448,9 @@ def dia_gs_sweep(data, offsets, n, x, b, Dinv, colors, order, omega=1.0):
     ``(n,)`` or ``(n, k)``.  Returns the new x (K2, one launch per sweep
     and column, on CUDA tensors; the plain version on CPU tensors)."""
     _check_band(data, offsets, n, x)
-    _check_vector("b", b, x.shape, data.dtype, data.device)
-    _check_vector("Dinv", Dinv, (n,), data.dtype, data.device)
-    _check_vector("colors", colors, (n,), torch.int32, data.device)
+    check_vector("b", b, x.shape, data.dtype, data.device)
+    check_vector("Dinv", Dinv, (n,), data.dtype, data.device)
+    check_vector("colors", colors, (n,), torch.int32, data.device)
     if data.device.type == "cpu":
         return dia_gs_sweep_plain(data, offsets, n, x, b, Dinv, colors,
                                   order, omega)
@@ -511,38 +458,18 @@ def dia_gs_sweep(data, offsets, n, x, b, Dinv, colors, order, omega=1.0):
         return x.clone()
     halo = max(abs(int(o)) for o in offsets)
     g = gs_geometry(n, len(offsets), halo, data.element_size(),
-                    _sm_count(data.device))
-    key = (n, len(offsets))
+                    launch.sm_count(data.device))
+    key = ((n, len(offsets)), len(order))   # (operator, passes) a sweep
 
     def one(xc, bc):
         out = _gs_launch(g, data, offsets, n, xc, bc, Dinv, colors, order,
                          omega)
-        _graph.on_replay(functools.partial(_count_gs, key, len(order)))
+        launch.launched(dia_gs_sweep, key)
         return out
 
     return _columns(one, x, b)
 
 
-def _count_gs(key, passes):
-    dia_gs_sweep.launches += 1          # one kernel per sweep
-    dia_gs_sweep.by_op[key] += 1
-    dia_gs_sweep.passes[key] += passes
-
-
-@functools.cache
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-dia_gs_sweep.launches = 0
-dia_gs_sweep.by_op = collections.Counter()
-dia_gs_sweep.passes = collections.Counter()
+launch.countable(dia_gs_sweep, passes=True)
 
 KERNELS = (dia_spmv, dia_gs_sweep)
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        k.launches = 0
-        k.by_op.clear()
-    dia_gs_sweep.passes.clear()

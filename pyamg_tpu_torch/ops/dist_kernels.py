@@ -26,36 +26,28 @@ walks its slice's whole width; padding slots hold 0 and a column of
 their own row.  ``csrc/dist_kernels.cu`` says why the result equals the
 plain version's bit for bit.
 
-The kernel lives in ``csrc/dist_kernels.cu``, built with ``nvcc`` for
-``sm_90a`` at first use (``_native/build.py``) and called through a plain
-C ABI with ctypes.  The wrapper given CUDA tensors launches the kernel or
+The kernel lives in ``csrc/dist_kernels.cu``, built and called through
+``ops/launch.py``.  The wrapper given CUDA tensors launches the kernel or
 raises; given CPU tensors it runs the plain version.  ``launches`` counts
 the kernels it launched, ``by_op`` the same keyed by ``(rows, width sum,
 mode)``, and each launch bumps the store's counter
-``dist_kernels.launches``; the counts go through ``_graph.tally``, so a
-launch recorded in a CUDA graph counts on every replay of the graph.
+``dist_kernels.launches`` (``launch.countable``).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
-import os
 
 import torch
 
-from .. import _graph, _trace
-from .._native.build import cuda_library
-
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "dist_kernels.cu")
+from . import launch
+from .launch import SM_COUNT, check_vector, ptr
 
 _FLOATS = (torch.float32, torch.float64)
 SLICE = 32                  # rows a slice: one warp
 MAX_THREADS = 256           # threads a block, at most (kMaxThreads)
-SM_COUNT = 132              # the H100 SXM's SMs (the wrapper asks the card)
 MODES = {"apply": 0, "residual": 1, "jacobi": 2, "correct": 3,
          "jacobi0": 4}
 # the vectors of each mode's update, besides the product's source (which
@@ -148,29 +140,11 @@ def slice_layouts(operators, read):
             in enumerate(zip(operators, parts))]
 
 
-def build() -> dict:
-    """Compile ``csrc/dist_kernels.cu`` (unless this source was built with
-    these flags already) and return ``{"path", "seconds", "log"}``;
-    ``log`` holds the compiler's register/spill report when a build ran."""
-    return cuda_library(SOURCE, "dist_kernels")
-
-
-@functools.cache
-def _lib():
-    return bind(build()["path"])
-
-
-def bind(path):
-    """The library at ``path`` built from ``csrc/dist_kernels.cu``, its
-    entry points typed for ctypes."""
-    lib = ctypes.CDLL(path)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"pyamg_dist_slice_apply_{suffix}")
-        fn.restype = i32
-        fn.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, i32, i32, i32,
-                       vp]
-    return lib
+_VP, _I32 = ctypes.c_void_p, ctypes.c_int
+ENTRY_POINTS = {                    # of csrc/dist_kernels.cu
+    f"pyamg_dist_slice_apply_{sfx}": [_VP, _VP, _VP, _I32, _VP, _VP, _VP,
+                                      _VP, _VP, _I32, _I32, _I32, _VP]
+    for sfx in ("f32", "f64")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,20 +192,6 @@ def dist_slice_apply_plain(layout, src, mode="apply", x=None, b=None,
     return acc
 
 
-def _check_vector(name, v, n, dtype, device):
-    if not isinstance(v, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor")
-    if tuple(v.shape) != (n,):
-        raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
-                         f"({n},)")
-    if v.dtype != dtype:
-        raise TypeError(f"{name} has dtype {v.dtype}, expected {dtype}")
-    if v.device != device:
-        raise ValueError(f"{name} is on {v.device}, expected {device}")
-    if not v.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check(layout, src, mode, vectors):
     """Validate K6's operands (on every device, so the CPU tests reach the
     same checks): src of ``src_len`` values, and exactly the vectors of
@@ -249,14 +209,14 @@ def _check(layout, src, mode, vectors):
         if src is not None:
             raise ValueError("mode 'jacobi0' reads no src")
     else:
-        _check_vector("src", src, layout.src_len, dtype, dev)
+        check_vector("src", src, (layout.src_len,), dtype, dev)
     for name, v in vectors.items():
         if (v is not None) != (name in _NEEDS[mode]):
             raise ValueError(f"mode {mode!r} takes {_NEEDS[mode] or 'no'} "
                              f"vectors besides src; {name} is "
                              f"{'missing' if v is None else 'extra'}")
         if v is not None:
-            _check_vector(name, v, layout.rows, dtype, dev)
+            check_vector(name, v, (layout.rows,), dtype, dev)
 
 
 def dist_slice_apply(layout, src, mode="apply", x=None, b=None, w=None):
@@ -269,44 +229,17 @@ def dist_slice_apply(layout, src, mode="apply", x=None, b=None, w=None):
         return dist_slice_apply_plain(L, src, mode, x, b, w)
     dev = L.vals.device
     y = torch.empty(L.rows, dtype=L.vals.dtype, device=dev)
-    g = geometry(L.rows, _sm_count(dev))
-    suffix = "f32" if L.vals.dtype == torch.float32 else "f64"
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    rc = getattr(_lib(), f"pyamg_dist_slice_apply_{suffix}")(
+    g = geometry(L.rows, launch.sm_count(dev))
+    fn = getattr(launch.library("dist_kernels", ENTRY_POINTS),
+                 f"pyamg_dist_slice_apply_{launch.suffix(L.vals.dtype)}")
+    launch.check_rc(fn(
         L.cols.data_ptr(), L.vals.data_ptr(), L.sptr.data_ptr(), L.rows,
         ptr(src), ptr(x), ptr(b), ptr(w), y.data_ptr(), MODES[mode],
-        g.threads, g.blocks, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"dist_slice_apply: CUDA error {rc}")
-    _graph.tally(_count, (L.rows, L.width_sum, mode))
+        g.threads, g.blocks, launch.stream(dev)), "dist_slice_apply")
+    launch.launched(dist_slice_apply, (L.rows, L.width_sum, mode))
     return y
 
 
-def _count(counts):
-    """Add {key: launches} to the counters."""
-    n = 0
-    for key, k in counts.items():
-        dist_slice_apply.by_op[key] += k
-        n += k
-    dist_slice_apply.launches += n
-    _trace.count("dist_kernels.launches", n)
-
-
-@functools.cache
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-dist_slice_apply.launches = 0
-dist_slice_apply.by_op = collections.Counter()
+launch.countable(dist_slice_apply, store="dist_kernels.launches")
 
 KERNELS = (dist_slice_apply,)
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        k.launches = 0
-        k.by_op.clear()

@@ -30,41 +30,30 @@ the plan's sizes (plain Python, reached by the CPU tests);
 arithmetic on that shape, so the tests can check that every slot is
 computed once and every row summed in pass order.
 
-The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use
-(``_native/build.py``) and called through a plain C ABI with ctypes.  A
-wrapper given CUDA tensors launches its kernel or raises; given CPU
-tensors it runs the plain version.  ``sell_spmv.launches`` counts one per
-product, ``sell_gs_sweep.launches`` one per directional sweep; each
-wrapper's ``by_plan`` counts the same launches per plan, keyed by
-``plan_key``; both count through ``_graph.on_replay``, so a launch
-recorded in a CUDA graph counts on every replay.
+The kernels live in ``csrc/sell_kernels.cu``, built and called through
+``ops/launch.py``.  A wrapper given CUDA tensors launches its kernel or
+raises; given CPU tensors it runs the plain version.
+``sell_spmv.launches`` counts one per product, ``sell_gs_sweep.launches``
+one per directional sweep; each wrapper's ``by_op`` counts the same
+launches per plan, keyed by ``plan_key`` (``launch.countable``).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import dataclasses
 import functools
-import os
 
 import numpy as np
 import torch
 
-from .. import _graph
-from .._native.build import cuda_library
+from . import launch
+from .launch import MAX_SMEM, SM_COUNT, check_vector
 from ..sparse.sell import LANE, SELL
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "sell_kernels.cu")
 GS_TILE = 8 * LANE          # rows per Gauss-Seidel tile (kGsTile)
 GS_CLUSTER = GS_TILE // LANE   # K5 blocks: one per sublane (kGsCluster)
 _SWEEPS = {"forward": (0,), "backward": (1,), "symmetric": (0, 1)}
-
-# the H100 SXM (data sheet): SMs, and the dynamic shared memory one block
-# may use (kMaxSmem)
-SM_COUNT = 132
-MAX_SMEM = 232_448
 MAX_CLUSTER = 8             # the portable cluster size
 K3_THREADS = SM_COUNT * 1024   # threads K3 aims to put on the card (its
                                # staged form holds 64 registers a thread)
@@ -77,29 +66,18 @@ K5_STATIC_SMEM = 128        # its static shared memory (mbarriers; ptxas)
 _BATCH = 8                  # passes whose loads a K3 thread issues together
 
 
-def build() -> dict:
-    """Compile ``csrc/sell_kernels.cu`` (unless this source was built with
-    these flags already) and return ``{"path", "seconds", "log"}``."""
-    return cuda_library(SOURCE, "sell_kernels")
-
-
-@functools.cache
-def _lib():
-    lib = ctypes.CDLL(build()["path"])
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pyamg_sell_spmv_f32.restype = i32
-    lib.pyamg_sell_spmv_f32.argtypes = [vp, vp, vp, i32, i64, i32, i32, i32,
-                                        i32, i32, vp, vp, i32, i32, i32, i32,
-                                        i32, i32, i32, vp]
-    lib.pyamg_sell_gs_sweep_f32.restype = i32
-    lib.pyamg_sell_gs_sweep_f32.argtypes = [vp, vp, vp, i32, i64, i32, vp, vp,
-                                            ctypes.c_float, i32, vp, i32, i32,
-                                            i32, i32, i32, i32, vp]
-    return lib
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+ENTRY_POINTS = {                    # of csrc/sell_kernels.cu
+    "pyamg_sell_spmv_f32": [_VP, _VP, _VP, _I32, _I64, _I32, _I32, _I32,
+                            _I32, _I32, _VP, _VP, _I32, _I32, _I32, _I32,
+                            _I32, _I32, _I32, _VP],
+    "pyamg_sell_gs_sweep_f32": [_VP, _VP, _VP, _I32, _I64, _I32, _VP, _VP,
+                                ctypes.c_float, _I32, _VP, _I32, _I32, _I32,
+                                _I32, _I32, _I32, _VP]}
 
 
 def plan_key(A):
-    """(kind, t, passes, Sy, shape): the key of a plan in ``by_plan`` (the
+    """(kind, t, passes, Sy, shape): the key of a plan in ``by_op`` (the
     shape tells apart the small plans of a deep hierarchy, which share the
     rest)."""
     return (A.kind, A.t, A.n_passes, A.Sy, tuple(A.shape))
@@ -250,17 +228,6 @@ def gs_schedule(g, T, reverse=False):
     return (tiles[::-1] if reverse else tiles), count, order
 
 
-def _check_vector(name, v, n, device):
-    if not isinstance(v, torch.Tensor) or v.shape != (n,):
-        raise ValueError(f"{name} must be a tensor of shape ({n},)")
-    if v.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {v.dtype}; SELL is float32 only")
-    if v.device != device:
-        raise ValueError(f"{name} is on {v.device}, expected {device}")
-    if not v.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_plan(A, x):
     """Validate the operands of both kernels (on every device, so the CPU
     tests reach the same checks)."""
@@ -275,12 +242,7 @@ def _check_plan(A, x):
     if A.vals.data_ptr() % 16 or A.delta.data_ptr() % 16:
         raise ValueError("a SELL plan's arrays must be 16-byte aligned "
                          "(K5 copies them in 16-byte pieces)")
-    _check_vector("x", x, A.shape[1], A.vals.device)
-
-
-def _launch_check(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}")
+    check_vector("x", x, (A.shape[1],), torch.float32, A.vals.device)
 
 
 def _gather(A, x, lo=0, hi=None):
@@ -324,23 +286,17 @@ def sell_spmv(A, x):
     T, Sy, _ = A.vals.shape
     g = spmv_geometry(T, n)
     y = torch.empty((n,), dtype=torch.float32, device=x.device)
-    rc = _lib().pyamg_sell_spmv_f32(
+    rc = launch.library("sell_kernels", ENTRY_POINTS).pyamg_sell_spmv_f32(
         A.vals.data_ptr(), A.delta.data_ptr(), A.bases_t.data_ptr(), T,
         Sy * LANE, n, m, A.t, int(A.kind == "fat"), int(A.zero_delta0),
-        x.data_ptr(), y.data_ptr(), g.slabs, g.groups, g.cluster, g.chunk, g.rounds,
-        g.buffers, g.smem, torch.cuda.current_stream(x.device).cuda_stream)
-    _launch_check(rc, "sell_spmv")
-    _graph.on_replay(functools.partial(_count, sell_spmv, plan_key(A)))
+        x.data_ptr(), y.data_ptr(), g.slabs, g.groups, g.cluster, g.chunk,
+        g.rounds, g.buffers, g.smem, launch.stream(x.device))
+    launch.check_rc(rc, "sell_spmv")
+    launch.launched(sell_spmv, plan_key(A))
     return y
 
 
-def _count(kernel, key):
-    kernel.launches += 1
-    kernel.by_plan[key] += 1
-
-
-sell_spmv.launches = 0
-sell_spmv.by_plan = collections.Counter()
+launch.countable(sell_spmv)
 
 
 # ---------------------------------------------------------------------------
@@ -385,33 +341,25 @@ def sell_gs_sweep(A, x, b, Dinv, omega=1.0, sweep="forward"):
     if sweep not in _SWEEPS:
         raise ValueError(f"unknown sweep {sweep!r}")
     _check_plan(A, x)
-    _check_vector("b", b, A.shape[0], x.device)
-    _check_vector("Dinv", Dinv, A.shape[0], x.device)
+    check_vector("b", b, (A.shape[0],), torch.float32, x.device)
+    check_vector("Dinv", Dinv, (A.shape[0],), torch.float32, x.device)
     if x.device.type == "cpu":
         return sell_gs_sweep_plain(A, x, b, Dinv, omega, sweep)
     T, Sy, _ = A.vals.shape
     g = gs_geometry(T, Sy * LANE)
     out = _padded(x, Sy * LANE)      # the kernel zeroes the padded rows
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = launch.library("sell_kernels", ENTRY_POINTS).pyamg_sell_gs_sweep_f32
+    stream = launch.stream(x.device)
     for reverse in _SWEEPS[sweep]:
-        rc = _lib().pyamg_sell_gs_sweep_f32(
-            A.vals.data_ptr(), A.delta.data_ptr(), A.bases_t.data_ptr(), T,
-            Sy * LANE, A.shape[0], b.data_ptr(), Dinv.data_ptr(),
-            float(omega), reverse, out.data_ptr(), g.tiles, g.groups,
-            g.chunk, g.stages, int(g.x_shared), g.smem, stream)
-        _launch_check(rc, "sell_gs_sweep")
-        # one kernel per direction
-        _graph.on_replay(functools.partial(_count, sell_gs_sweep, plan_key(A)))
+        rc = fn(A.vals.data_ptr(), A.delta.data_ptr(), A.bases_t.data_ptr(),
+                T, Sy * LANE, A.shape[0], b.data_ptr(), Dinv.data_ptr(),
+                float(omega), reverse, out.data_ptr(), g.tiles, g.groups,
+                g.chunk, g.stages, int(g.x_shared), g.smem, stream)
+        launch.check_rc(rc, "sell_gs_sweep")
+        launch.launched(sell_gs_sweep, plan_key(A))  # one a direction
     return out[:A.shape[0]]
 
 
-sell_gs_sweep.launches = 0
-sell_gs_sweep.by_plan = collections.Counter()
+launch.countable(sell_gs_sweep)
 
 KERNELS = (sell_spmv, sell_gs_sweep)
-
-
-def reset_launch_counts():
-    for k in KERNELS:
-        k.launches = 0
-        k.by_plan.clear()

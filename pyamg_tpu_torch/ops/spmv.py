@@ -19,11 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyamg_tpu_torch import _graph
 from pyamg_tpu_torch.sparse.matrix import (BELL, DIA, ELL, PhaseStencil,
                                            to_scipy)
 from pyamg_tpu_torch.sparse.sell import SELL
-from pyamg_tpu_torch.ops import bell_kernels, dia_kernels, sell_kernels
+from pyamg_tpu_torch.ops import (bell_kernels, dia_kernels, launch,
+                                 sell_kernels)
 from pyamg_tpu_torch.ops.bell_kernels import count_bell_products
 from pyamg_tpu_torch.parallel.partition import RowSharded
 
@@ -94,7 +94,7 @@ def bspmv(A: BELL, x):
         check_matmul_precision()
     br, bc = A.blocksize
     nb, nbc = A.n_block_rows, A.n_block_cols
-    _graph.tally(count_bell_products,
+    launch.tally(count_bell_products,
                  (nb, nbc, br, bc, A.width, A.vals.element_size()))
     if x.ndim == 1:
         xg = x.reshape(nbc, bc)[A.cols]                 # (nb, W, bc)

@@ -24,14 +24,13 @@ go:
 Every collective enqueues on the current stream and nothing here reads a
 tensor on the host, so a sharded solve can be captured (on an NCCL
 group; ``MultilevelSolver`` does).  The wrappers count their calls in
-``COUNTS`` (reset by ``reset_counts``) through ``_graph.on_replay``, so
-that a replayed graph counts the calls it recorded.
+``COUNTS`` (reset by ``reset_counts``) through ``_graph.tally``, so that
+a replayed graph counts the calls it recorded.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -55,14 +54,15 @@ def reset_counts():
         COUNTS[k] = 0
 
 
-def _add(kind, n):
-    COUNTS[kind] += n
+def _add(counts):
+    for kind, n in counts.items():
+        COUNTS[kind] += n
 
 
 def count(kind, n=1):
     """Count ``n`` calls of the collective ``kind`` in ``COUNTS``: now, or
-    on every replay of the graph being recorded (``_graph.on_replay``)."""
-    _graph.on_replay(functools.partial(_add, kind, n))
+    on every run of the graph being recorded (``_graph.tally``)."""
+    _graph.tally(_add, kind, n)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -53,12 +53,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch.sparse.matrix import BELL, DIA, ELL, from_scipy, to_scipy
 from pyamg_tpu_torch.sparse.sell import SELL, sell_to_scipy
 from pyamg_tpu_torch.ops.spmv import (extract_diagonal, matvec,
                                       on_bell_kernel)
-from pyamg_tpu_torch.ops import bell_kernels, dia_kernels, sell_kernels
+from pyamg_tpu_torch.ops import (bell_kernels, dia_kernels, launch,
+                                 sell_kernels)
 
 
 def _bcast(v, x):
@@ -495,14 +495,8 @@ def block_gauss_seidel(A, x, b, iterations=1, sweep="forward", Dinv=None,
         for c in passes[sweep]:
             x = x + omega * _block_update(A, x, b, Dinv, colors == c)
             if isinstance(x, torch.Tensor):
-                _graph.tally(_count_gs_passes, None)
+                launch.tally(bell_kernels.count_gs_passes, None)
     return x
-
-
-def _count_gs_passes(counts):
-    """Add the block Gauss-Seidel color passes to the store's counter
-    ``bell.gs_passes``."""
-    _trace.count("bell.gs_passes", sum(counts.values()))
 
 
 def block_jacobi_indexed(A, x, b, indices, Dinv=None, iterations=1,

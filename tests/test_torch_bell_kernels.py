@@ -29,6 +29,7 @@ import torch
 
 from pyamg_tpu_torch import _graph, _trace
 from pyamg_tpu_torch.ops import bell_kernels as bk
+from pyamg_tpu_torch.ops import launch
 from pyamg_tpu_torch.ops.spmv import bspmv, residual
 from pyamg_tpu_torch.relaxation import relaxation as rx
 from pyamg_tpu_torch.sparse.matrix import BELL, bell_from_scipy
@@ -331,7 +332,7 @@ def test_every_launch_is_counted_by_mode_and_shape():
     x = _vec(A.shape[0], torch.float32, 1)
     D = rx.block_dinv(A)
     _trace.reset()
-    bk.reset_launch_counts()
+    launch.reset_launch_counts()
     bspmv(A, x)
     residual(A, x, x)
     for c in range(len(sizes)):
@@ -345,15 +346,16 @@ def test_every_launch_is_counted_by_mode_and_shape():
         3 + len(sizes)
     assert c["bell.gs_passes"] == len(sizes)
     assert c["bell.products"] == 3             # apply, residual, einsum
-    key = f"bs=2x2,w={A.width},item=4]"
-    assert c[f"bell_kernels.launches[mode=apply,nb={nb},rows={nb},{key}"] \
-        == 1
+    by_op = bk.bell_apply.by_op
+    shape = (2, 2, A.width, 4)
+    assert by_op[("apply", nb, nb, nb, *shape)] == 1
+    assert by_op[("residual", nb, nb, nb, *shape)] == 1
     for n in set(sizes):
-        assert c[f"bell_kernels.launches[mode=gs_color,nb={nb},rows={n},"
-                 f"{key}"] == sizes.count(n)
-    assert c[f"bell_kernels.launches[mode=jacobi_indexed,nb={nb},"
-             f"rows={nb},{key}"] == 1
-    assert c[f"bell.products[nb={nb},nbc={nb},{key}"] == 3
+        assert by_op[("gs_color", nb, nb, n, *shape)] == sizes.count(n)
+    assert by_op[("jacobi_indexed", nb, nb, nb, *shape)] == 1
+    assert sum(by_op.values()) == bk.bell_apply.launches
+    assert c[f"bell.products[nb={nb},nbc={nb},bs=2x2,w={A.width},"
+             f"item=4]"] == 3
 
 
 def test_a_recorded_launch_counts_on_every_replay():
@@ -369,9 +371,11 @@ def test_a_recorded_launch_counts_on_every_replay():
     finally:
         _graph._recording = None
     assert "bell_kernels.launches" not in _trace.snapshot()["counters"]
-    (tally,) = hooks
+    # one tally of the launches and one of the block products
+    assert len(hooks) == 2
     for _ in range(3):
-        tally()
+        for tally in hooks:
+            tally()
     c = _trace.snapshot()["counters"]
     assert c["bell_kernels.launches"] == c["bell.products"] == 6
 

@@ -102,30 +102,38 @@ def _captured_equals_eager(ml, b, **kw):
 # -- the launch bookkeeping ------------------------------------------------------
 
 def test_replays_add_the_recorded_launches():
-    launches, hooks = [], []
+    calls, holder = [], _Holder()
 
-    def wrapper(x):
-        """A kernel wrapper's stand-in: prepares and counts each launch."""
-        _graph.on_replay(lambda: hooks.append(len(launches)))
-        _graph.on_replay(lambda: launches.append(1))
+    def kind(counts):
+        calls.append(dict(counts))
+
+    def wrapper(x, key):
+        """A kernel wrapper's stand-in: reserves before and counts each
+        launch."""
+        _graph.ahead(holder, 3)
+        _graph.tally(kind, key)
         return 2 * x
 
     prog = _stand_in_program()
     prog.put("x", torch.ones(4))
 
     def step(s):
-        return {"y": wrapper(wrapper(s["x"]))}
+        return {"y": wrapper(wrapper(wrapper(s["x"], "a"), "b"), "a")}
 
-    prog.run("two", step)         # the warm-up counts, the capture records
-    assert len(launches) == 2 and hooks == [0, 1]
-    assert len(prog.graphs["two"][1]) == 4
+    prog.run("three", step)       # the warm-up counts, the capture records
+    assert calls == [{"a": 1}, {"b": 1}, {"a": 1}]
+    assert holder.taken == [3, 3, 3]
+    # the three reservations and one tally of the kind
+    hooks = prog.graphs["three"][1]
+    assert len(hooks) == 4 and \
+        sum(isinstance(h, _graph._Tally) for h in hooks) == 1
     for k in range(3):
         prog.put("x", torch.full((4,), float(k)))
-        prog.run("two", step)
-        assert torch.equal(prog.state["y"], torch.full((4,), 4.0 * k))
-        assert len(launches) == 4 + 2 * k
-        # the hooks run in launch order, before the replay
-        assert hooks[-2:] == [2 + 2 * k, 3 + 2 * k]
+        prog.run("three", step)
+        assert torch.equal(prog.state["y"], torch.full((4,), 8.0 * k))
+        # one call a replay for the graph's launches of the kind
+        assert calls[3 + k:] == [{"a": 2, "b": 1}]
+        assert holder.taken[3 + 3 * k:] == [3, 3, 3]
     assert prog.captures == 1
 
 
@@ -223,9 +231,12 @@ def _loop_tree(prog, inner, log, holder):
     and runs its loop of k + 2 trips, each trip step A (every 2nd) or B;
     the steps count through a stand-in wrapper (``log``) and reserve 3
     units of ``holder`` a launch."""
+    def kind(counts):
+        log.extend(tag for tag, n in counts.items() for _ in range(n))
+
     def wrapper(tag, x):
         _graph.ahead(holder, 3)
-        _graph.on_replay(lambda: log.append(tag))
+        _graph.tally(kind, tag)
         return x * 2 + 1
 
     zero_i = torch.zeros((), dtype=torch.int32)
@@ -287,6 +298,68 @@ def test_device_loop_counts_each_step_by_its_trips():
         assert holder.taken == taken
 
 
+@pytest.mark.parametrize("trips", [1, 7, 50])
+def test_a_device_loop_adds_each_step_count_once_times_its_trips(trips):
+    """After a device-stopped run, each tally a step recorded is one call
+    of its kind with the step's counts times the trips the device made
+    (independent of the trips), and the totals are the per-step form's
+    and the op-by-op form's."""
+    zero_i = torch.zeros((), dtype=torch.int32)
+
+    def run(prog, form):
+        calls = []
+
+        def one(counts):
+            calls.append(("one", dict(counts)))
+
+        def two(counts):
+            calls.append(("two", dict(counts)))
+
+        def wrapper(kind, key, x):
+            _graph.tally(kind, key)
+            return x + 1
+
+        def start(s):
+            return {"x": s["x0"] * 1, "it": zero_i.clone(),
+                    "stop": zero_i < 0}
+
+        def first(s):
+            y = wrapper(one, "p", wrapper(one, "q", wrapper(two, "r", s["x"])))
+            return {"x": wrapper(one, "p", y)}
+
+        def second(s):
+            it = s["it"] + 1
+            return {"x": wrapper(one, "p", s["x"]), "it": it,
+                    "stop": it >= trips}
+
+        prog.put("x0", torch.zeros(2))
+        tree = [_graph.Step(prog, "start", start),
+                _graph.While(prog, [_graph.Step(prog, "first", first),
+                                    _graph.Step(prog, "second", second)],
+                             100)]
+        with form():
+            got = prog.loop("t", tree, ("it", "x"))
+        calls.clear()               # what the first run recorded and warmed
+        with form():
+            assert prog.loop("t", tree, ("it", "x")) == got
+        assert got == [trips, [5.0 * trips] * 2]
+        totals = {}
+        for name, counts in calls:
+            for key, n in counts.items():
+                totals[(name, key)] = totals.get((name, key), 0) + n
+        return calls, totals
+
+    device, totals = run(_stand_in_program(), contextlib.nullcontext)
+    # step "first", its tallies in the order recorded, then "second"
+    assert device == [("two", {"r": trips}),
+                      ("one", {"q": trips, "p": 2 * trips}),
+                      ("one", {"p": trips})]
+    assert totals == {("one", "p"): 3 * trips, ("one", "q"): trips,
+                      ("two", "r"): trips}
+    assert run(_stand_in_program(), _graph.per_step)[1] == totals
+    assert run(_graph.Program(), contextlib.nullcontext)[1] == totals
+
+
 def _switch_tree(prog, log, holder):
     """A loop of 5 trips (``it``) whose body is a Switch on the trip count
     over three branches (trip k runs branch k, trips 3 and 4 none) and a
@@ -295,9 +368,12 @@ def _switch_tree(prog, log, holder):
     reserves k + 1 units of ``holder`` a launch, Z 4."""
     zero_i = torch.zeros((), dtype=torch.int32)
 
+    def kind(counts):
+        log.extend(tag for tag, n in counts.items() for _ in range(n))
+
     def wrapper(tag, units, x):
         _graph.ahead(holder, units)
-        _graph.on_replay(lambda: log.append(tag))
+        _graph.tally(kind, tag)
         return x * 2 + units
 
     def start(s):

@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from pyamg_tpu_torch.ops import dist_kernels as dk
+from pyamg_tpu_torch.ops import launch
 from pyamg_tpu_torch.parallel import dist_setup as pd
 from pyamg_tpu_torch.parallel import partition as pt
 
@@ -423,7 +424,7 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(fault):
 def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     L = _small_layout()
     src = torch.tensor([1.0, 2.0, 5.0], dtype=torch.float64)
-    dk.reset_launch_counts()
+    launch.reset_launch_counts()
     y = dk.dist_slice_apply(L, src, "residual",
                             b=torch.zeros(3, dtype=torch.float64))
     assert y.tolist() == [0.0, 1.0, -10.0]
